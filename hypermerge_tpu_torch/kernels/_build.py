@@ -1,0 +1,90 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+Each source `csrc/<stem>.cu` compiles on its own with nvcc into
+`_build/<stem>-<hash>.so`, a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds). The hash covers the
+source, the headers and the flags, so an edited kernel rebuilds and an
+unchanged one is reused. `build` starts one nvcc per source, all at
+once, and waits for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+STEMS = ("doc_kernel", "summary_wire")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# ptxas output (registers, shared memory, spills) of each build this
+# process ran, by stem
+build_log: Dict[str, str] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from CUDA_HOME, /usr/local/cuda or PATH; raises if absent."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def target(stem: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(stems: Iterable[str] = STEMS) -> Dict[str, Path]:
+    """Build every stem that is not built yet, all nvcc runs in parallel;
+    raises with the compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {stem: target(stem) for stem in stems}
+    nvcc = nvcc_path()
+    running: List[tuple] = []
+    for stem, path in out.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{stem}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((stem, path, tmp, proc))
+    failed = []
+    for stem, path, tmp, proc in running:
+        log, _ = proc.communicate()
+        build_log[stem] = log
+        if proc.returncode != 0:
+            failed.append(f"{stem} (nvcc exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return out
+
+
+def load(stem: str) -> ctypes.CDLL:
+    """The loaded library of one kernel source, built if needed."""
+    lib = _libs.get(stem)
+    if lib is None:
+        lib = ctypes.CDLL(str(build([stem])[stem]))
+        _libs[stem] = lib
+    return lib

@@ -1,0 +1,238 @@
+"""The port's materialize slice end to end on the CPU, against the JAX
+package and its host OpSet.
+
+The same change histories (fuzz sites from tests/helpers and the
+reference's synth_changes) go through hypermerge_tpu and through
+hypermerge_tpu_torch with device="cpu": the packed arrays, the decoded
+documents, the patches, the columnar summaries and the per-doc summary
+dicts must all be identical. The histories reach the port as JSON
+(`Change.to_json` -> the port's `Change.from_json`), as they would cross
+a process boundary.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from helpers import Site, random_mutation, sync
+from hypermerge_tpu.ops import columnar as ref_columnar
+from hypermerge_tpu.ops import crdt_kernels as ref_k
+from hypermerge_tpu.ops import materialize as ref_mat
+from hypermerge_tpu.ops import synth as ref_synth
+from hypermerge_tpu_torch import convert
+from hypermerge_tpu_torch.crdt.change import Change as PortChange
+from hypermerge_tpu_torch.ops import columnar as port_columnar
+from hypermerge_tpu_torch.ops import crdt_kernels as port_k
+from hypermerge_tpu_torch.ops import materialize as port_mat
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _plain(v):
+    """Python values with the model types (either package's) tagged by
+    class name, so the two packages' documents compare directly."""
+    kind = type(v).__name__
+    if kind == "Text":
+        return ("__text__", str(v))
+    if kind == "Table":
+        return ("__table__", {k: _plain(v.by_id(k)) for k in v.ids})
+    if kind == "Counter":
+        return ("__counter__", int(v))
+    if isinstance(v, dict):
+        return {k: _plain(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_plain(x) for x in v]
+    return v
+
+
+def _to_port(history):
+    return [PortChange.from_json(c.to_json()) for c in history]
+
+
+def _fuzz_sites(seed):
+    import random
+
+    r = random.Random(seed)
+    sites = [Site(a) for a in ("alice", "bob", "carol")]
+    for _ in range(5):
+        for s in sites:
+            for _ in range(r.randint(1, 3)):
+                random_mutation(s, r)
+        if r.random() < 0.6:
+            donor, receiver = r.sample(sites, 2)
+            receiver.receive(list(donor.opset.history))
+    sync(*sites)
+    return sites
+
+
+_corpus = {}
+
+
+def _corpus_for(seed):
+    """(sites, reference histories) for one fuzz seed; one doc per site,
+    plus one synth_changes history."""
+    if seed not in _corpus:
+        sites = _fuzz_sites(seed)
+        hists = [list(s.opset.history) for s in sites]
+        hists.append(ref_synth.synth_changes(150, seed=seed, text_frac=0.5))
+        _corpus[seed] = (sites, hists)
+    return _corpus[seed]
+
+
+SEEDS = [0, 1, 2]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_pack_docs_identical_and_convert_round_trips(seed):
+    _, hists = _corpus_for(seed)
+    ref = ref_columnar.pack_docs(hists)
+    port = port_columnar.pack_docs([_to_port(h) for h in hists])
+    fields = convert.batch_to_numpy(ref)
+    got = convert.batch_to_numpy(port)
+    for name in ("psrc", "ptgt", "n_ops", "doc_actors"):
+        np.testing.assert_array_equal(got[name], fields[name], err_msg=name)
+    for name in ("actors", "keys", "strings", "floats", "bigints"):
+        assert got[name] == fields[name], name
+    for c in ref.cols:
+        assert port.cols[c].dtype == ref.cols[c].dtype
+        np.testing.assert_array_equal(port.cols[c], ref.cols[c], err_msg=c)
+    # reference fields -> port batch -> numpy fields: unchanged
+    back = convert.batch_to_numpy(convert.batch_from_numpy(**fields))
+    for name, v in fields.items():
+        if name == "cols":
+            for c in v:
+                np.testing.assert_array_equal(back["cols"][c], v[c])
+        elif isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(back[name], v, err_msg=name)
+        else:
+            assert back[name] == v, name
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_materialize_docs_match_reference_and_host_opset(seed):
+    sites, hists = _corpus_for(seed)
+    port_docs = port_mat.materialize_docs(
+        port_mat.materialize_batch([_to_port(h) for h in hists], device="cpu")
+    )
+    ref_docs = ref_mat.materialize_docs(ref_mat.materialize_batch(hists))
+    assert [_plain(d) for d in port_docs] == [_plain(d) for d in ref_docs]
+    for site, doc in zip(sites, port_docs):
+        assert _plain(doc) == _plain(site.opset.materialize())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_decode_patch_and_text_join_identical(seed):
+    _, hists = _corpus_for(seed)
+    ref_dec = ref_mat.materialize_batch(hists)
+    port_dec = port_mat.materialize_batch(
+        [_to_port(h) for h in hists], device="cpu"
+    )
+    for d in range(len(hists)):
+        want = ref_mat.decode_patch(ref_dec, d).to_json()
+        assert port_mat.decode_patch(port_dec, d).to_json() == want
+        text_rows = np.nonzero(ref_dec.cols["action"][d] == 2)[0]
+        for row in text_rows.tolist():
+            assert port_mat.text_join(port_dec, d, row) == ref_mat.text_join(
+                ref_dec, d, row
+            )
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_summaries_identical(seed):
+    _, hists = _corpus_for(seed)
+    ref = ref_columnar.pack_docs(hists)
+    port = port_columnar.pack_docs([_to_port(h) for h in hists])
+    want = ref_mat.summarize_columnar(ref)
+    got = port_mat.summarize_columnar(port, device="cpu")
+    host = port_mat.decode_columnar(
+        port_mat.DecodedBatch(port, port_k.run_batch(port, device="cpu"))
+    )
+    assert got.keys() == want.keys() == host.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+        np.testing.assert_array_equal(host[k], got[k], err_msg=k)
+
+
+@pytest.mark.parametrize("lean", [False, True])
+def test_bulk_summaries_doc_identical(lean):
+    _, hists = _corpus_for(0)
+    ids = [f"doc{i}" for i in range(len(hists))]
+    ref = ref_columnar.pack_docs(hists)
+    port = port_columnar.pack_docs([_to_port(h) for h in hists])
+    clocks = None
+    if lean:
+        # lean runs carry authoritative host clocks from the caller
+        clocks = [
+            {port.actors[int(a)]: 3 + j for j, a in enumerate(row) if a >= 0}
+            for row in port_k.ensure_doc_actors(port)
+        ]
+    ra, A, K = ref_k.host_args(ref, lean=lean)
+    if lean:
+        f, s, c, _q, o, k, r, _v, ps, pt, da = ra
+        ref_out, ref_wire = ref_k.materialize_full_lean_device(
+            f, s, c, o, k, r, ps, pt, da, A=A, K=K
+        )
+    else:
+        ref_out, ref_wire = ref_k.materialize_full_device(*ra, A=A, K=K)
+    port_out, port_wire = port_k.run_batch_full(port, lean=lean, device="cpu")
+    want = ref_mat.BulkSummaries(
+        [(ids, ref, ref_mat.DecodedBatch(ref, ref_out, clocks), ref_wire, lean)]
+    )
+    got = port_mat.BulkSummaries(
+        [(ids, port, port_mat.DecodedBatch(port, port_out, clocks),
+          port_wire, lean)]
+    )
+    assert got.doc_ids == want.doc_ids
+    for i in ids:
+        assert got.doc(i) == want.doc(i)
+        ga, gj = got.arrays(i)
+        wa, wj = want.arrays(i)
+        assert gj == wj
+        np.testing.assert_array_equal(ga["clock"], wa["clock"])
+
+
+def test_port_imports_no_jax_and_requires_a_device():
+    """In a fresh interpreter with jax made unimportable, every module of
+    the port imports, no hypermerge_tpu module is loaded, and an entry
+    called without `device=` raises when CUDA is absent."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.modules["jax"] = None
+        import importlib, pkgutil
+        import hypermerge_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        bad = [m for m in sys.modules
+               if m == "hypermerge_tpu" or m.startswith("hypermerge_tpu.")]
+        assert not bad, bad
+        import torch
+        from hypermerge_tpu_torch.ops import crdt_kernels, synth
+        batch = synth.synth_batch(2, 16)
+        if torch.cuda.is_available():
+            print("cuda-present")
+        else:
+            try:
+                crdt_kernels.run_batch(batch)
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+                print("raised")
+            else:
+                raise AssertionError("run_batch ran without a device")
+        crdt_kernels.run_batch(batch, device="cpu")
+        assert "hypermerge_tpu" not in sys.modules
+        print("ok")
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.split()
+    assert lines[-1] == "ok"
+    assert lines[-2] in ("raised", "cuda-present")
