@@ -1,10 +1,14 @@
 """Carrying state across between the reference and the port.
 
-The system has no model weights: its state is the packed batch. A
-`ColumnarBatch` of the reference (hypermerge_tpu.ops.columnar) goes into
-the port as plain numpy arrays and lists, through `batch_from_numpy`, and
-comes back out through `batch_to_numpy`; kernel outputs come out through
-`out_to_numpy`. Nothing here imports the reference package.
+The system has no model weights: its state is the change histories and
+the packed batch. Histories cross as the JSON form both packages share
+(`Change.to_json` / `Change.from_json`), through
+`changes_from_reference`. A `ColumnarBatch` of the reference
+(hypermerge_tpu.ops.columnar) goes into the port as plain numpy arrays
+and lists, through `batch_from_numpy`, and comes back out through
+`batch_to_numpy`; kernel outputs come out through `out_to_numpy`. Feed
+column sidecars need no converter: both packages read and write the same
+bytes (storage/colcache.py). Nothing here imports the reference package.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from .crdt.change import Change
 from .ops.columnar import COLUMNS, ColumnarBatch
 from .ops.crdt_kernels import MaterializeOut
 
@@ -20,6 +25,13 @@ BATCH_FIELDS = (
     "cols", "psrc", "ptgt", "n_ops", "doc_actors", "slot",
     "actors", "keys", "strings", "floats", "bigints",
 )
+
+
+def changes_from_reference(json_list: List[Dict[str, Any]]) -> List[Change]:
+    """Port Changes from a history in JSON form (a list of the reference's
+    `Change.to_json()` dicts): values keep their Python types (floats,
+    bools, ints of any size)."""
+    return [Change.from_json(d) for d in json_list]
 
 
 def batch_from_numpy(

@@ -325,7 +325,9 @@ def summarize_wire_plain(
 # with torch.empty, launches on the current stream, raises on a non-zero
 # cudaGetLastError, and adds one to `launches[name]` per launch.
 
-launches: Dict[str, int] = {"materialize": 0, "summary_wire": 0}
+launches: Dict[str, int] = {
+    "materialize": 0, "summary_wire": 0, "pack_prefix": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -333,6 +335,8 @@ _SIGNATURES = {
     # source stem -> (C symbol, argtypes)
     "doc_kernel": ("hm_materialize", [_P] * 9 + [_I] * 5 + [_P] * 11),
     "summary_wire": ("hm_summary_wire", [_P] * 4 + [_I] * 9 + [_P] * 3),
+    # wrapper in ops/pack_kernels.py
+    "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)

@@ -62,6 +62,15 @@ inline int atomicMax(int* p, int v) {
   return cur;
 }
 
+inline int atomicMin(int* p, int v) {
+  int cur = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (cur > v && !__atomic_compare_exchange_n(p, &cur, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return cur;
+}
+
 // stands in for kernel<<<grid, block, 0, stream>>>(...)
 inline void shim_launch(int grid, int block, const std::function<void()>& body) {
   blockDim.x = block;

@@ -8,11 +8,15 @@ without jax:
 Tolerance: exact (bool, int32 and uint8 outputs).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from hypermerge_tpu_torch.ops import columnar
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
+from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
+from hypermerge_tpu_torch.storage import colcache
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +86,63 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     strided = out._replace(rank=out.rank.t().contiguous().t())
     with pytest.raises(ValueError, match="rank"):
         ck.summary_wire_cuda(strided, batch.n_rows, A, False)
+
+
+def _sidecar_feeds(tmp_path, n_ops_list):
+    """Plane-backed single-writer feeds (compacted sidecar files) of
+    synth histories, one per entry of `n_ops_list`."""
+    fcs = []
+    for t, n_ops in enumerate(n_ops_list):
+        path = str(tmp_path / f"f{t}.cols2")
+        cc = colcache.FeedColumnCache(colcache.FileColumnStorageV2(path), "actor00")
+        for c in synth.synth_changes(n_ops, n_actors=1, ops_per_change=16, seed=t):
+            cc.append_change(c)
+        cc.compact()
+        fc = colcache.FeedColumnCache(
+            colcache.FileColumnStorageV2(path), "actor00"
+        ).columns()
+        assert fc.planes is not None
+        fcs.append(fc)
+    return fcs
+
+
+@pytest.mark.parametrize("shape", ["ragged", "i16_false"])
+def test_pack_kernel_equals_plain(cuda, tmp_path, monkeypatch, shape):
+    """The pack on the card (pack_prefix.cu) against the same pack with
+    the plain version on the CPU, and the kernel against the plain
+    version on the card's own inputs."""
+    inf = float("inf")
+    if shape == "ragged":
+        fcs = _sidecar_feeds(tmp_path, [300, 1000])
+        specs = [[(fcs[0], 0, inf)], [(fcs[1], 0, 20)], [(fcs[0], 0, inf)],
+                 [(fcs[1], 0, 0)]]
+        kw = dict(n_docs=8, n_rows=1024)
+    else:
+        fcs = _sidecar_feeds(tmp_path, [40000])
+        specs = [[(fcs[0], 0, inf)]]
+        kw = {}
+    calls = []
+    orig = pk.pack_prefix
+
+    def spy(**k):
+        calls.append(k)
+        return orig(**k)
+
+    monkeypatch.setattr(pk, "pack_prefix", spy)
+    before = ck.launches["pack_prefix"]
+    got = columnar.pack_docs_columns(specs, device="cuda", **kw)
+    assert ck.launches["pack_prefix"] == before + 1
+    want = columnar.pack_docs_columns(specs, device="cpu", **kw)
+    for name in columnar.COLUMNS:
+        assert got.cols[name].dtype == want.cols[name].dtype, name
+        np.testing.assert_array_equal(got.cols[name], want.cols[name])
+    if shape == "i16_false":
+        assert got.cols["ctr"].dtype == np.int32
+    k = calls[0]
+    assert k["planes"][0].is_cuda
+    outs, mm = pk.pack_prefix_cuda(**k)
+    outs_plain, mm_plain = pk.pack_prefix_plain(**k)
+    torch.cuda.synchronize()
+    assert torch.equal(mm, mm_plain)
+    for name, a, b in zip(columnar.COLUMNS, outs, outs_plain):
+        assert a.dtype == b.dtype and torch.equal(a, b), name

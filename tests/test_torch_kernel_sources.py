@@ -8,7 +8,9 @@ hypermerge_tpu_torch/kernels/csrc/*.cu with g++ against
 tests/cuda_host_shim.h (one std::thread per CUDA thread, std::barrier for
 __syncthreads and warp ballots), calls the same C entry points the
 wrappers call, with CPU buffers, and compares every lane and wire byte
-with doc_kernel_plain / summarize_wire_plain. Tolerance: exact.
+with doc_kernel_plain / summarize_wire_plain, and every packed plane and
+the value range with pack_prefix_plain (on the pack inputs of the cases
+of test_torch_pack.py and on its crafted parity traps). Tolerance: exact.
 """
 
 import ctypes
@@ -18,6 +20,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +28,11 @@ from helpers import Site, random_mutation, sync
 from hypermerge_tpu.ops import columnar as ref_columnar
 from hypermerge_tpu_torch import convert
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
+from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
+from hypermerge_tpu_torch.ops.columnar import COLUMNS
+from test_torch_pack import CASES as PACK_CASES
+from test_torch_pack import port_pack, trap_inputs, trap_variants
 
 TESTS = Path(__file__).resolve().parent
 CSRC = TESTS.parent / "hypermerge_tpu_torch" / "kernels" / "csrc"
@@ -155,3 +162,46 @@ def test_kernel_sources_equal_plain(host_kernels, name, lean):
         _run_host_wire(host_kernels["summary_wire"], want, N, A, lean),
         ck.summarize_wire_plain(want, N, A, lean),
     )
+
+
+def _run_host_pack(fn, kw):
+    """pack_prefix.cu, compiled for the host, over pack_prefix keyword
+    arguments (CPU tensors); outputs start as garbage."""
+    dtypes = pk._out_dtypes(kw["row32"], kw["key32"])
+    Dp, N = kw["Dp"], kw["N"]
+    outs = tuple(
+        torch.full((Dp, N), 0x5A, dtype=dtypes[name]) for name in COLUMNS
+    )
+    minmax = torch.zeros(2, dtype=torch.int32)
+    planes, luts = kw["planes"], kw["luts"]
+    src_ptrs = np.asarray([t.data_ptr() for t in planes], np.int64)
+    src_codes = np.asarray([pk._TORCH_CODE[t.dtype] for t in planes], np.int32)
+    out_ptrs = np.asarray([t.data_ptr() for t in outs], np.int64)
+    rc = fn(
+        src_ptrs.ctypes.data, src_codes.ctypes.data, kw["doc_start"].data_ptr(),
+        kw["ends"].data_ptr(), kw["writer"].data_ptr(), kw["lut_off"].data_ptr(),
+        *(t.data_ptr() for t in luts), *(int(t.shape[0]) for t in luts),
+        kw["ends"].shape[0], Dp, N, int(kw["row32"]), int(kw["key32"]),
+        out_ptrs.ctypes.data, minmax.data_ptr(), None,
+    )
+    assert rc == 0
+    return outs, minmax
+
+
+PACK_SOURCE_CASES = [c for c in PACK_CASES if c != "multi_actor_general"]
+
+
+@pytest.mark.parametrize("case", PACK_SOURCE_CASES + list(trap_variants()))
+def test_pack_kernel_source_equals_plain(host_kernels, tmp_path, monkeypatch, case):
+    if case in PACK_CASES:
+        _, port_specs, kw_pack, _ = PACK_CASES[case](tmp_path)
+        _, calls = port_pack(monkeypatch, port_specs, **kw_pack)
+        (kw,) = calls
+    else:
+        kw = trap_inputs(case)
+    want, want_mm = pk.pack_prefix_plain(**kw)
+    got, got_mm = _run_host_pack(host_kernels["pack_prefix"], kw)
+    assert got_mm.tolist() == want_mm.tolist()
+    for name, g, w in zip(COLUMNS, got, want):
+        assert g.dtype == w.dtype, name
+        assert torch.equal(g, w), name

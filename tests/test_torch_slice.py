@@ -24,10 +24,12 @@ from hypermerge_tpu.ops import crdt_kernels as ref_k
 from hypermerge_tpu.ops import materialize as ref_mat
 from hypermerge_tpu.ops import synth as ref_synth
 from hypermerge_tpu_torch import convert
+from hypermerge_tpu_torch.crdt.change import Action as PortAction
 from hypermerge_tpu_torch.crdt.change import Change as PortChange
 from hypermerge_tpu_torch.ops import columnar as port_columnar
 from hypermerge_tpu_torch.ops import crdt_kernels as port_k
 from hypermerge_tpu_torch.ops import materialize as port_mat
+from test_torch_colcache import plane_caches, single_writer_history
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -198,7 +200,8 @@ def test_bulk_summaries_doc_identical(lean):
 def test_port_imports_no_jax_and_requires_a_device():
     """In a fresh interpreter with jax made unimportable, every module of
     the port imports, no hypermerge_tpu module is loaded, and an entry
-    called without `device=` raises when CUDA is absent."""
+    called without `device=` raises when CUDA is absent: `run_batch`, and
+    `pack_docs_columns` on both of its paths."""
     code = textwrap.dedent(
         """
         import sys
@@ -224,6 +227,28 @@ def test_port_imports_no_jax_and_requires_a_device():
             else:
                 raise AssertionError("run_batch ran without a device")
         crdt_kernels.run_batch(batch, device="cpu")
+        # the sidecar pack resolves its device before it routes: the
+        # single-writer fast path and the multi-actor general path alike
+        from hypermerge_tpu_torch.ops.columnar import pack_docs_columns
+        from hypermerge_tpu_torch.storage.colcache import (
+            FeedColumnCache, MemoryColumnStorage,
+        )
+        feeds = {}
+        for c in synth.synth_changes(64, n_actors=2, ops_per_change=8):
+            feeds.setdefault(c.actor, FeedColumnCache(
+                MemoryColumnStorage(), writer=c.actor)).append_change(c)
+        inf = float("inf")
+        fast = [[(fc.columns(), 0, inf)] for fc in feeds.values()]
+        general = [[(fc.columns(), 0, inf) for fc in feeds.values()]]
+        for specs in (fast, general):
+            if not torch.cuda.is_available():
+                try:
+                    pack_docs_columns(specs)
+                except RuntimeError as e:
+                    assert "device='cpu'" in str(e), e
+                else:
+                    raise AssertionError("pack_docs_columns ran without a device")
+            pack_docs_columns(specs, device="cpu")
         assert "hypermerge_tpu" not in sys.modules
         print("ok")
         """
@@ -236,3 +261,104 @@ def test_port_imports_no_jax_and_requires_a_device():
     lines = proc.stdout.split()
     assert lines[-1] == "ok"
     assert lines[-2] in ("raised", "cuda-present")
+
+
+# ---------------------------------------------------------------------------
+# the sidecar slice: feed column sidecars on disk -> pack -> kernels ->
+# summary wire -> decoded patches, against the JAX package's same path
+
+
+def _sidecar_corpus(tmp_path, corpus):
+    """(reference histories, doc -> history index, row bucket)."""
+    if corpus == "synth":
+        hists = [
+            ref_synth.synth_changes(64, n_actors=1, ops_per_change=16, seed=t)
+            for t in range(3)
+        ]
+        return hists, [0, 1, 2, 0, 1], 64
+    from hypermerge_tpu.models import Counter, Text
+
+    site = Site("actor05")  # counter increments: the dispatch is not lean
+    site.change(lambda d: d.__setitem__("n", Counter(2)))
+    site.change(lambda d: d.increment("n", 5))
+    site.change(lambda d: d.__setitem__("t", Text("hey")))
+    site.change(lambda d: d["t"].insert(3, "!"))
+    hists = [single_writer_history(40, n_mut=12), list(site.opset.history)]
+    return hists, [0, 1, 1], 128
+
+
+def _reopened_caches(tmp_path, hists):
+    """Each history's sidecar, written and compacted by each package,
+    then reopened (plane-backed): ([reference FeedColumns], [port's])."""
+    ref_fcs, port_fcs = [], []
+    for i, h in enumerate(hists):
+        rc, pc = plane_caches(tmp_path, f"slice{i}", h)
+        ref_fcs.append(rc.columns())
+        port_fcs.append(pc.columns())
+    return ref_fcs, port_fcs
+
+
+@pytest.mark.parametrize("corpus", ["synth", "fuzz"])
+def test_sidecar_slice_end_to_end(tmp_path, monkeypatch, corpus):
+    hists, doc_hist, N = _sidecar_corpus(tmp_path, corpus)
+    ref_fcs, port_fcs = _reopened_caches(tmp_path, hists)
+    inf = float("inf")
+    n_docs = port_columnar.round_up_pow2(len(doc_hist))
+    monkeypatch.setenv("HM_NATIVE_PACK", "0")
+    ref_b = ref_columnar.pack_docs_columns(
+        [[(ref_fcs[h], 0, inf)] for h in doc_hist], n_docs=n_docs, n_rows=N
+    )
+    port_b = port_columnar.pack_docs_columns(
+        [[(port_fcs[h], 0, inf)] for h in doc_hist], n_docs=n_docs, n_rows=N,
+        device="cpu",
+    )
+    # lean as the bulk loader picks it: no INC ops -> host clocks
+    lean = not bool(np.any(port_b.cols["action"] == int(PortAction.INC)))
+    assert lean == (corpus == "synth")
+    clocks = [
+        {hists[h][0].actor: len(hists[h])} for h in doc_hist
+    ] + [{}] * (n_docs - len(doc_hist))
+    ref_out, ref_wire = ref_k.run_batch_full(ref_b, lean=lean)
+    port_out, port_wire = port_k.run_batch_full(port_b, lean=lean, device="cpu")
+    np.testing.assert_array_equal(port_wire.numpy(), np.asarray(ref_wire))
+    want = ref_mat.fetch_summary(ref_wire, ref_b, lean=lean)
+    got = port_mat.fetch_summary(port_wire, port_b, lean=lean)
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]), err_msg=k)
+    host_clocks = clocks if lean else None
+    ref_dec = ref_mat.DecodedBatch(ref_b, ref_out, host_clocks=host_clocks)
+    port_dec = port_mat.DecodedBatch(port_b, port_out, host_clocks=host_clocks)
+    for d, h in enumerate(doc_hist):
+        patch = port_mat.decode_patch(port_dec, d).to_json()
+        assert patch == ref_mat.decode_patch(ref_dec, d).to_json()
+        # the port's own first-slice path over the same history agrees
+        one = port_mat.materialize_batch([_to_port(hists[h])], device="cpu")
+        assert patch == port_mat.decode_patch(one, 0).to_json()
+
+
+def test_warmup_drives_the_slab_path(monkeypatch):
+    from hypermerge_tpu.ops import warmup as ref_warmup
+    from hypermerge_tpu_torch.ops import warmup
+
+    for n, slab in ((10, 4), (4096, 4096), (9000, 4096), (1, 8)):
+        assert warmup.bulk_buckets(n, slab) == ref_warmup.bulk_buckets(n, slab)
+    # the port's default slab is the reference's default
+    monkeypatch.delenv("HM_BULK_SLAB", raising=False)
+    assert warmup.bulk_buckets(9000) == ref_warmup.bulk_buckets(9000)
+    calls = []
+    orig = warmup.run_batch_full
+
+    def spy(batch, lean=False, device=None):
+        calls.append((batch.shape, lean))
+        return orig(batch, lean=lean, device=device)
+
+    monkeypatch.setattr(warmup, "run_batch_full", spy)
+    assert warmup.warmup_bulk(
+        40, 48, slab=16, distinct=2, background=False, device="cpu"
+    ) is None
+    # 40 docs in slabs of 16 -> buckets 16 and 8; the port dispatches
+    # every bucket on the device, so every bucket warms
+    assert calls == [((16, 64), True), ((8, 64), True)]
+    th = warmup.warmup_bulk(40, 48, slab=16, distinct=2, device="cpu")
+    th.join(60)
+    assert not th.is_alive() and len(calls) == 4
