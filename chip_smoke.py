@@ -14,7 +14,12 @@ prints a result):
      half text); pack_prefix on the inputs the sidecar pack hands it at
      the slab, at a ragged slab (partial windows, an empty doc, a shared
      feed, values outside int16) and at one doc of 65,536 rows (int32
-     row planes);
+     row planes); the four clock kernels at the mirror's capacity of
+     BASELINE config 5 (131072 x 64): the pairwise ops (also at A = 3
+     and A = 1024, full and broadcast rows), the scatter-max with 1,000
+     and 65,536 triples piled on one cell, the column max (also at
+     [5, 3] and on negative clocks), top-k with mass ties and INT32_INF
+     rows at k = 1, 64 and D;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
@@ -28,11 +33,26 @@ prints a result):
         against the first slice's path (`pack_docs` over the same
         histories); pack_prefix, materialize and summary_wire must each
         have launched once;
+     c. the clock slice: BASELINE config 5 (`bench.py` `_config5_union`)
+        on the card — a DeviceClockMirror seeded with 100,000 docs x 64
+        actors, then 1,000 `update`s, `union()`, `dominated(q)` and
+        `top_k_dominated(q, 64)`, each answer and the whole matrix equal
+        to a mirror on the CPU fed the same calls, with exactly one
+        launch each of clock_scatter, clock_union, clock_pair and
+        clock_topk; then a sqlite ClockStore with a mirror attached
+        (2,000 docs x 16 actors, a seeded mix of update, update_many,
+        set and delete_doc), `union_query` / `dominated_query` on the
+        mirror route and the doc-subset route, equal to the same store
+        on the CPU;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
-     its plain version, its bound and, for the sort in the summary wire,
-     torch.argsort; time the pack's host stages; print the kernels as one
-     JSON line; profile one slab dispatch of each slice for its device
-     time by kernel and the device's idle share;
+     its plain version, its bound and, where one PyTorch call computes
+     the same function, that call (torch.argsort for the sort in the
+     summary wire; torch.amax, scatter_reduce_ and torch.topk for the
+     clock kernels, whose device time alone torch.profiler also
+     reads); time the pack's host stages and config 5's hot
+     query (1,000 writes + union(), host buffering included); print the
+     kernels as one JSON line; profile one slab dispatch of each slice
+     for its device time by kernel and the device's idle share;
   5. print {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero with no result when no GPU is present, and when the
@@ -58,6 +78,10 @@ TEMPLATES = 8  # distinct template feeds behind the sidecar slab
 INF = float("inf")
 SLICE1 = ("materialize", "summary_wire")
 SLICE2 = ("pack_prefix", "materialize", "summary_wire")
+# BASELINE config 5 (bench.py _config5_union): the mirror's size
+CONFIG5 = dict(n_docs=100_000, n_actors=64, dirty=1000)
+CLOCKS = ("clock_scatter", "clock_union", "clock_pair", "clock_topk")
+STORE = dict(n_docs=2000, n_actors=16, steps=600, seed=5)
 
 
 def log(*a) -> None:
@@ -526,6 +550,308 @@ def time_pack(pk, columnar, fcs, k_slab):
     return r
 
 
+# -- the clock slice ----------------------------------------------------------
+
+
+def clock_matrix(seed, D, A, hi=1000, inf_frac=0.02):
+    """[D, A] int32 clocks on the card: uniform in [0, hi) with INT32_INF
+    entries."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, hi, size=(D, A)).astype(np.int32)
+    m[rng.random((D, A)) < inf_frac] = 2**31 - 1
+    return torch.from_numpy(m).cuda()
+
+
+def hold(label, got, want) -> int:
+    """Raise unless got equals want exactly; returns the max abs err."""
+    import torch
+
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    torch.cuda.synchronize()
+    err = 0
+    for g, w in pairs:
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"{label}: kernel != plain")
+        err = max(err, max_abs_err(g, w))
+    return err
+
+
+def compare_clock_kernels(ckk):
+    """Phase 2 for the clock kernels: each against its plain version on
+    the same card tensors; returns the max abs err per kernel."""
+    import numpy as np
+    import torch
+
+    D = 131072  # the mirror's capacity at config 5
+    errs = dict.fromkeys(CLOCKS, 0)
+    m = clock_matrix(0, D, 64)
+    for A, rows in ((64, D), (3, D), (1024, 16384)):
+        a = m if A == 64 else clock_matrix(A, rows, A)
+        b = clock_matrix(A + 1, rows, A)
+        b[::3] = a[::3]  # EQ rows
+        for op, plain in ckk._PLAIN_PAIR.items():
+            for x, y in ((a, b), (b[9], a), (a, b[9])):
+                e = hold(f"clock_pair op {op} A={A}", ckk.pair_cuda(op, x, y),
+                         plain(x, y))
+                errs["clock_pair"] = max(errs["clock_pair"], e)
+    small = clock_matrix(5, 5, 3)
+    for x in (m, small, -1 - m.abs(), -1 - small.abs()):
+        e = hold(f"clock_union {tuple(x.shape)}", ckk.union_reduce_cuda(x),
+                 ckk.union_reduce_plain(x))
+        errs["clock_union"] = max(errs["clock_union"], e)
+    rng = np.random.default_rng(1)
+    for n in (1000, 65536):
+        trip = [torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).cuda()
+                for hi in (D, 64, 3000)]
+        trip[0][: n // 2], trip[1][: n // 2] = 17, 5  # one hot cell
+        e = hold(f"clock_scatter n={n}", ckk.scatter_max_cuda_(m.clone(), *trip),
+                 ckk.scatter_max_plain_(m.clone(), *trip))
+        errs["clock_scatter"] = max(errs["clock_scatter"], e)
+    ties = m % 4  # mass ties: row sums from a handful of values
+    ties[::97] = 2**31 - 1  # INT32_INF rows: must rank first, not wrap
+    q_all = torch.full((64,), 2**31 - 1, dtype=torch.int32, device="cuda")
+    q = torch.full((64,), 990, dtype=torch.int32, device="cuda")
+    for x, qq in ((ties, q_all), (ties, q), (m, q)):
+        for k in (1, 64, D):
+            e = hold(f"clock_topk k={k}", ckk.top_k_dominated_cuda(x, qq, k),
+                     ckk.top_k_dominated_plain(x, qq, k))
+            errs["clock_topk"] = max(errs["clock_topk"], e)
+    log(f"phase 2 clock kernels at [{D}, 64] (pairwise also at A=3, 1024): "
+        f"kernels == plain (exact)")
+    return errs
+
+
+def config5_mirrors(PM):
+    """(a mirror on the card, one on the CPU), both seeded as bench.py's
+    _config5_union seeds its mirror."""
+    import numpy as np
+
+    n, A = CONFIG5["n_docs"], CONFIG5["n_actors"]
+    clocks = np.random.default_rng(0).integers(1, 1000, size=(n, A),
+                                                 dtype=np.int32)
+    docs = [f"d{i}" for i in range(n)]
+    actors = [f"a{j}" for j in range(A)]
+    gpu = PM.DeviceClockMirror(capacity_docs=n, capacity_actors=A)
+    cpu = PM.DeviceClockMirror(capacity_docs=n, capacity_actors=A,
+                               device="cpu")
+    for mirror in (gpu, cpu):
+        mirror.seed_bulk(docs, actors, clocks)
+    return gpu, cpu, actors
+
+
+def clock_path(ck, PM):
+    """The clock slice's main path, config 5 on the card: counts set to 0
+    just before and read just after; every answer and the matrix held
+    against the CPU mirror fed the same calls. Returns the counts."""
+    import torch
+
+    gpu, cpu, actors = config5_mirrors(PM)
+    q = {a: 990 for a in actors}
+    torch.cuda.synchronize()
+
+    def drive(mirror):
+        for i in range(CONFIG5["dirty"]):
+            mirror.update(f"d{i}", {actors[i % len(actors)]: 2000 + i})
+        return (mirror.union(), mirror.dominated(q),
+                mirror.top_k_dominated(q, 64))
+
+    for k in ck.launches:
+        ck.launches[k] = 0
+    t0 = time.perf_counter()
+    got = drive(gpu)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    log(f"phase 3c clock slice (config 5, {CONFIG5['n_docs']} x "
+        f"{CONFIG5['n_actors']}): {wall:.3f} s wall (1,000 updates, union, "
+        f"dominated, top-k 64), launches {counts}")
+    for k, v in counts.items():
+        if v != (1 if k in CLOCKS else 0):
+            raise AssertionError(f"clock slice: {k} launched {v} times")
+    want = drive(cpu)
+    for name, g, w in zip(("union", "dominated", "top_k_dominated"), got, want):
+        if g != w:
+            raise AssertionError(f"config 5 {name}: card != CPU")
+    union, dominated, top = got
+    if len(union) != CONFIG5["n_actors"] or union[actors[-1]] < 2000:
+        raise AssertionError(f"config 5 union is wrong: {union}")
+    if not dominated or len(top) != 64:
+        raise AssertionError("config 5: no dominated docs")
+    if not torch.equal(gpu._mat().cpu(), cpu._mat()):
+        raise AssertionError("config 5: the card's matrix != the CPU's")
+    if gpu._docs != cpu._docs or gpu.actor_index != cpu.actor_index:
+        raise AssertionError("config 5: mirror indexes differ")
+    log(f"phase 3c check: union of {len(union)} actors, {len(dominated)} "
+        f"dominated docs, top-64 and the {tuple(gpu._mat().shape)} matrix == "
+        f"the CPU mirror")
+    return counts, gpu, actors
+
+
+def store_path(ck, PM, sql, stores):
+    """A sqlite ClockStore with a mirror attached, on the card and on the
+    CPU, through one seeded mix of writes; both query routes held
+    against the CPU. Returns the counts of the card's run."""
+    import random
+
+    import torch
+
+    n, A = STORE["n_docs"], STORE["n_actors"]
+    docs = [f"doc{i}" for i in range(n)]
+    actors = [f"actor{j}" for j in range(A)]
+    rnd = random.Random(STORE["seed"])
+    seed_rows = {d: {a: rnd.randrange(1, 500) for a in actors} for d in docs}
+    ops = []
+    for _ in range(STORE["steps"]):
+        doc = rnd.choice(docs)
+        clock = {rnd.choice(actors): rnd.randrange(1, 1000)
+                 for _ in range(rnd.randrange(1, 5))}
+        r = rnd.random()
+        if r < 0.6:
+            ops.append(("update", ("r", doc, clock)))
+        elif r < 0.8:
+            ops.append(("update_many",
+                        ("r", {rnd.choice(docs): clock for _ in range(4)})))
+        elif r < 0.95:
+            ops.append(("set", ("r", doc, clock)))
+        else:
+            ops.append(("delete_doc", (doc,)))
+    subset = docs[::4]
+    queries = [{a: 700 for a in actors}, {a: 999 for a in actors[:8]}]
+
+    def run(device):
+        store = stores.ClockStore(sql.SqlDatabase(":memory:"), device=device)
+        store.update_many("r", seed_rows)
+        store.attach_mirror("r", PM.DeviceClockMirror(device=device))
+        out = [store.union_query("r")]
+        for name, args in ops:
+            getattr(store, name)(*args)
+        out.append(store.union_query("r"))
+        out.append(store.union_query("r", subset))
+        for q in queries:
+            out.append(store.dominated_query("r", q))
+            out.append(store.dominated_query("r", q, subset))
+        out.append(store.mirror.rows())
+        return out
+
+    for k in ck.launches:
+        ck.launches[k] = 0
+    t0 = time.perf_counter()
+    got = run(None)  # the default device: the card
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ck.launches)
+    if got != run("cpu"):
+        raise AssertionError("ClockStore on the card != on the CPU")
+    for k in ("clock_scatter", "clock_union", "clock_pair"):
+        if counts[k] < 1:
+            raise AssertionError(f"ClockStore: {k} never launched")
+    log(f"phase 3c ClockStore ({n} docs x {A} actors, {len(ops)} writes, "
+        f"both query routes): {wall:.3f} s wall, launches {counts}; "
+        f"answers == the CPU store")
+    return counts
+
+
+def time_clock_kernels(ckk, PM, mirror, actors):
+    """Phase 4 for the clock kernels at the config-5 mirror's matrix, and
+    config 5's hot query wall; {kernel: numbers}."""
+    import numpy as np
+    import torch
+
+    m = mirror._mat()
+    D, A = m.shape
+    q = torch.full((A,), 990, dtype=torch.int32, device="cuda")
+    res = {}
+    # the dominated query: gte of the broadcast query row against m
+    out = ckk.pair_cuda(ckk._GTE, q, m)
+    res["clock_pair"] = dict(
+        ms=median_ms(lambda: ckk.pair_cuda(ckk._GTE, q, m)),
+        plain_ms=median_ms(lambda: ckk.gte_plain(q, m)),
+        library_ms=None, bytes=nbytes(m, q, out), ops=2 * D * A,
+    )
+    u = ckk.union_reduce_cuda(m)
+    res["clock_union"] = dict(
+        ms=median_ms(lambda: ckk.union_reduce_cuda(m)),
+        plain_ms=median_ms(lambda: ckk.union_reduce_plain(m)),
+        library_ms=median_ms(lambda: torch.amax(m, dim=0)),
+        bytes=nbytes(m, u), ops=D * A,
+    )
+    # the pending flush of config 5: 1,000 writes, padded to 1,024
+    n = CONFIG5["dirty"]
+    rng = np.random.default_rng(2)
+    trip = np.zeros((3, 1024), np.int32)
+    trip[0, :n] = rng.integers(0, D, n)
+    trip[1, :n] = rng.integers(0, A, n)
+    trip[2, :n] = 2000 + np.arange(n)
+    t = torch.from_numpy(trip).cuda()
+    target = m.clone()
+    idx = t[0].long() * A + t[1].long()
+    cells = int(torch.unique(idx).numel())
+    res["clock_scatter"] = dict(
+        ms=median_ms(lambda: ckk.scatter_max_cuda_(target, t[0], t[1], t[2])),
+        plain_ms=median_ms(lambda: ckk.scatter_max_plain_(target, t[0], t[1],
+                                                          t[2])),
+        library_ms=median_ms(lambda: target.view(-1).scatter_reduce_(
+            0, idx, t[2], "amax")),
+        # the triples read once, each touched cell read and written once
+        bytes=nbytes(t) + 8 * cells, ops=t.shape[1],
+    )
+    k = 64
+    s, i = ckk.top_k_dominated_cuda(m, q, k)
+    score = ckk.top_k_scores_plain(m, q)
+    res["clock_topk"] = dict(
+        ms=median_ms(lambda: ckk.top_k_dominated_cuda(m, q, k)),
+        plain_ms=median_ms(lambda: ckk.top_k_dominated_plain(m, q, k)),
+        library_ms=median_ms(lambda: torch.topk(score, k)),
+        # the matrix and query read once, k pairs written; per element a
+        # compare, a min and an add, then the selection over D scores
+        bytes=nbytes(m, q, s, i), ops=3 * D * A + D * int(math.log2(D)),
+    )
+    # device time of the kernels alone, without the wrapper's host work
+    alone = {
+        "clock_pair": (lambda: ckk.pair_cuda(ckk._GTE, q, m),
+                       ("clock_pair_kernel",)),
+        "clock_union": (lambda: ckk.union_reduce_cuda(m),
+                        ("fill_kernel", "column_max_kernel")),
+        "clock_scatter": (lambda: ckk.scatter_max_cuda_(target, t[0], t[1],
+                                                        t[2]),
+                          ("scatter_max_kernel",)),
+        "clock_topk": (lambda: ckk.top_k_dominated_cuda(m, q, k),
+                       ("score_kernel", "select_kernel")),
+    }
+    for name, (fn, names) in alone.items():
+        res[name]["kernel_ms"] = sum(
+            kernel_device_ms(fn, f"namespace)::{kn}") for kn in names
+        )
+    for r in res.values():
+        t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    for name, r in res.items():
+        log(f"timing {name} [{D}, {A}]: " + " ".join(
+            f"{key}={v!r}" for key, v in r.items()))
+
+    # config 5's hot query, as bench.py times it: 1,000 fresh writes land
+    # and the union runs, host buffering included (fresh values each run)
+    rounds = iter(range(1, 100))
+
+    def hot_query():
+        base = 3000 * next(rounds)
+        for j in range(n):
+            mirror.update(f"d{j}", {actors[j % A]: base + j})
+        return mirror.union()
+
+    walls = host_medians_ms({"hot_query_ms": hot_query,
+                             "union_alone_ms": mirror.union})
+    log(f"timing config 5 hot query (1,000 writes + union): "
+        f"wall_ms={walls['hot_query_ms']!r}; union() with nothing pending "
+        f"{walls['union_alone_ms']!r} ms")
+    return res, walls["hot_query_ms"]
+
+
 def main() -> int:
     try:
         import torch
@@ -538,11 +864,13 @@ def main() -> int:
     try:
         from hypermerge_tpu_torch.crdt.change import ROOT, Action, Change, Op
         from hypermerge_tpu_torch.kernels import _build
+        from hypermerge_tpu_torch.ops import clock_kernels as ckk
+        from hypermerge_tpu_torch.ops import clock_mirror as PM
         from hypermerge_tpu_torch.ops import columnar, synth
         from hypermerge_tpu_torch.ops import crdt_kernels as ck
         from hypermerge_tpu_torch.ops import materialize as mat
         from hypermerge_tpu_torch.ops import pack_kernels as pk
-        from hypermerge_tpu_torch.storage import colcache
+        from hypermerge_tpu_torch.storage import colcache, sql, stores
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}",
               file=sys.stderr)
@@ -602,11 +930,14 @@ def main() -> int:
         if not k_big["row32"] or k_big["N"] != 65536:
             raise AssertionError("the 65,536-row doc did not pack int32 rows")
         errs["pack_prefix"] = max(e_slab, e_ragged, e_big)
+        errs.update(compare_clock_kernels(ckk))
 
         # -- 3. the main paths -------------------------------------------------
         main_path(ck, mat, synth, columnar, slab)
         batch, out, arrays, lean, counts = slice_path(ck, columnar, mat, fcs)
         check_slice(ck, columnar, mat, hists, batch, out, arrays, lean)
+        clock_counts, mirror, actors = clock_path(ck, PM)
+        store_path(ck, PM, sql, stores)
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab)
@@ -615,6 +946,9 @@ def main() -> int:
                 f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
                 f"bound_ms={r['bound_ms']!r} ({r['bound_by']})")
         timing["pack_prefix"] = time_pack(pk, columnar, fcs, k_slab)
+        clock_timing, hot_ms = time_clock_kernels(ckk, PM, mirror, actors)
+        timing.update(clock_timing)
+        del mirror
         profile_dispatch("first-slice slab dispatch",
                          lambda: ck.run_batch_full(slab))
         specs = slab_specs(fcs, SLAB["n_docs"])
@@ -637,7 +971,19 @@ def main() -> int:
                         "hypermerge_tpu/ops/crdt_kernels.py:100"),
         "summary_wire": ("hypermerge_tpu_torch/kernels/csrc/summary_wire.cu",
                          "hypermerge_tpu/ops/crdt_kernels.py:380"),
+        "clock_pair": ("hypermerge_tpu_torch/kernels/csrc/clock_pair.cu",
+                       "hypermerge_tpu/ops/clock_kernels.py:28"),
+        "clock_union": ("hypermerge_tpu_torch/kernels/csrc/clock_union.cu",
+                        "hypermerge_tpu/ops/clock_kernels.py:56"),
+        "clock_scatter": ("hypermerge_tpu_torch/kernels/csrc/clock_scatter.cu",
+                          "hypermerge_tpu/ops/clock_mirror.py:50"),
+        "clock_topk": ("hypermerge_tpu_torch/kernels/csrc/clock_topk.cu",
+                       "hypermerge_tpu/ops/clock_kernels.py:81"),
     }
+    # launches: each kernel's count on its slice's main path (the sidecar
+    # slice, the config-5 clock slice)
+    counts.update({k: clock_counts[k] for k in CLOCKS})
+    clock_shape = [131072, CONFIG5["n_actors"]]
     kernels = []
     for name, (source, replaces) in meta.items():
         r = timing[name]
@@ -647,8 +993,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": list(slab.shape),
+            "shape": clock_shape if name in CLOCKS else list(slab.shape),
         })
+    log(f"config5_hot_query_ms={hot_ms!r}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -7,11 +7,14 @@ potential deadlocks (HM_LOCKDEP=1, with the class manifest in
 analysis/hierarchy.py); the port has no lock-order checking yet, so the
 factories return plain `threading` primitives and the class name is only
 documentation. The names stay, so that a later port of the checker
-needs no change at the call sites.
+needs no change at the call sites. For the same reason `blocking`, the
+reference's seam around a blocking call (a sqlite commit, an fsync), is
+kept as a context manager that does nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 
@@ -31,3 +34,11 @@ def make_condition(name: str, lock=None):
     """A Condition over `lock`, or over a new re-entrant lock of class
     `name`."""
     return threading.Condition(make_rlock(name) if lock is None else lock)
+
+
+@contextlib.contextmanager
+def blocking(kind: str, what=None):
+    """Marks a blocking call of the given kind (e.g. "sqlite_commit") on
+    `what`; the reference checks and times it, the port runs it as is."""
+    del kind, what
+    yield

@@ -8,7 +8,10 @@ the packed batch. Histories cross as the JSON form both packages share
 and lists, through `batch_from_numpy`, and comes back out through
 `batch_to_numpy`; kernel outputs come out through `out_to_numpy`. Feed
 column sidecars need no converter: both packages read and write the same
-bytes (storage/colcache.py). Nothing here imports the reference package.
+bytes (storage/colcache.py), and neither do the sqlite clock and cursor
+tables (storage/sql.py keeps the schema). A reference DeviceClockMirror
+crosses through `clock_mirror_from_reference`. Nothing here imports the
+reference package: the reference's objects are read by their fields.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .crdt.change import Change
+from .device import DeviceLike
+from .ops.clock_mirror import DeviceClockMirror
 from .ops.columnar import COLUMNS, ColumnarBatch
 from .ops.crdt_kernels import MaterializeOut
 
@@ -91,3 +96,25 @@ def batch_to_numpy(batch: Any) -> Dict[str, Any]:
 def out_to_numpy(out: MaterializeOut) -> Dict[str, np.ndarray]:
     """Every MaterializeOut lane as a host numpy array."""
     return {name: t.cpu().numpy() for name, t in out._asdict().items()}
+
+
+def clock_mirror_from_reference(
+    mirror: Any, device: DeviceLike = None
+) -> DeviceClockMirror:
+    """A port DeviceClockMirror on `device` with a reference mirror's state:
+    its pending writes are flushed (on the reference), then its matrix
+    crosses as numpy with the doc list (the None holes of deleted rows
+    kept), the actor list, both indexes and both capacities, so every row
+    and column index stays the same (top_k_dominated answers by row)."""
+    mirror.flush()
+    out = DeviceClockMirror(mirror._cap_d, mirror._cap_a, device=device)
+    out._docs = list(mirror._docs)
+    out._actors = list(mirror._actors)
+    out.doc_index = dict(mirror.doc_index)
+    out.actor_index = dict(mirror.actor_index)
+    if mirror._matrix is not None:
+        m = np.array(mirror._matrix, dtype=np.int32)
+        if m.shape != (out._cap_d, out._cap_a):
+            raise ValueError(f"mirror matrix {m.shape} != its capacity")
+        out._matrix = out._upload(m)
+    return out

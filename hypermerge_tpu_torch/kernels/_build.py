@@ -20,7 +20,10 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-STEMS = ("doc_kernel", "summary_wire", "pack_prefix")
+STEMS = (
+    "doc_kernel", "summary_wire", "pack_prefix",
+    "clock_pair", "clock_union", "clock_scatter", "clock_topk",
+)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

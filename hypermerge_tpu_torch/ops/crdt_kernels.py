@@ -327,6 +327,7 @@ def summarize_wire_plain(
 
 launches: Dict[str, int] = {
     "materialize": 0, "summary_wire": 0, "pack_prefix": 0,
+    "clock_pair": 0, "clock_union": 0, "clock_scatter": 0, "clock_topk": 0,
 }
 
 _P = ctypes.c_void_p
@@ -337,6 +338,15 @@ _SIGNATURES = {
     "summary_wire": ("hm_summary_wire", [_P] * 4 + [_I] * 9 + [_P] * 3),
     # wrapper in ops/pack_kernels.py
     "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
+    # wrappers in ops/clock_kernels.py
+    "clock_pair": ("hm_clock_pair", [_P] * 2 + [_I] * 5 + [_P] * 2),
+    "clock_union": ("hm_clock_union", [_P] + [_I] * 2 + [_P] * 2),
+    "clock_scatter": (
+        "hm_clock_scatter", [_P] + [_I] * 2 + [_P] * 3 + [_I, _P]
+    ),
+    "clock_topk": (
+        "hm_clock_topk", [_P] + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 5
+    ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)

@@ -6,8 +6,9 @@ backends through `io_open` / `io_fsync` / `io_replace` / `io_remove`,
 so that a seeded fault plan (torn writes, ENOSPC, fsync lies) or a crash
 recorder can sit in between. The port keeps the seam with the same
 signatures, and behaves as the reference does with no harness active:
-each call is the builtin. The fault-injection registry is not ported
-yet.
+each call is the builtin. The fault-injection registry and the crash
+recorder are not ported yet, so `active_recorder()` always answers that
+none is active.
 """
 
 from __future__ import annotations
@@ -32,3 +33,9 @@ def io_replace(src: str, dst: str) -> None:
 
 def io_remove(path: str) -> None:
     os.remove(path)
+
+
+def active_recorder():
+    """The active crash recorder (storage/sql.py journals statements into
+    it): None, as in the reference with no harness active."""
+    return None

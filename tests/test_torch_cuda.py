@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from hypermerge_tpu_torch.ops import clock_kernels as ckk
 from hypermerge_tpu_torch.ops import columnar
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
+from hypermerge_tpu_torch.ops.clock_mirror import DeviceClockMirror
 from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
 from hypermerge_tpu_torch.storage import colcache
@@ -146,3 +148,75 @@ def test_pack_kernel_equals_plain(cuda, tmp_path, monkeypatch, shape):
     assert torch.equal(mm, mm_plain)
     for name, a, b in zip(columnar.COLUMNS, outs, outs_plain):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+# -- the clock kernels -------------------------------------------------------
+
+
+def _clocks(seed, D, A, hi=1000):
+    """[D, A] int32 clocks on the card with INT32_INF entries."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, hi, size=(D, A)).astype(np.int32)
+    m[rng.random((D, A)) < 0.02] = ckk.INT32_INF
+    return torch.from_numpy(m).cuda()
+
+
+@pytest.mark.parametrize("A", [1, 3, 64, 1024])
+def test_clock_kernels_equal_plain(cuda, A):
+    """Each clock kernel against its plain version on the same card
+    tensors (the plain versions are torch ops and run there too)."""
+    D = 5000
+    a, b = _clocks(A, D, A), _clocks(A + 1, D, A)
+    b[::3] = a[::3]
+    for op, plain in ckk._PLAIN_PAIR.items():
+        for x, y in ((a, b), (b[7], a), (a, b[7])):
+            assert torch.equal(ckk.pair_cuda(op, x, y), plain(x, y)), op
+    neg = -1 - a.abs()
+    for m in (a, neg, a[:1]):
+        assert torch.equal(ckk.union_reduce_cuda(m), ckk.union_reduce_plain(m))
+    rng = np.random.default_rng(A)
+    n = 65536
+    trip = [torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).cuda()
+            for hi in (D, A, 5000)]
+    trip[0][: n // 2] = 3  # one hot cell
+    trip[1][: n // 2] = 0
+    got = ckk.scatter_max_cuda_(a.clone(), *trip)
+    assert torch.equal(got, ckk.scatter_max_plain_(a.clone(), *trip))
+    q = torch.full((A,), 600, dtype=torch.int32, device="cuda")
+    ties = a % 3
+    ties[::11] = ckk.INT32_INF
+    for m in (a, ties):
+        for k in (1, 64, D):
+            got = ckk.top_k_dominated_cuda(m, q, k)
+            want = ckk.top_k_dominated_plain(m, q, k)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_clock_mirror_on_card_equals_cpu(cuda):
+    """One seeded op sequence on a mirror on the card and one on the CPU:
+    equal answers and matrices, and the card's queries launch the
+    kernels."""
+    rng = np.random.default_rng(0)
+    seed = rng.integers(1, 1000, size=(3000, 16)).astype(np.int32)
+    docs = [f"d{i}" for i in range(3000)]
+    actors = [f"a{j}" for j in range(16)]
+    gpu, cpu = DeviceClockMirror(device="cuda"), DeviceClockMirror(device="cpu")
+    for m in (gpu, cpu):
+        m.seed_bulk(docs, actors, seed)
+    before = dict(ck.launches)
+    for i in range(500):
+        for m in (gpu, cpu):
+            m.update(f"d{i * 7 % 3100}", {actors[i % 16]: 900 + i, f"x{i % 70}": i})
+    assert gpu.union() == cpu.union()
+    assert ck.launches["clock_scatter"] == before["clock_scatter"] + 1
+    assert ck.launches["clock_union"] == before["clock_union"] + 1
+    q = {a: 700 for a in actors}
+    assert gpu.dominated(q) == cpu.dominated(q)
+    assert gpu.top_k_dominated(q, 64) == cpu.top_k_dominated(q, 64)
+    assert ck.launches["clock_pair"] == before["clock_pair"] + 1
+    assert ck.launches["clock_topk"] == before["clock_topk"] + 1
+    for m in (gpu, cpu):
+        m.set("d5", {"a1": 3})
+        m.delete_doc("d6")
+    assert gpu.rows() == cpu.rows()
+    assert torch.equal(gpu._mat().cpu(), cpu._mat())

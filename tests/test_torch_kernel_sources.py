@@ -10,10 +10,16 @@ __syncthreads and warp ballots), calls the same C entry points the
 wrappers call, with CPU buffers, and compares every lane and wire byte
 with doc_kernel_plain / summarize_wire_plain, and every packed plane and
 the value range with pack_prefix_plain (on the pack inputs of the cases
-of test_torch_pack.py and on its crafted parity traps). Tolerance: exact.
+of test_torch_pack.py and on its crafted parity traps), and the four
+clock kernels with the plain versions in ops/clock_kernels.py (seeded
+clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
+scatter cells, mass top-k ties). Mutants of the clock kernels (top-k ties
+broken by the higher index, a scatter by plain store, a union started at
+0) must fail. Tolerance: exact.
 """
 
 import ctypes
+import math
 import random
 import re
 import shutil
@@ -27,10 +33,11 @@ import torch
 from helpers import Site, random_mutation, sync
 from hypermerge_tpu.ops import columnar as ref_columnar
 from hypermerge_tpu_torch import convert
+from hypermerge_tpu_torch.ops import clock_kernels as ckk
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
 from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
-from hypermerge_tpu_torch.ops.columnar import COLUMNS
+from hypermerge_tpu_torch.ops.columnar import COLUMNS, round_up_pow2
 from test_torch_pack import CASES as PACK_CASES
 from test_torch_pack import port_pack, trap_inputs, trap_variants
 
@@ -40,47 +47,63 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", re.S)
 
 
 def _host_source(text: str) -> str:
-    """The .cu text with the CUDA runtime include and the <<<>>> launch
-    replaced by the shim's."""
+    """The .cu text with the CUDA runtime include and every <<<>>> launch
+    replaced by the shim's (launches run one after another, as on one
+    stream)."""
     text = text.replace("#include <cuda_runtime.h>", '#include "cuda_host_shim.h"')
-    m = _LAUNCH.search(text)
-    assert m, "no kernel launch found"
-    depth, i = 1, m.end()
-    while depth:
-        depth += {"(": 1, ")": -1}.get(text[i], 0)
-        i += 1
-    kernel, grid, block = m.groups()
-    return (
-        text[: m.start()]
-        + f"shim_launch({grid}, {block}, [&] {{ {kernel}("
-        + text[m.end() : i]
-        + "; })"
-        + text[i:]
-    )
+    out, pos = [], 0
+    for m in _LAUNCH.finditer(text):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(text[i], 0)
+            i += 1
+        kernel, grid, block = m.groups()
+        out += [
+            text[pos : m.start()],
+            f"shim_launch({grid}, {block}, [&] {{ {kernel}(",
+            text[m.end() : i],
+            "; })",
+        ]
+        pos = i
+    assert out, "no kernel launch found"
+    return "".join(out) + text[pos:]
+
+
+def _compile_host(sources, out):
+    """{stem: bound C entry} of .cu texts ({stem: text}) compiled for the
+    host into `out`, one g++ per source, all at once."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernel sources for the host")
+    procs = {}
+    for stem, text in sources.items():
+        src = out / f"{stem}.cpp"
+        src.write_text(_host_source(text))
+        procs[stem] = subprocess.Popen(
+            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             f"-I{CSRC}", f"-I{TESTS}", "-o", str(out / f"lib{stem}.so"),
+             str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+    fns = {}
+    for stem, proc in procs.items():
+        log, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{stem}:\n{log}"
+        symbol, argtypes = ck._SIGNATURES[stem]
+        fn = getattr(ctypes.CDLL(str(out / f"lib{stem}.so")), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        fns[stem] = fn
+    return fns
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
     """{stem: bound C entry} of the kernels compiled for the host."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel sources for the host")
-    out = tmp_path_factory.mktemp("host_kernels")
-    fns = {}
-    for stem, (symbol, argtypes) in ck._SIGNATURES.items():
-        src = out / f"{stem}.cpp"
-        src.write_text(_host_source((CSRC / f"{stem}.cu").read_text()))
-        lib = out / f"lib{stem}.so"
-        subprocess.run(
-            [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
-             f"-I{CSRC}", f"-I{TESTS}", "-o", str(lib), str(src)],
-            check=True, capture_output=True, timeout=300,
-        )
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[stem] = fn
-    return fns
+    return _compile_host(
+        {stem: (CSRC / f"{stem}.cu").read_text() for stem in ck._SIGNATURES},
+        tmp_path_factory.mktemp("host_kernels"),
+    )
 
 
 def _run_host_materialize(fn, args, A, K):
@@ -205,3 +228,202 @@ def test_pack_kernel_source_equals_plain(host_kernels, tmp_path, monkeypatch, ca
     for name, g, w in zip(COLUMNS, got, want):
         assert g.dtype == w.dtype, name
         assert torch.equal(g, w), name
+
+
+# ---------------------------------------------------------------------------
+# the clock kernels: clock_pair, clock_union, clock_scatter, clock_topk
+
+INF = ckk.INT32_INF
+
+
+def _clock_matrix(seed, R, A, lo=0, hi=6):
+    """[R, A] int32 clocks with INT32_INF entries and a few equal rows."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(lo, hi, size=(R, A)).astype(np.int32)
+    m[rng.random((R, A)) < 0.05] = INF
+    if R > 3:
+        m[3] = m[1]
+    return torch.from_numpy(m)
+
+
+def _run_host_pair(fn, op, a, b):
+    """clock_pair.cu on the host, as pair_cuda calls it; outputs start as
+    garbage, and a bool lane must come back 0 or 1."""
+    A = a.shape[-1]
+    lead = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+    a, sa = ckk._operand(a, lead, A)
+    b, sb = ckk._operand(b, lead, A)
+    if op == ckk._GTE:
+        out = torch.full(lead, 7, dtype=torch.uint8)
+    elif op == ckk._CMP:
+        out = torch.full(lead, 99, dtype=torch.int32)
+    else:
+        out = torch.full((*lead, A), 0x5A5A, dtype=torch.int32)
+    rc = fn(a.data_ptr(), b.data_ptr(), sa, sb, math.prod(lead), A, op,
+            out.data_ptr(), None)
+    assert rc == 0
+    if op == ckk._GTE:
+        assert set(out.unique().tolist()) <= {0, 1}
+        return out == 1
+    return out
+
+
+PAIR_OPS = {
+    "gte": ckk._GTE, "cmp": ckk._CMP, "union": ckk._UNION,
+    "intersection": ckk._INTERSECTION, "cursor_window": ckk._CURSOR_WINDOW,
+}
+
+
+@pytest.mark.parametrize("name", list(PAIR_OPS))
+def test_clock_pair_source_equals_plain(host_kernels, name):
+    op = PAIR_OPS[name]
+    plain = ckk._PLAIN_PAIR[op]
+    for R, A in ((40, 3), (9, 64), (17, 1), (5, 70)):
+        a = _clock_matrix(R * A, R, A)
+        b = _clock_matrix(R * A + 1, R, A)
+        b[::4] = a[::4]  # EQ rows
+        b[1::4] = torch.clamp(a[1::4] - 1, min=0)  # GT rows (or EQ)
+        cases = [(a, b), (a[0], b), (a, b[2]), (a[:1], b)]
+        if name == "cursor_window":  # wrap-around of the int32 difference
+            cases.append((torch.full((2, A), -5, dtype=torch.int32),
+                          torch.full((2, A), INF, dtype=torch.int32)))
+        for x, y in cases:
+            got = _run_host_pair(host_kernels["clock_pair"], op, x, y)
+            want = plain(x, y)
+            assert got.dtype == want.dtype and torch.equal(got, want), (R, A)
+
+
+def _run_host_union(fn, m):
+    D, A = m.shape
+    out = torch.full((A,), 12345, dtype=torch.int32)
+    assert fn(m.contiguous().data_ptr(), D, A, out.data_ptr(), None) == 0
+    return out
+
+
+UNION_CASES = {
+    "clocks": lambda: _clock_matrix(0, 300, 40),  # 5 blocks, 2 tiles
+    "negative": lambda: -1 - _clock_matrix(1, 70, 3, hi=100).abs(),
+    "one_row": lambda: _clock_matrix(2, 1, 5),
+}
+
+
+@pytest.mark.parametrize("case", list(UNION_CASES))
+def test_clock_union_source_equals_plain(host_kernels, case):
+    m = UNION_CASES[case]()
+    got = _run_host_union(host_kernels["clock_union"], m)
+    assert torch.equal(got, ckk.union_reduce_plain(m))
+
+
+def _scatter_inputs(seed, n):
+    """A [16, 8] matrix and n triples: many on one cell, some below the
+    cell's value, the (0, 0, 0) pads of the mirror, and two outside."""
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy(rng.integers(0, 50, (16, 8)).astype(np.int32))
+    rows = rng.integers(0, 16, n).astype(np.int32)
+    cols = rng.integers(0, 8, n).astype(np.int32)
+    vals = rng.integers(0, 100, n).astype(np.int32)
+    rows[: n // 3], cols[: n // 3] = 5, 2  # one hot cell
+    rows[-4:], cols[-4:], vals[-4:] = 0, 0, 0  # pads
+    rows[-5], cols[-6] = 16, -1  # dropped
+    return m, [torch.from_numpy(x) for x in (rows, cols, vals)]
+
+
+def _run_host_scatter(fn, m, rows, cols, vals):
+    m = m.clone()
+    rc = fn(m.data_ptr(), m.shape[0], m.shape[1], rows.data_ptr(),
+            cols.data_ptr(), vals.data_ptr(), rows.shape[0], None)
+    assert rc == 0
+    return m
+
+
+@pytest.mark.parametrize("n", [64, 1000])
+def test_clock_scatter_source_equals_plain(host_kernels, n):
+    m, trip = _scatter_inputs(n, n)
+    got = _run_host_scatter(host_kernels["clock_scatter"], m, *trip)
+    assert torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+
+
+def _run_host_topk(fn, clocks, q, k):
+    D, A = clocks.shape
+    P = round_up_pow2(D)
+    key = torch.full((P,), 3, dtype=torch.int64)
+    val = torch.full((P,), -9, dtype=torch.int32)
+    scores = torch.full((k,), 77, dtype=torch.int32)
+    idx = torch.full((k,), 77, dtype=torch.int32)
+    rc = fn(clocks.data_ptr(), D, A, q.data_ptr(), k, P, key.data_ptr(),
+            val.data_ptr(), scores.data_ptr(), idx.data_ptr(), None)
+    assert rc == 0
+    return scores, idx
+
+
+def _topk_ties(D=50, A=4):
+    """Mass ties: scores from a handful of values, half the rows not
+    dominated, INT32_INF rows that must rank first."""
+    m = _clock_matrix(5, D, A, hi=3)
+    m[m == INF] = 1
+    m[7] = INF
+    m[30] = INF
+    q = torch.full((A,), INF, dtype=torch.int32)
+    q[0] = 1
+    return m, q
+
+
+TOPK_CASES = {
+    "ties_k1": (_topk_ties, 1),
+    "ties_k7": (_topk_ties, 7),
+    "ties_kD": (_topk_ties, 50),
+    "pow2_rows_none_dominated": (
+        lambda: (_clock_matrix(6, 64, 3, lo=5, hi=9),
+                 torch.zeros(3, dtype=torch.int32)), 64),
+    "one_row": (
+        lambda: (_clock_matrix(7, 1, 2), torch.full((2,), 9, dtype=torch.int32)), 1
+    ),
+}
+
+
+@pytest.mark.parametrize("case", list(TOPK_CASES))
+def test_clock_topk_source_equals_plain(host_kernels, case):
+    make, k = TOPK_CASES[case]
+    clocks, q = make()
+    got = _run_host_topk(host_kernels["clock_topk"], clocks, q, k)
+    want = ckk.top_k_dominated_plain(clocks, q, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# mutants: each breaks one property the plain version pins; compiled from
+# the real source with one edit, each must disagree with the plain version
+MUTANTS = {
+    "topk_ties_by_higher_index": ("clock_topk", [
+        ("val[d] = d;", "val[d] = P - 1 - d;"),
+        ("out_idx[i] = val[i];", "out_idx[i] = P - 1 - val[i];"),
+    ]),
+    "scatter_plain_store": ("clock_scatter", [
+        ("atomicMax(&m[(long long)r * cap_a + c], vals[i]);",
+         "m[(long long)r * cap_a + c] = vals[i];"),
+    ]),
+    "union_starts_at_zero": ("clock_union", [
+        ("constexpr int kNoValue = INT32_MIN;", "constexpr int kNoValue = 0;"),
+    ]),
+}
+
+
+@pytest.mark.parametrize("name", list(MUTANTS))
+def test_clock_mutants_fail(tmp_path, name):
+    stem, edits = MUTANTS[name]
+    text = (CSRC / f"{stem}.cu").read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    fn = _compile_host({stem: text}, tmp_path)[stem]
+    if stem == "clock_topk":
+        clocks, q = _topk_ties()
+        got = _run_host_topk(fn, clocks, q, 50)
+        want = ckk.top_k_dominated_plain(clocks, q, 50)
+        assert torch.equal(got[0], want[0]) and not torch.equal(got[1], want[1])
+    elif stem == "clock_scatter":
+        m, trip = _scatter_inputs(3, 64)
+        got = _run_host_scatter(fn, m, *trip)
+        assert not torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+    else:
+        m = UNION_CASES["negative"]()
+        assert not torch.equal(_run_host_union(fn, m), ckk.union_reduce_plain(m))

@@ -200,8 +200,9 @@ def test_bulk_summaries_doc_identical(lean):
 def test_port_imports_no_jax_and_requires_a_device():
     """In a fresh interpreter with jax made unimportable, every module of
     the port imports, no hypermerge_tpu module is loaded, and an entry
-    called without `device=` raises when CUDA is absent: `run_batch`, and
-    `pack_docs_columns` on both of its paths."""
+    called without `device=` raises when CUDA is absent: `run_batch`,
+    `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
+    `pack_clocks` and `ClockStore`."""
     code = textwrap.dedent(
         """
         import sys
@@ -249,6 +250,29 @@ def test_port_imports_no_jax_and_requires_a_device():
                 else:
                     raise AssertionError("pack_docs_columns ran without a device")
             pack_docs_columns(specs, device="cpu")
+        # the clock plane: the mirror, the store and pack_clocks resolve
+        # their device at the call
+        from hypermerge_tpu_torch.ops.clock_kernels import pack_clocks
+        from hypermerge_tpu_torch.ops.clock_mirror import DeviceClockMirror
+        from hypermerge_tpu_torch.storage.sql import SqlDatabase
+        from hypermerge_tpu_torch.storage.stores import ClockStore
+        clock_entries = [
+            lambda **kw: DeviceClockMirror(**kw),
+            lambda **kw: pack_clocks([[1, 2]], **kw),
+            lambda **kw: ClockStore(SqlDatabase(), **kw),
+        ]
+        for entry in clock_entries:
+            if not torch.cuda.is_available():
+                try:
+                    entry()
+                except RuntimeError as e:
+                    assert "device='cpu'" in str(e), e
+                else:
+                    raise AssertionError("a clock entry ran without a device")
+            entry(device="cpu")
+        m = DeviceClockMirror(device="cpu")
+        m.update("d", {"a": 3})
+        assert m.union() == {"a": 3}
         assert "hypermerge_tpu" not in sys.modules
         print("ok")
         """
