@@ -6,7 +6,9 @@
 Phases (any failure raises, and the script exits non-zero before it
 prints a result):
   1. build every CUDA kernel from kernels/csrc (one nvcc per source, all
-     at once) and print the card's name and power limit;
+     at once) and the port's host C++ library (native/, g++), print the
+     card's name and power limit, and whether the native library loaded
+     and with which capabilities;
   2. hold each kernel against its plain PyTorch version on the card, on
      the same inputs, exactly (integer and bool outputs, tolerance 0):
      materialize and summary_wire at the bulk slab (4096 docs x 1024
@@ -19,7 +21,11 @@ prints a result):
      and A = 1024, full and broadcast rows), the scatter-max with 1,000
      and 65,536 triples piled on one cell, the column max (also at
      [5, 3] and on negative clocks), top-k with mass ties and INT32_INF
-     rows at k = 1, 64 and D;
+     rows at k = 1, 64 and D; the three read-serving kernels at
+     B in {1, 8, 64} x N in {64, 1024, 65536}, each shape with every
+     synthetic scenario (ops/synth.py synth_serve_lanes: misses,
+     all-matching rows, mass rank ties, ranks at the int32 ends) and a
+     pad batch slot;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
@@ -44,15 +50,37 @@ prints a result):
         set and delete_doc), `union_query` / `dominated_query` on the
         mirror route and the doc-subset route, equal to the same store
         on the CPU;
+     d. the read slice: bench.py's `_config_read` serving configuration —
+        a corpus of 2,048 docs x 1,024 ops written with the port's
+        `make_corpus` to a temporary directory (its .sig sidecars only
+        when the host library has libsodium), `Repo(path)`,
+        `open_many` of all of them and `fetch_bulk_summaries()`, the
+        32-doc hot set made resident, then 8 reader threads issuing
+        4,000 `len` reads (90% over the hot set, RNG seed 0xEAD5), timed
+        read by read; the host twin on the same 4,000 reads; the same
+        window again under torch.profiler, residency dropped first so it
+        pays the same installs; then a mixed pass over the hot set
+        (lookup of k0..k9, text, index and len of the text and of the
+        root); every answer equal to `host_read` (the HM_SERVE=0 twin)
+        on the same doc; serve_lookup,
+        serve_order and serve_counts each launched, their launches
+        summing to the tier's `serve.dispatches`, and the bulk kernels
+        launched once per slab;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
      summary wire; torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
-     reads); time the pack's host stages and config 5's hot
-     query (1,000 writes + union(), host buffering included); print the
-     kernels as one JSON line; profile one slab dispatch of each slice
-     for its device time by kernel and the device's idle share;
+     reads; torch.sort for serve_order); time the pack's host stages,
+     config 5's hot query (1,000 writes + union(), host buffering
+     included), and print the read mix's QPS, its p50 and p99 from the
+     raw per-read latencies (and the `serve.read_s` histogram's bucket
+     bounds), the host twin's QPS, p50 and p99 on the same 4,000 reads,
+     and the profiled window's device busy time and idle share; print
+     the kernels as one JSON line; profile one slab dispatch of each
+     slice for its device time by kernel and the device's idle share (a
+     profiler reading that gets no device record is printed as not
+     measured, None: the profiler is a reading, not a check);
   5. print {"ok": true, "device": {...}} as the last line.
 
 It exits non-zero with no result when no GPU is present, and when the
@@ -63,6 +91,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +111,16 @@ SLICE2 = ("pack_prefix", "materialize", "summary_wire")
 CONFIG5 = dict(n_docs=100_000, n_actors=64, dirty=1000)
 CLOCKS = ("clock_scatter", "clock_union", "clock_pair", "clock_topk")
 STORE = dict(n_docs=2000, n_actors=16, steps=600, seed=5)
+# bench.py _config_read: the serving configuration and its read mix
+READ = dict(n_docs=2048, n_ops=1024, hot=32, readers=8, reads=4000,
+            seed=0xEAD5)
+SERVE = ("serve_lookup", "serve_order", "serve_counts")
+BULK = ("pack_prefix", "materialize", "summary_wire")
+# torch.profiler now and then delivers no device record for a window; a
+# kernel-alone window is tried again, and every window is padded with idle
+# host time so that device records near its edges fall inside it
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.005
 
 
 def log(*a) -> None:
@@ -269,18 +308,21 @@ def time_kernels(ck, batch):
     return res
 
 
-def profile_dispatch(label, fn) -> None:
-    """Device time by kernel for one call of fn (a slab dispatch, host
-    stages included), from torch.profiler."""
+def profile_dispatch(label, fn) -> dict:
+    """Device time by kernel for one call of fn (a slab dispatch or a
+    read window, host stages included), from torch.profiler; returns the
+    wall, the device's busy time and its idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
 
     rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
     # busy = device-side events only (kernels, copies); a CPU op such as
@@ -289,11 +331,20 @@ def profile_dispatch(label, fn) -> None:
         dev_us(e) for e in rows
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
     ) / 1e3
+    if busy_ms <= 0:
+        # the window's work ran (fn's own checks stand); only the
+        # profiler's reading of it is missing
+        log(f"profile {label}: wall_ms={wall_ms!r}; the profiler delivered "
+            "no device record: busy time and idle share not measured")
+        return dict(wall_ms=wall_ms, device_busy_ms=None,
+                    device_idle_share=None)
     log(f"profile {label}: wall_ms={wall_ms!r} device_busy_ms="
         f"{busy_ms!r} device_idle_share={1 - busy_ms / wall_ms!r}")
     for e in rows[:8]:
         if dev_us(e) > 0:
             log(f"  {dev_us(e) / 1e3!r} ms  x{e.count}  {e.key[:70]}")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms)
 
 
 # -- the sidecar slice --------------------------------------------------------
@@ -469,24 +520,36 @@ def host_medians_ms(fns, runs=7, warmup=2):
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def kernel_device_ms(fn, name: str, runs=5) -> float:
-    """Mean device time of the kernels whose name contains `name`, over
-    `runs` calls of fn, from torch.profiler."""
+def kernel_device_ms(fn, name: str, runs=20) -> float | None:
+    """Mean device time of the kernel called `name` (the whole identifier,
+    demangled or mangled) over `runs` calls of fn, from torch.profiler.
+    A window in which the profiler delivered no record of it is tried
+    again; after PROFILE_TRIES such windows the time is not measured
+    (None). It is a reading beside the CUDA-event times, not a check."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    # demangled: the bare identifier; mangled: its length, then the name
+    n = re.escape(name)
+    pat = re.compile(rf"(?<!\w){n}(?!\w)|{len(name)}{n}")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(
-        dev_us(e) for e in prof.key_averages() if name in e.key
-    )
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no device time for {name}")
-    return total / runs / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        total = sum(
+            dev_us(e) for e in prof.key_averages() if pat.search(e.key)
+        )
+        if total > 0:
+            return total / runs / 1e3
+        log(f"profiler: no device record of {name} (window {attempt} of "
+            f"{PROFILE_TRIES})")
+    log(f"profiler: {name} alone not measured")
+    return None
 
 
 def dev_us(e):
@@ -822,9 +885,8 @@ def time_clock_kernels(ckk, PM, mirror, actors):
                        ("score_kernel", "select_kernel")),
     }
     for name, (fn, names) in alone.items():
-        res[name]["kernel_ms"] = sum(
-            kernel_device_ms(fn, f"namespace)::{kn}") for kn in names
-        )
+        parts = [kernel_device_ms(fn, kn) for kn in names]
+        res[name]["kernel_ms"] = None if None in parts else sum(parts)
     for r in res.values():
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -852,6 +914,369 @@ def time_clock_kernels(ckk, PM, mirror, actors):
     return res, walls["hot_query_ms"]
 
 
+# -- the read slice -----------------------------------------------------------
+
+
+class _Entry:
+    """A resident entry as the serve kernels read it: its lanes."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+
+def serve_inputs(synth, sk, B, N, scenario, seed):
+    """(lane tensors on the card, qobj, qkey) of B batch slots: B - 1
+    synthetic entries and, for B > 1, a pad slot repeating entry 0 with
+    the NO_OBJ query, as stack_entries pads a batch."""
+    import numpy as np
+    import torch
+
+    lanes, qobj, qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    t = torch.from_numpy(lanes).cuda()
+    devs = list(t.unbind(0))
+    if B > 1:
+        devs[-1] = devs[0]
+        qobj[-1], qkey[-1] = sk.NO_OBJ, -1
+    return devs, qobj.astype(np.int32), qkey.astype(np.int32)
+
+
+def serve_plain(sk, name, devs, qobj, qkey):
+    """The plain version of one serve kernel on the card, as numpy."""
+    import torch
+
+    st = torch.stack(devs)
+    qo = torch.from_numpy(qobj).cuda()
+    qk = torch.from_numpy(qkey).cuda()
+    out = {
+        "serve_lookup": lambda: sk.map_lookup_plain(st, qo, qk),
+        "serve_order": lambda: sk.seq_order_plain(st, qo),
+        "serve_counts": lambda: sk.counts_plain(st, qo),
+    }[name]()
+    return tuple(x.cpu().numpy() for x in out)
+
+
+def serve_cuda(sk, name, devs, qobj, qkey):
+    return {
+        "serve_lookup": lambda: sk.map_lookup_cuda(devs, qobj, qkey),
+        "serve_order": lambda: sk.seq_order_cuda(devs, qobj),
+        "serve_counts": lambda: sk.counts_cuda(devs, qobj),
+    }[name]()
+
+
+def compare_serve_kernels(synth, sk):
+    """Phase 2 for the read-serving kernels; returns the max abs err per
+    kernel and raises on any difference."""
+    import numpy as np
+
+    errs = dict.fromkeys(SERVE, 0)
+    for B in (1, 8, 64):
+        for N in (64, 1024, 65536):
+            for i, scenario in enumerate(synth.SERVE_SCENARIOS):
+                devs, qobj, qkey = serve_inputs(synth, sk, B, N, scenario,
+                                                seed=B * N + i)
+                for name in SERVE:
+                    got = serve_cuda(sk, name, devs, qobj, qkey)
+                    want = serve_plain(sk, name, devs, qobj, qkey)
+                    for g, w in zip(got, want):
+                        g = np.asarray(g).astype(np.int64)
+                        w = np.asarray(w).astype(np.int64)
+                        if g.shape != w.shape:
+                            raise AssertionError(f"{name} B={B} N={N}: shape")
+                        errs[name] = max(errs[name], int(np.abs(g - w).max()))
+                        if not np.array_equal(g, w):
+                            raise AssertionError(
+                                f"{name} B={B} N={N} {scenario}: kernel != "
+                                "plain")
+    log("phase 2 serve kernels at B in {1, 8, 64} x N in {64, 1024, 65536}, "
+        f"scenarios {list(synth.SERVE_SCENARIOS)}: kernels == plain (exact)")
+    return errs
+
+
+def hist_quantile_ms(bounds, before, after, q):
+    """Quantile (ms) from the delta of two Histogram.value() snapshots:
+    the upper bound of the bucket where the cumulative count crosses q
+    (the +Inf tail reports the largest finite bound), as bench.py
+    reads the serve.read_s histogram."""
+    counts = [b - a for a, b in zip(before["buckets"], after["buckets"])]
+    n = sum(counts)
+    if n <= 0:
+        raise AssertionError("the read histogram recorded no reads")
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen >= q * n:
+            return bounds[min(i, len(bounds) - 1)] * 1e3
+    return bounds[-1] * 1e3
+
+
+def quantile_ms(samples, q):
+    """Nearest-rank quantile (ms) of raw per-read latencies (s)."""
+    ordered = sorted(samples)
+    return ordered[max(0, math.ceil(q * len(ordered)) - 1)] * 1e3
+
+
+def run_threads(readers, fn):
+    import threading
+
+    errs = []
+
+    def body(n):
+        try:
+            fn(n)
+        except Exception as e:  # surfaced below
+            errs.append(e)
+
+    threads = [threading.Thread(target=body, args=(n,))
+               for n in range(readers)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return dt
+
+
+def read_path(ck, sk, root):
+    """The read slice (bench.py _config_read) on the card. The corpus is
+    written first (set-up); the launch counts are set to 0 just before
+    the Repo opens and read just after the mixed pass. Returns (counts,
+    the read mix's numbers, the dispatches captured for phase 4)."""
+    import random
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch import native, telemetry
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.serve.tier import host_read, host_value
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    # the .sig sidecars only where libsodium signs them: in pure Python
+    # the signatures alone take minutes at this size, and the read path
+    # never reads them (only replication verifies them)
+    sign = bool(native.caps() & native.CAP_SODIUM)
+    t0 = time.perf_counter()
+    urls = make_corpus(root, READ["n_docs"], READ["n_ops"], sign=sign)
+    log(f"phase 3d corpus: {READ['n_docs']} docs x {READ['n_ops']} ops "
+        f"(signed={sign}) written in {time.perf_counter() - t0:.1f} s")
+
+    # every serve dispatch's shape and inputs, for phase 4
+    seen = {name: Counter() for name in SERVE}
+    last = {}
+    wrappers = {"serve_lookup": "map_lookup_cuda",
+                "serve_order": "seq_order_cuda",
+                "serve_counts": "counts_cuda"}
+    origs = {name: getattr(sk, fn) for name, fn in wrappers.items()}
+
+    def spy(name):
+        def call(devs, *qs):
+            key = (len(devs), devs[0].shape[1])
+            seen[name][key] += 1
+            last[(name, key)] = (list(devs), [np.array(q) for q in qs])
+            return origs[name](devs, *qs)
+        return call
+
+    for name, fn in wrappers.items():
+        setattr(sk, fn, spy(name))
+    for k in ck.launches:
+        ck.launches[k] = 0
+    snap0 = telemetry.snapshot()
+    repo = Repo(path=root)
+    try:
+        back = repo.back
+        if back.serve is None:
+            raise AssertionError("the repo has no serving tier")
+        t0 = time.perf_counter()
+        repo.open_many(urls)
+        summ = back.fetch_bulk_summaries()
+        t_open = time.perf_counter() - t0
+        stats = dict(back.last_bulk_stats)
+        if stats["fast"] != READ["n_docs"] or len(summ.doc_ids) != READ["n_docs"]:
+            raise AssertionError(f"bulk open: {stats}")
+        bulk = {k: ck.launches[k] for k in BULK}
+        slabs = math.ceil(READ["n_docs"] / 4096)
+        if any(v != slabs for v in bulk.values()):
+            raise AssertionError(f"bulk kernels {bulk}, expected {slabs} each")
+        log(f"phase 3d open_many + fetch_bulk_summaries: {t_open:.3f} s, "
+            f"stats {stats}, launches {bulk}")
+
+        sub, hot = urls, urls[: READ["hot"]]
+        rng = random.Random(READ["seed"])
+        mix = [
+            hot[rng.randrange(len(hot))] if rng.random() < 0.9
+            else sub[rng.randrange(len(sub))]
+            for _ in range(READ["reads"])
+        ]
+        query = {"kind": "len", "path": []}
+
+        def warm_hot():  # steady state: the hot set resident before timing
+            for u in hot:
+                repo.read(u, query)
+
+        def read_mix(answers, lat):
+            def reader(n):
+                for i in range(n, len(mix), READ["readers"]):
+                    t = time.perf_counter()
+                    answers[i] = repo.read(mix[i], query)
+                    lat[i] = time.perf_counter() - t
+            return run_threads(READ["readers"], reader)
+
+        warm_hot()
+        hist = back.serve._hist
+        h0 = hist.value()
+        answers, lat = [None] * len(mix), [0.0] * len(mix)
+        dt = read_mix(answers, lat)
+        h1 = hist.value()
+        docs = {u: back.docs[validate_doc_url(u)] for u in set(mix)}
+        want = {u: host_read(d, query)["value"] for u, d in docs.items()}
+
+        def check(answers):
+            bad = [i for i, u in enumerate(mix) if answers[i] != want[u]]
+            if bad or any(a is None for a in answers):
+                raise AssertionError(
+                    f"{len(bad)} len reads differ from host_read")
+
+        check(answers)
+        # the host twin on the whole mix, same threads (bench.py's baseline)
+        host_lat = [0.0] * len(mix)
+
+        def host_reader(n):
+            for i in range(n, len(mix), READ["readers"]):
+                t = time.perf_counter()
+                if host_value(docs[mix[i]], query) != want[mix[i]]:
+                    raise AssertionError("host twin read differs")
+                host_lat[i] = time.perf_counter() - t
+
+        host_dt = run_threads(READ["readers"], host_reader)
+        # the same window again under torch.profiler for the device's
+        # busy and idle share: residency dropped first, so it pays the
+        # same installs (uploads) as the timed window
+        back.serve._cache.clear()
+        warm_hot()
+        answers2, lat2 = [None] * len(mix), [0.0] * len(mix)
+        prof = profile_dispatch(
+            "read window (4,000 len reads, 8 threads)",
+            lambda: read_mix(answers2, lat2))
+        check(answers2)
+
+        # the mixed pass: every read kind the kernels serve
+        mixed = [{"kind": "lookup", "path": [f"k{i}"]} for i in range(10)]
+        mixed += [{"kind": "text", "path": ["t"]},
+                  {"kind": "len", "path": []}, {"kind": "len", "path": ["t"]}]
+        n_mixed = 0
+        for j, u in enumerate(hot):
+            doc = docs.get(u) or back.docs[validate_doc_url(u)]
+            qs = mixed + [{"kind": "index", "path": ["t"], "index": i}
+                          for i in (0, j, 7 * j + 3, 10**6)]
+            for q in qs:
+                got = repo.read(u, q)
+                if got != host_read(doc, q)["value"]:
+                    raise AssertionError(f"read {q} of {u}: served != host")
+                n_mixed += 1
+        torch.cuda.synchronize()
+        counts = dict(ck.launches)
+        snap1 = telemetry.snapshot()
+    finally:
+        repo.close()
+        for name, fn in wrappers.items():
+            setattr(sk, fn, origs[name])
+
+    def delta(key):
+        return int(snap1.get(key, 0) - snap0.get(key, 0))
+
+    dispatches = delta("serve.dispatches")
+    serve_sum = sum(counts[k] for k in SERVE)
+    log(f"phase 3d reads: 2 x {len(mix)} len reads (timed, profiled) + "
+        f"{n_mixed} mixed, launches "
+        f"{counts}, serve.dispatches {dispatches}, installs "
+        f"{delta('serve.installs')}, memo_hits {delta('serve.memo_hits')}, "
+        f"fallbacks {delta('serve.fallbacks')}, batches "
+        f"{delta('serve.batches')}")
+    for k in SERVE:
+        if counts[k] == 0:
+            raise AssertionError(f"kernel {k} never launched on the read path")
+    if serve_sum != dispatches:
+        raise AssertionError(
+            f"serve launches {serve_sum} != serve.dispatches {dispatches}")
+    if any(counts[k] != bulk[k] for k in BULK):
+        raise AssertionError(f"bulk kernels launched during reads: {counts}")
+    if delta("serve.fallbacks"):
+        raise AssertionError("reads fell back to the host path")
+    numbers = dict(
+        qps=len(mix) / dt,
+        p50_ms=quantile_ms(lat, 0.50),
+        p99_ms=quantile_ms(lat, 0.99),
+        p50_bucket_ms=hist_quantile_ms(hist.buckets, h0, h1, 0.50),
+        p99_bucket_ms=hist_quantile_ms(hist.buckets, h0, h1, 0.99),
+        host_qps=len(mix) / host_dt,
+        host_p50_ms=quantile_ms(host_lat, 0.50),
+        host_p99_ms=quantile_ms(host_lat, 0.99),
+        profiled_qps=len(mix) / (prof["wall_ms"] / 1e3),
+        device_busy_ms=prof["device_busy_ms"],
+        device_idle_share=prof["device_idle_share"],
+        open_s=t_open,
+        batches=delta("serve.batches"),
+    )
+    log("phase 3d check: every answer == host_read; read mix " + " ".join(
+        f"{k}={v!r}" for k, v in numbers.items()))
+    shapes = {name: dict(seen[name]) for name in SERVE}
+    log(f"phase 3d dispatch shapes (B, N): {shapes}")
+    return counts, numbers, seen, last
+
+
+def time_serve_kernels(sk, seen, last):
+    """Phase 4 for the serve kernels, each at the (B, N) that the read
+    slice dispatched most, on the lanes of one of those dispatches."""
+    import numpy as np
+    import torch
+
+    res = {}
+    kernel_names = {"serve_lookup": "lookup_kernel",
+                    "serve_order": "order_kernel",
+                    "serve_counts": "counts_kernel"}
+    for name in SERVE:
+        (B, N), n_calls = seen[name].most_common(1)[0]
+        devs, qs = last[(name, (B, N))]
+        qobj = qs[0]
+        qkey = qs[1] if len(qs) > 1 else np.full(B, -1, np.int32)
+        real = len({t.data_ptr() for t in devs})  # pad slots repeat entry 0
+        lanes_read = {"serve_lookup": 3, "serve_order": 4, "serve_counts": 4}
+        out_words = B * N + B if name == "serve_order" else 2 * B
+        args_bytes = 8 * B * (1 + len(qs))
+        r = dict(
+            B=B, N=N, dispatches_at_shape=n_calls,
+            ms=median_ms(lambda: serve_cuda(sk, name, devs, qobj, qkey)),
+            kernel_ms=kernel_device_ms(
+                lambda: serve_cuda(sk, name, devs, qobj, qkey),
+                kernel_names[name]),
+            plain_ms=median_ms(lambda: serve_plain(sk, name, devs, qobj, qkey)),
+            library_ms=None,
+            bytes=4 * lanes_read[name] * real * N + 4 * out_words + args_bytes,
+            ops=(B * N * max(1, int(math.log2(N))) if name == "serve_order"
+                 else lanes_read[name] * B * N),
+        )
+        if name == "serve_order":
+            st = torch.stack(devs)
+            qo = torch.from_numpy(qobj).cuda()
+            mask = (st[:, 0] != 0) & (st[:, 2] == qo[:, None]) & (st[:, 3] == 1)
+            key = torch.where(mask, -st[:, 1], 2**31 - 1)
+            r["library_ms"] = median_ms(
+                lambda: torch.sort(key, dim=1, stable=True))
+        t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"timing {name} [B={B}, N={N}]: " + " ".join(
+            f"{k}={v!r}" for k, v in r.items()))
+        res[name] = r
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -863,6 +1288,7 @@ def main() -> int:
         return 2
     try:
         from hypermerge_tpu_torch.crdt.change import ROOT, Action, Change, Op
+        from hypermerge_tpu_torch import native
         from hypermerge_tpu_torch.kernels import _build
         from hypermerge_tpu_torch.ops import clock_kernels as ckk
         from hypermerge_tpu_torch.ops import clock_mirror as PM
@@ -870,6 +1296,7 @@ def main() -> int:
         from hypermerge_tpu_torch.ops import crdt_kernels as ck
         from hypermerge_tpu_torch.ops import materialize as mat
         from hypermerge_tpu_torch.ops import pack_kernels as pk
+        from hypermerge_tpu_torch.serve import kernels as sk
         from hypermerge_tpu_torch.storage import colcache, sql, stores
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}",
@@ -891,6 +1318,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
+    t0 = time.perf_counter()
+    lib = native.load()
+    log(f"phase 1 native library: loaded={lib is not None} "
+        f"caps={native.caps()} (sodium={bool(native.caps() & native.CAP_SODIUM)}"
+        f", brotli={bool(native.caps() & native.CAP_BROTLI)}) in "
+        f"{time.perf_counter() - t0:.1f} s; error={native.load_error!r}")
 
     with tempfile.TemporaryDirectory(prefix="hm-sidecars-") as root:
         # the sidecar slab's template feeds (the bench corpus' shape:
@@ -931,6 +1364,7 @@ def main() -> int:
             raise AssertionError("the 65,536-row doc did not pack int32 rows")
         errs["pack_prefix"] = max(e_slab, e_ragged, e_big)
         errs.update(compare_clock_kernels(ckk))
+        errs.update(compare_serve_kernels(synth, sk))
 
         # -- 3. the main paths -------------------------------------------------
         main_path(ck, mat, synth, columnar, slab)
@@ -938,6 +1372,9 @@ def main() -> int:
         check_slice(ck, columnar, mat, hists, batch, out, arrays, lean)
         clock_counts, mirror, actors = clock_path(ck, PM)
         store_path(ck, PM, sql, stores)
+        with tempfile.TemporaryDirectory(prefix="hm-read-") as read_root:
+            read_counts, read_numbers, seen, last = read_path(
+                ck, sk, read_root)
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab)
@@ -948,6 +1385,8 @@ def main() -> int:
         timing["pack_prefix"] = time_pack(pk, columnar, fcs, k_slab)
         clock_timing, hot_ms = time_clock_kernels(ckk, PM, mirror, actors)
         timing.update(clock_timing)
+        timing.update(time_serve_kernels(sk, seen, last))
+        del seen, last
         del mirror
         profile_dispatch("first-slice slab dispatch",
                          lambda: ck.run_batch_full(slab))
@@ -979,10 +1418,17 @@ def main() -> int:
                           "hypermerge_tpu/ops/clock_mirror.py:50"),
         "clock_topk": ("hypermerge_tpu_torch/kernels/csrc/clock_topk.cu",
                        "hypermerge_tpu/ops/clock_kernels.py:81"),
+        "serve_lookup": ("hypermerge_tpu_torch/kernels/csrc/serve_lookup.cu",
+                         "hypermerge_tpu/serve/kernels.py:87"),
+        "serve_order": ("hypermerge_tpu_torch/kernels/csrc/serve_order.cu",
+                        "hypermerge_tpu/serve/kernels.py:102"),
+        "serve_counts": ("hypermerge_tpu_torch/kernels/csrc/serve_counts.cu",
+                         "hypermerge_tpu/serve/kernels.py:120"),
     }
     # launches: each kernel's count on its slice's main path (the sidecar
-    # slice, the config-5 clock slice)
+    # slice, the config-5 clock slice, the read slice)
     counts.update({k: clock_counts[k] for k in CLOCKS})
+    counts.update({k: read_counts[k] for k in SERVE})
     clock_shape = [131072, CONFIG5["n_actors"]]
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -993,9 +1439,12 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": clock_shape if name in CLOCKS else list(slab.shape),
+            "shape": (clock_shape if name in CLOCKS
+                      else [r["B"], r["N"]] if name in SERVE
+                      else list(slab.shape)),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
+    log("read_mix " + json.dumps(read_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

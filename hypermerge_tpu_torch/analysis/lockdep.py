@@ -9,7 +9,9 @@ factories return plain `threading` primitives and the class name is only
 documentation. The names stay, so that a later port of the checker
 needs no change at the call sites. For the same reason `blocking`, the
 reference's seam around a blocking call (a sqlite commit, an fsync), is
-kept as a context manager that does nothing.
+kept as a context manager that does nothing, `enabled` answers that
+checking is off, and `maybe_install_racedep` (the reference's HM_RACEDEP
+hook) installs nothing.
 """
 
 from __future__ import annotations
@@ -42,3 +44,12 @@ def blocking(kind: str, what=None):
     `what`; the reference checks and times it, the port runs it as is."""
     del kind, what
     yield
+
+
+def enabled() -> bool:
+    """Whether runtime lock-order checking is on: never, in the port."""
+    return False
+
+
+def maybe_install_racedep() -> None:
+    """The reference's lockset-detector hook; the port has no detector."""

@@ -10,8 +10,10 @@ and lists, through `batch_from_numpy`, and comes back out through
 column sidecars need no converter: both packages read and write the same
 bytes (storage/colcache.py), and neither do the sqlite clock and cursor
 tables (storage/sql.py keeps the schema). A reference DeviceClockMirror
-crosses through `clock_mirror_from_reference`. Nothing here imports the
-reference package: the reference's objects are read by their fields.
+crosses through `clock_mirror_from_reference`, and a resident read-serving
+entry (serve/resident.py ResidentDoc) through
+`resident_entry_from_reference`. Nothing here imports the reference
+package: the reference's objects are read by their fields.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from .crdt.change import Change
-from .device import DeviceLike
+from .device import DeviceLike, resolve
 from .ops.clock_mirror import DeviceClockMirror
 from .ops.columnar import COLUMNS, ColumnarBatch
 from .ops.crdt_kernels import MaterializeOut
@@ -118,3 +120,26 @@ def clock_mirror_from_reference(
             raise ValueError(f"mirror matrix {m.shape} != its capacity")
         out._matrix = out._upload(m)
     return out
+
+
+def resident_entry_from_reference(entry: Any, device: DeviceLike = None):
+    """A port ResidentDoc with a reference entry's state: its device lanes
+    ([6, bucket] int32) cross as numpy onto `device`, its host half (the
+    per-row value columns, the element -> value map, the side tables,
+    the key index) is copied."""
+    import torch
+
+    from .serve.resident import ResidentDoc, _Tables
+
+    dev = torch.from_numpy(np.array(entry.dev, dtype=np.int32)).to(
+        resolve(device)
+    )
+    host_cols = {
+        k: np.array(getattr(entry, k), dtype=np.int32)
+        for k in ("action", "vkind", "value", "dt", "inc_total")
+    }
+    return ResidentDoc(
+        entry.doc_id, dict(entry.clock), entry.n, entry.bucket, dev,
+        host_cols, np.array(entry.elem_val, dtype=np.int32),
+        _Tables(entry.tables), dict(entry.key_index),
+    )

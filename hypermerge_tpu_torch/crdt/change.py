@@ -20,16 +20,16 @@ list elements). The op model here is redesigned for columnar encoding
   element after `ref` (HEAD for the front). RGA ordering: among elements
   inserted after the same ref, descending OpId order.
 
-Changes are canonically serialized as JSON dicts. This is the port's own
-copy of hypermerge_tpu/crdt/change.py (ops and changes only; the frontend
-intent types are not needed by the materialize slice).
+Changes are canonically serialized as JSON dicts (wire + feed block format;
+block compression lives in storage/block.py). This is the port's copy of
+hypermerge_tpu/crdt/change.py.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from enum import IntEnum
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # identities
@@ -79,6 +79,14 @@ class Action(IntEnum):
             Action.MAKE_TEXT,
             Action.MAKE_TABLE,
         )
+
+
+OBJ_TYPE_BY_MAKE = {
+    Action.MAKE_MAP: "map",
+    Action.MAKE_LIST: "list",
+    Action.MAKE_TEXT: "text",
+    Action.MAKE_TABLE: "table",
+}
 
 
 # ---------------------------------------------------------------------------
@@ -164,4 +172,88 @@ class Change:
             time=d.get("time", 0),
             message=d.get("message", ""),
             ops=tuple(Op.from_json(o) for o in d["ops"]),
+        )
+
+
+# ---------------------------------------------------------------------------
+# frontend intents (request form — ids unresolved, assigned by the writer's
+# backend at applyLocalChange time, mirroring the reference's
+# Frontend.change -> RequestMsg -> Backend.applyLocalChange flow,
+# reference src/DocFrontend.ts:137, src/DocBackend.ts:187-205)
+
+
+@dataclass(frozen=True)
+class OpIntent:
+    """One user mutation recorded by the change-fn proxy.
+
+    `obj` is either a resolved OpId string (existing object) or a temp id
+    `"tmp:<n>"` for objects created earlier in the same change fn. List
+    positions are indices into the list as the frontend displayed it.
+    """
+
+    action: Action
+    obj: str  # OpId str | "tmp:<n>" | "_root"
+    key: Optional[str] = None
+    index: Optional[int] = None  # list index (for insert: insert-before idx)
+    insert: bool = False
+    value: Any = None
+    datatype: Optional[str] = None
+    temp_id: Optional[str] = None  # set for MAKE_*: id used later in the fn
+
+    def to_json(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"a": int(self.action), "o": self.obj}
+        for name, v in (
+            ("k", self.key),
+            ("x", self.index),
+            ("v", self.value),
+            ("d", self.datatype),
+            ("t", self.temp_id),
+        ):
+            if v is not None:
+                d[name] = v
+        if self.insert:
+            d["i"] = True
+        return d
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "OpIntent":
+        return OpIntent(
+            action=Action(d["a"]),
+            obj=d["o"],
+            key=d.get("k"),
+            index=d.get("x"),
+            insert=bool(d.get("i", False)),
+            value=d.get("v"),
+            datatype=d.get("d"),
+            temp_id=d.get("t"),
+        )
+
+
+@dataclass(frozen=True)
+class ChangeRequest:
+    """Frontend -> backend local change request (reference RequestMsg)."""
+
+    actor: str
+    seq: int
+    time: int
+    message: str
+    intents: Tuple[OpIntent, ...]
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "actor": self.actor,
+            "seq": self.seq,
+            "time": self.time,
+            "message": self.message,
+            "intents": [i.to_json() for i in self.intents],
+        }
+
+    @staticmethod
+    def from_json(d: Dict[str, Any]) -> "ChangeRequest":
+        return ChangeRequest(
+            actor=d["actor"],
+            seq=d["seq"],
+            time=d.get("time", 0),
+            message=d.get("message", ""),
+            intents=tuple(OpIntent.from_json(i) for i in d["intents"]),
         )

@@ -328,6 +328,7 @@ def summarize_wire_plain(
 launches: Dict[str, int] = {
     "materialize": 0, "summary_wire": 0, "pack_prefix": 0,
     "clock_pair": 0, "clock_union": 0, "clock_scatter": 0, "clock_topk": 0,
+    "serve_lookup": 0, "serve_order": 0, "serve_counts": 0,
 }
 
 _P = ctypes.c_void_p
@@ -347,6 +348,10 @@ _SIGNATURES = {
     "clock_topk": (
         "hm_clock_topk", [_P] + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 5
     ),
+    # wrappers in serve/kernels.py
+    "serve_lookup": ("hm_serve_lookup", [_P] + [_I] * 2 + [_P] * 2),
+    "serve_order": ("hm_serve_order", [_P] + [_I] * 2 + [_P] * 3),
+    "serve_counts": ("hm_serve_counts", [_P] + [_I] * 2 + [_P] * 2),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..crdt.change import Action
 from ..crdt.frontend_state import FrontendDoc
@@ -85,14 +86,57 @@ class DecodedBatch:
             self.batch, _doc_actors_row(self.batch, d), self.clock[d]
         )
 
+    def doc_view(self, d: int) -> "DocView":
+        """A one-doc view whose lanes transfer individually — opening a
+        single doc out of a bulk batch must not pay for the whole [D, N]
+        lane set (decode_patch accepts this in place of the batch)."""
+        lanes = {}
+        for name in DecodedBatch._LANES:
+            if name in self.__dict__:
+                lanes[name] = self.__dict__[name][d : d + 1]
+            else:
+                lanes[name] = _host(getattr(self._out, name)[d])[None]
+        cols = {k: v[d : d + 1] for k, v in self.cols.items()}
+        return DocView(
+            self.batch,
+            cols,
+            lanes,
+            _doc_actors_row(self.batch, d),
+            host_clock=(
+                dict(self.host_clocks[d])
+                if self.host_clocks is not None
+                else None
+            ),
+        )
+
 
 def _host(t) -> np.ndarray:
-    """A device lane as a host numpy array (one transfer)."""
-    return t.cpu().numpy()
+    """A lane as a host numpy array: one transfer for a tensor, the
+    array itself for the numpy kernel twin's lanes."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 def _doc_actors_row(batch: ColumnarBatch, d: int) -> np.ndarray:
     return ensure_doc_actors(batch)[d]
+
+
+class DocView:
+    """One document's rows/lanes, shaped [1, N] — decode_patch(view, 0)."""
+
+    def __init__(
+        self, batch, cols, lanes, doc_actors, host_clock=None
+    ) -> None:
+        self.batch = batch
+        self.cols = cols
+        self.doc_actors = doc_actors
+        self.host_clock = host_clock
+        for name, arr in lanes.items():
+            setattr(self, name, arr)
+
+    def clock_dict(self, _d: int) -> Dict[str, int]:
+        if self.host_clock is not None:
+            return dict(self.host_clock)
+        return _local_clock_dict(self.batch, self.doc_actors, self.clock[0])
 
 
 def _local_clock_dict(
@@ -317,17 +361,28 @@ def summarize_columnar(
 
 
 class BulkSummaries:
-    """Host-side summaries of a bulk load's slabs. Slab arrays stay
-    columnar (zero-copy for bulk consumers); `doc(id)` decodes one doc's
-    counts + clock on demand."""
+    """Host-side summaries of a bulk load's slabs — the product of the
+    materialization barrier (RepoBackend.fetch_bulk_summaries). Slab
+    arrays stay columnar (zero-copy for bulk consumers); `doc(id)` decodes
+    one doc's counts + clock on demand.
 
-    def __init__(self, pending) -> None:
-        # pending: (doc_ids, batch, dec, wire, lean) with wire the
-        # slab's summary wire (a tensor on the device it ran on)
-        self.slabs: List[Tuple[List[str], ColumnarBatch, Dict]] = []
+    `memo_slabs` carries docs served from the backend's summary memo
+    (clean docs whose clocks did not move since their last fetch — no
+    pack, no dispatch, no transfer): (doc_ids, arrays, clock_dicts)
+    groups whose arrays follow the same columnar contract, with the
+    per-doc clock already decoded."""
+
+    def __init__(self, pending, memo_slabs=None) -> None:
+        # pending: (doc_ids, batch, dec, wire, lean) where wire is the
+        # slab's summary wire (a tensor) or the parsed arrays dict itself
+        # (the backend's barrier fetched it)
+        self.slabs: List[Tuple[List[str], Optional[ColumnarBatch], Dict]] = []
         self._where: Dict[str, Tuple[int, int]] = {}
         for doc_ids, batch, dec, wire, lean in pending:
-            arrays = fetch_summary(wire, batch, lean)
+            if isinstance(wire, dict):  # parsed by the barrier
+                arrays = wire
+            else:
+                arrays = fetch_summary(wire, batch, lean)
             if dec.host_clocks is not None:
                 # lean slabs never uploaded the seq lane (nor fetched the
                 # wire's clock section), so the clock lane is zeros:
@@ -345,9 +400,19 @@ class BulkSummaries:
                                 batch.actors[int(gid)], 0
                             )
                 arrays["clock"] = clock
-            self.slabs.append((doc_ids, batch, arrays))
-            for j, d in enumerate(doc_ids):
-                self._where[d] = (len(self.slabs) - 1, j)
+            self._add_slab(doc_ids, batch, arrays)
+        for doc_ids, arrays, clock_dicts in memo_slabs or ():
+            arrays = dict(arrays)
+            arrays["clock_dicts"] = list(clock_dicts)
+            self._add_slab(doc_ids, None, arrays)
+
+    def _add_slab(self, doc_ids, batch, arrays) -> None:
+        # only small per-doc dicts are retained — the DecodedBatch
+        # (device lanes + column copies) must be releasable once docs
+        # drop their lazy snapshot closures
+        self.slabs.append((doc_ids, batch, arrays))
+        for j, d in enumerate(doc_ids):
+            self._where[d] = (len(self.slabs) - 1, j)
 
     @property
     def doc_ids(self) -> List[str]:
@@ -361,9 +426,12 @@ class BulkSummaries:
     def doc(self, doc_id: str) -> Dict[str, Any]:
         si, j = self._where[doc_id]
         _doc_ids, batch, arrays = self.slabs[si]
-        clock = _local_clock_dict(
-            batch, _doc_actors_row(batch, j), arrays["clock"][j]
-        )
+        if batch is None:  # memo-served group: clock pre-decoded
+            clock = dict(arrays["clock_dicts"][j])
+        else:
+            clock = _local_clock_dict(
+                batch, _doc_actors_row(batch, j), arrays["clock"][j]
+            )
         return {
             "elems": int(arrays["n_live_elems"][j]),
             "map_entries": int(arrays["n_map_entries"][j]),

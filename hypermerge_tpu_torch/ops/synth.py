@@ -225,3 +225,55 @@ def synth_changes(
         clock[a] = seq
         row = end
     return changes
+
+
+SERVE_SCENARIOS = ("random", "misses", "ties", "extreme_ranks", "all_masked")
+
+
+def synth_serve_lanes(
+    B: int, N: int, scenario: str = "random", seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read-serving query inputs: ([B, 6, N] int32 resident lanes in the
+    serve/kernels.py layout, [B] int32 qobj, [B] int32 qkey).
+
+    Each entry has a random count of real rows and pad rows behind them
+    (OBJ = -3, KEY = -1, as serve/resident.py pads). Queries mostly name
+    a container and key the entry holds. Scenarios: "random"; "misses"
+    (queries that match nothing: absent containers and keys, and the
+    NO_OBJ pad query); "ties" (ranks from three values, so most keys
+    tie); "extreme_ranks" (ranks at and near both int32 ends, where
+    -rank wraps); "all_masked" (every row matches its query)."""
+    if scenario not in SERVE_SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}")
+    rng = np.random.default_rng(seed)
+    i32 = np.iinfo(np.int32)
+    lanes = np.zeros((B, 6, N), np.int32)
+    qobj = np.zeros(B, np.int32)
+    qkey = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, N + 1))
+        live, rank, obj, ins, key, win = lanes[b]
+        obj[:] = -3
+        key[:] = -1
+        obj[:n] = rng.integers(-1, 6, n)
+        key[:n] = rng.integers(-1, 8, n)
+        live[:n] = rng.random(n) < 0.6
+        ins[:n] = rng.random(n) < 0.5
+        win[:n] = rng.random(n) < 0.4
+        if scenario == "ties":
+            rank[:n] = rng.integers(0, 3, n)
+        elif scenario == "extreme_ranks":
+            rank[:n] = rng.choice(
+                [i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max], n
+            )
+        else:
+            rank[:n] = rng.integers(0, 4 * N, n)
+        q = int(rng.integers(0, n))
+        qobj[b], qkey[b] = obj[q], max(int(key[q]), 0)
+        if scenario == "all_masked":
+            obj[:] = qobj[b]
+            key[:] = qkey[b]
+            live[:] = ins[:] = win[:] = 1
+        elif scenario == "misses":
+            qobj[b], qkey[b] = ((6, 0), (qobj[b], 9), (-7, -1))[b % 3]
+    return lanes, qobj, qkey

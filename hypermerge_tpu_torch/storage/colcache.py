@@ -1,15 +1,20 @@
-"""Columnar feed sidecars — the port's copy of
-hypermerge_tpu/storage/colcache.py.
+"""Columnar feed cache — the port's copy of
+hypermerge_tpu/storage/colcache.py (sidecar files byte-identical to the
+reference's: a sidecar one package wrote, the other reads).
 
-Next to each feed's block log the reference keeps a derived columnar
-encoding of the same ops, loaded with a few `np.frombuffer` slices and
-packed into a slab with numpy only (ops/columnar.py `pack_docs_columns`).
-The port reads and writes the same files byte for byte: a sidecar that
-one package wrote, the other reads.
+The reference cold start replays every change through the CRDT backend
+one block at a time (reference src/RepoBackend.ts:238-257 loadDocument →
+Backend.applyChanges). The TPU-first equivalent wants feeds to arrive on
+device as int32 columns with zero per-op Python. This module maintains,
+next to each feed's block log, a derived columnar encoding of the same
+ops that can be loaded with a single `np.fromfile` and sliced/remapped
+with numpy only (ops/columnar.py `pack_docs_columns`).
 
-The cache is *derived data*: the change blocks in the feed remain the
-source of truth. A torn tail (crash mid-append) is dropped at load: only
-records whose bytes are all present count.
+The cache is *derived data*: the JSON change blocks in the feed remain
+the source of truth (and the replication wire format). A missing or
+stale cache is rebuilt from blocks; a torn tail (crash mid-append) is
+truncated to the last committed change, mirroring the torn-tail healing
+of FileFeedStorage (storage/feed.py).
 
 Row layout (int32 x ROW_FIELDS per op):
   0 action   Action code
@@ -29,29 +34,27 @@ Row layout (int32 x ROW_FIELDS per op):
 
 Pred (supersession) edges are separate records (int32 x 3):
   src op index (absolute, within this feed), tgt_ctr, tgt_a.
-INC ops contribute no pred edges — their target rides ref_*.
+INC ops contribute no pred edges — their target rides ref_* (matching
+ops/columnar.py _pack_one).
 
-Tables are JSON lines: {"t": "a"|"k"|"s"|"f"|"b", "v": ...}
+Tables are append-only JSON lines: {"t": "a"|"k"|"s"|"f"|"b", "v": ...}
 ("a" actors — index 0 is always the feed writer; "k" key strings;
 "s" value strings; "f" floats; "b" bigints as decimal strings).
 
-On disk a feed is one file (`FileColumnStorageV2`): an optional v3
-checkpoint (every column as one contiguous plane in its narrowest dtype)
-followed by framed v2 records, one per change. A flag of 1 on a record
-marks a corrupt feed block (occupies a seq slot, contributes no ops), so
-`ok_prefix_len` clamps windows to the changes before it.
-
-Not ported yet: the reference's oldest four-file sidecar layout
-(`FileColumnStorage`) and the corpus slab (`SlabColumnStorage`,
-storage/slab.py), which its `file_column_storage_fn` uses by default;
-`file_column_storage_fn` here keeps one `.cols2` file per feed, the
-layout the reference writes under HM_SLAB=0.
+A commit record (int32 x 4: n_rows, n_preds, n_table_lines, flag) is
+appended **after** each change's data; load() honors only the last
+complete commit, so a torn append never corrupts the cache. flag=1
+marks a corrupt feed block (occupies a seq slot, contributes no ops) —
+needed because the host OpSet stalls an actor's changes at the first
+corrupt block (seq continuity), so `ok_prefix_len` clamps windows.
 """
+
 from __future__ import annotations
 
 import json
 import os
 import struct
+import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -120,8 +123,9 @@ class FeedColumns:
     planes: Optional[Dict[str, np.ndarray]] = None
     # (base_addr, offsets[len(PLANE_NAMES)] int64, dtype_codes uint8,
     # keep_alive) when every plane is a slice of ONE raw checkpoint
-    # buffer (the reference's native bulk pack derives all plane
-    # pointers from the base address; kept for parity, unread here)
+    # buffer: the native bulk pack derives all plane pointers from the
+    # base address instead of a per-plane __array_interface__ walk
+    # (which costs ~5us x 12 planes x 10k feeds on a cold open)
     plane_meta: Optional[Tuple] = None
 
     @property
@@ -239,6 +243,184 @@ class MemoryColumnStorage:
         pass
 
 
+class FileColumnStorage:
+    """rows.bin / preds.bin / tables.jsonl / commits.bin in a directory.
+
+    Only the prefix covered by the last complete commit record is ever
+    read back — a crash mid-append loses at most the uncommitted change,
+    which the rebuild path re-derives from the feed's blocks."""
+
+    _COMMIT = struct.Struct("<4i")
+
+    def __init__(self, path: str) -> None:
+        self.path = path
+        self._dir_ready = os.path.isdir(path)
+        self._fhs = None  # (rows, preds, tables, commits) — lazy: a
+        # read-only bulk load over many feeds must not hold 4 FDs each
+        self._n_rows: Optional[int] = None
+        self._n_preds: Optional[int] = None
+        self._n_tables_written: Optional[int] = None
+
+    def _ensure_writable(self):
+        if self._fhs is not None:
+            return self._fhs
+        if not self._dir_ready:
+            os.makedirs(self.path, exist_ok=True)
+            self._dir_ready = True
+        self._truncate_to_committed()
+        self._fhs = (
+            open(os.path.join(self.path, "rows.bin"), "ab"),
+            open(os.path.join(self.path, "preds.bin"), "ab"),
+            open(os.path.join(self.path, "tables.jsonl"), "ab"),
+            open(os.path.join(self.path, "commits.bin"), "ab"),
+        )
+        self._n_rows = os.path.getsize(
+            os.path.join(self.path, "rows.bin")
+        ) // (4 * ROW_FIELDS)
+        self._n_preds = os.path.getsize(
+            os.path.join(self.path, "preds.bin")
+        ) // (4 * PRED_FIELDS)
+        self._n_tables_written = self._count_table_lines()
+        return self._fhs
+
+    def _truncate_to_committed(self) -> None:
+        """Drop any torn tail from a crash mid-append: the data files are
+        rolled back to the sizes the last complete commit record names
+        (the lost change re-derives from its feed block on catch-up)."""
+        cpath = os.path.join(self.path, "commits.bin")
+        csize = (
+            os.path.getsize(cpath) if os.path.exists(cpath) else 0
+        )
+        n_commits = csize // self._COMMIT.size
+        if csize != n_commits * self._COMMIT.size:
+            with open(cpath, "r+b") as fh:
+                fh.truncate(n_commits * self._COMMIT.size)
+        if n_commits:
+            with open(cpath, "rb") as fh:
+                fh.seek((n_commits - 1) * self._COMMIT.size)
+                n_rows, n_preds, n_tables, _ = self._COMMIT.unpack(
+                    fh.read(self._COMMIT.size)
+                )
+        else:
+            n_rows = n_preds = n_tables = 0
+        for name, want in (
+            ("rows.bin", n_rows * 4 * ROW_FIELDS),
+            ("preds.bin", n_preds * 4 * PRED_FIELDS),
+        ):
+            p = os.path.join(self.path, name)
+            if os.path.exists(p) and os.path.getsize(p) > want:
+                with open(p, "r+b") as fh:
+                    fh.truncate(want)
+        tp = os.path.join(self.path, "tables.jsonl")
+        if os.path.exists(tp):
+            keep = 0
+            count = 0
+            with open(tp, "rb") as fh:
+                for line in fh:
+                    if count >= n_tables or not line.endswith(b"\n"):
+                        break
+                    count += 1
+                    keep += len(line)
+            if os.path.getsize(tp) > keep:
+                with open(tp, "r+b") as fh:
+                    fh.truncate(keep)
+
+    def commit_change(
+        self,
+        rows: np.ndarray,
+        preds: np.ndarray,
+        table_lines: List[str],
+        flag: int,
+    ) -> None:
+        rows_fh, preds_fh, tables_fh, commits_fh = self._ensure_writable()
+        if len(rows):
+            rows_fh.write(np.ascontiguousarray(rows, np.int32).tobytes())
+            rows_fh.flush()
+            self._n_rows += len(rows)
+        if len(preds):
+            preds_fh.write(np.ascontiguousarray(preds, np.int32).tobytes())
+            preds_fh.flush()
+            self._n_preds += len(preds)
+        for line in table_lines:
+            tables_fh.write(line.encode("utf-8") + b"\n")
+        if table_lines:
+            tables_fh.flush()
+            self._n_tables_written += len(table_lines)
+        commits_fh.write(
+            self._COMMIT.pack(
+                self._n_rows, self._n_preds, self._n_tables_written, flag
+            )
+        )
+        commits_fh.flush()
+
+    def _count_table_lines(self) -> int:
+        p = os.path.join(self.path, "tables.jsonl")
+        if not os.path.exists(p):
+            return 0
+        with open(p, "rb") as fh:
+            return sum(1 for _ in fh)
+
+    def load(self):
+        commits_raw = self._read(os.path.join(self.path, "commits.bin"))
+        n_complete = len(commits_raw) // self._COMMIT.size
+        commits = np.frombuffer(
+            commits_raw[: n_complete * self._COMMIT.size], np.int32
+        ).reshape(-1, COMMIT_FIELDS)
+        n_rows = int(commits[-1, 0]) if n_complete else 0
+        n_preds = int(commits[-1, 1]) if n_complete else 0
+        n_tables = int(commits[-1, 2]) if n_complete else 0
+        rows_raw = self._read(os.path.join(self.path, "rows.bin"))
+        rows = np.frombuffer(
+            rows_raw[: n_rows * 4 * ROW_FIELDS], np.int32
+        ).reshape(-1, ROW_FIELDS)
+        preds_raw = self._read(os.path.join(self.path, "preds.bin"))
+        preds = np.frombuffer(
+            preds_raw[: n_preds * 4 * PRED_FIELDS], np.int32
+        ).reshape(-1, PRED_FIELDS)
+        tables: List[str] = []
+        tp = os.path.join(self.path, "tables.jsonl")
+        if os.path.exists(tp) and n_tables:
+            with open(tp, "rb") as fh:
+                for line in fh:
+                    tables.append(line.decode("utf-8").rstrip("\n"))
+                    if len(tables) >= n_tables:
+                        break
+        return rows, preds, tables, commits
+
+    @staticmethod
+    def _read(path: str) -> bytes:
+        if not os.path.exists(path):
+            return b""
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    def reset(self) -> None:
+        """Discard all cache contents (used when the sidecar disagrees
+        with its feed — e.g. a restored/replaced feed file left the
+        sidecar ahead of the block log)."""
+        self.close()
+        for name in ("rows.bin", "preds.bin", "tables.jsonl", "commits.bin"):
+            p = os.path.join(self.path, name)
+            if os.path.exists(p):
+                os.remove(p)
+        self._n_rows = self._n_preds = self._n_tables_written = None
+
+    def destroy(self) -> None:
+        """reset + remove the sidecar directory itself (doc destroy)."""
+        self.reset()
+        try:
+            os.rmdir(self.path)
+        except OSError:
+            pass
+        self._dir_ready = False
+
+    def close(self) -> None:
+        if self._fhs is not None:
+            for fh in self._fhs:
+                fh.close()
+            self._fhs = None
+
+
 _V2_HDR = struct.Struct("<IIIB")
 
 
@@ -339,7 +521,8 @@ def pack_v3_checkpoint(
 def parse_v3_checkpoint(raw: bytes):
     """(planes, preds, row_ends, flags, tables_lines, end_offset,
     plane_meta) or None when `raw` does not start with a complete v3
-    block. plane_meta is the FeedColumns.plane_meta tuple."""
+    block. plane_meta is the FeedColumns.plane_meta tuple (pointer table
+    for the native bulk pack)."""
     if not raw.startswith(_V3_MAGIC):
         return None
     pos = len(_V3_MAGIC)
@@ -416,7 +599,9 @@ class FileColumnStorageV2:
     A record is valid iff the file holds all the bytes its header names;
     a torn tail (crash mid-append) simply fails that check and is
     overwritten by the next append. One open+read per cold load and one
-    append write per change.
+    append write per change — the 4-file layout (FileColumnStorage,
+    retained read-compatible for old repos) cost a bulk cold start four
+    opens + seven stats PER FEED.
 
     A file may START with a v3 checkpoint block (pack_v3_checkpoint):
     the committed prefix as contiguous narrow column planes, loaded by
@@ -604,29 +789,110 @@ class FileColumnStorageV2:
         pass
 
 
+class SlabColumnStorage(FileColumnStorageV2):
+    """One feed's sidecar served from the corpus slab (storage/slab.py).
+
+    Byte format per feed is identical to the `.cols2` single file —
+    the slab just frames many of them in one file — so this subclass
+    only redirects the byte source: loads slice the slab's mmap,
+    commits append record segments, checkpoints append a fresh image.
+    A legacy `.cols2` file migrates lazily on first read: its bytes
+    become the feed's image segment and the file is deleted (sidecars
+    are derived data — a crash between the two at worst rebuilds from
+    blocks, the cache's normal recovery)."""
+
+    def __init__(
+        self, slab, name: str, legacy_v2: Optional[str] = None
+    ) -> None:
+        super().__init__(slab.path + "#" + name)  # diagnostic only
+        self._slab = slab
+        self._name = name
+        self._legacy_v2 = legacy_v2
+
+    def load_v3(self):
+        from .slab import KIND_IMAGE
+
+        raw = self._slab.image_bytes(self._name)
+        if not raw and not self._slab.has(self._name):
+            lp = self._legacy_v2
+            if lp is not None and os.path.exists(lp):
+                with open(lp, "rb") as fh:
+                    raw = fh.read()
+                self._slab.append(KIND_IMAGE, self._name, raw)
+                try:
+                    io_remove(lp)
+                except OSError:
+                    pass
+        return self._load_v3_bytes(raw)
+
+    def commit_change(self, rows, preds, table_lines, flag) -> None:
+        from .slab import KIND_RECORD
+
+        self._slab.append(
+            KIND_RECORD,
+            self._name,
+            pack_v2_record(rows, preds, table_lines, flag),
+        )
+
+    def write_checkpoint(
+        self, planes, preds, row_ends, flags, tables_bytes
+    ) -> None:
+        from .slab import KIND_IMAGE
+
+        self._slab.append(
+            KIND_IMAGE,
+            self._name,
+            pack_v3_checkpoint(planes, preds, row_ends, flags, tables_bytes),
+        )
+
+    def reset(self) -> None:
+        from .slab import KIND_TOMBSTONE
+
+        if self._slab.feed_live(self._name):
+            self._slab.append(KIND_TOMBSTONE, self._name, b"")
+        lp = self._legacy_v2
+        if lp is not None and os.path.exists(lp):
+            io_remove(lp)
+        self._counts = None
+
+    def destroy(self) -> None:
+        self.reset()
+
+    def close(self) -> None:  # the slab is owned/closed by the repo
+        pass
+
+
 def memory_column_storage_fn(_name: str) -> MemoryColumnStorage:
     return MemoryColumnStorage()
 
 
 def file_column_storage_fn(root: str):
-    """One `.cols2` sidecar file per feed, at `<root>/<name[:2]>/<name>.cols2`
-    (the reference's layout under HM_SLAB=0). Raises for a feed whose
-    sidecar is in a layout the port does not read yet: a corpus slab
-    (`<root>/cols.slab`) or the four-file `<name>.cols` directory."""
-    if os.path.exists(os.path.join(root, "cols.slab")):
-        raise NotImplementedError(
-            f"{root}: corpus slab sidecars are not read by the port yet"
-        )
+    """Sidecars live in the corpus slab (storage/slab.py): one file, one
+    open, sequential reads for a whole cold start. Per-feed `.cols2`
+    files written by older versions migrate into the slab lazily on
+    first read; directories written by the oldest 4-file layout keep
+    loading through their reader. HM_SLAB=0 restores the per-feed
+    single-file layout. The returned fn carries the slab handle as
+    `fn.slab` (the backend compacts + closes it on shutdown)."""
+    use_slab = os.environ.get("HM_SLAB", "1") != "0"
+    slab = None
+    if use_slab:
+        from .slab import CorpusSlab
+
+        slab = CorpusSlab(os.path.join(root, "cols.slab"))
 
     def fn(name: str):
         legacy = os.path.join(root, name[:2], name + ".cols")
         v2 = os.path.join(root, name[:2], name + ".cols2")
+        if slab is not None and slab.has(name):
+            return SlabColumnStorage(slab, name, legacy_v2=v2)
         if os.path.isdir(legacy) and not os.path.exists(v2):
-            raise NotImplementedError(
-                f"{legacy}: four-file sidecars are not read by the port yet"
-            )
-        return FileColumnStorageV2(v2)
+            return FileColumnStorage(legacy)
+        if slab is None:
+            return FileColumnStorageV2(v2)
+        return SlabColumnStorage(slab, name, legacy_v2=v2)
 
+    fn.slab = slab
     return fn
 
 
@@ -654,9 +920,8 @@ class _Interner:
 class FeedColumnCache:
     """Maintains the columnar encoding of one feed.
 
-    Writers call `append_change` after every block append (the
-    reference's Actor does this for local writes and decoded remote
-    blocks); bulk loaders
+    Writers call `append_change` after every block append (Actor does
+    this for both local writes and decoded remote blocks); bulk loaders
     call `columns()` — a cheap incremental concatenation after the first
     load. The encode mirrors ops/columnar.py `_pack_one` semantics:
     INC rides ref_* with no pred edges; ops are dropped at *pack* time
@@ -669,7 +934,7 @@ class FeedColumnCache:
         self.writer = writer
         self._loaded = False  # storage read is deferred: a bulk cold
         # start creates thousands of caches serially but loads them in
-        # parallel
+        # parallel (RepoBackend._prefetch_columns)
 
     def _ensure_loaded(self) -> None:
         if self._loaded:
@@ -815,6 +1080,8 @@ class FeedColumnCache:
         base = self._total_rows()
         out_rows: List[List[int]] = []
         out_preds: List[Tuple[int, int, int]] = []
+        # hoisted out of the closure: the guarded-attr rule checks the
+        # _actors read at THIS (REQUIRES-covered) function depth
         actors = self._actors
         aid = lambda actor: self._intern("a", actors, actor)  # noqa: E731
         for i, op in enumerate(change.ops):
@@ -880,7 +1147,7 @@ class FeedColumnCache:
 
     def reset(self) -> None:
         """Discard the cache and start over (storage included). Invoked
-        when the sidecar claims more changes than the feed holds
+        by Actor when the sidecar claims more changes than the feed holds
         — blocks are the source of truth, so a cache that ran ahead (e.g.
         feed file replaced/truncated out-of-band) must rebuild."""
         with self._lock:

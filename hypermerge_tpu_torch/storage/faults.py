@@ -8,7 +8,8 @@ recorder can sit in between. The port keeps the seam with the same
 signatures, and behaves as the reference does with no harness active:
 each call is the builtin. The fault-injection registry and the crash
 recorder are not ported yet, so `active_recorder()` always answers that
-none is active.
+none is active and `harness_gen()`, the generation of installed
+harnesses, stays 0.
 """
 
 from __future__ import annotations
@@ -39,3 +40,9 @@ def active_recorder():
     """The active crash recorder (storage/sql.py journals statements into
     it): None, as in the reference with no harness active."""
     return None
+
+
+def harness_gen() -> int:
+    """The count of fault harnesses installed so far (storage/feed.py
+    reopens its handles when it moves): always 0 here."""
+    return 0

@@ -12,8 +12,8 @@ the attached DeviceClockMirror for the whole corpus, or over a doc subset
 packed from sqlite and uploaded to the store's device. The store resolves
 its device at construction (cuda unless `device="cpu"`).
 
-KeyStore and FeedInfoStore are not ported yet: they need utils/keys.py
-and its crypto, which come with the Repo slice.
+KeyStore (named keypairs) and FeedInfoStore (the feeds table) are plain
+copies of the reference's.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..analysis.lockdep import make_rlock
 from ..crdt import clock as clockmod
 from ..device import DeviceLike, resolve
 from ..ops import clock_kernels as K
+from ..utils import keys as keymod
 from .sql import SqlDatabase
 
 INFINITY_SEQ = clockmod.INFINITY_SEQ
@@ -406,3 +407,93 @@ class CursorStore:
                 self._mem[repo_id].pop(doc_id, None)
                 for docs in self._by_actor[repo_id].values():
                     docs.pop(doc_id, None)
+
+
+class KeyStore:
+    def __init__(self, db: SqlDatabase) -> None:
+        self.db = db
+
+    def get(self, name: str) -> Optional[keymod.KeyPair]:
+        rows = self.db.query(
+            "SELECT public_key, secret_key FROM keys WHERE name=?", (name,)
+        )
+        if not rows:
+            return None
+        return keymod.KeyPair(public_key=rows[0][0], secret_key=rows[0][1])
+
+    def set(self, name: str, pair: keymod.KeyPair) -> keymod.KeyPair:
+        self.db.execute(
+            "INSERT OR REPLACE INTO keys (name, public_key, secret_key) "
+            "VALUES (?,?,?)",
+            (name, pair.public_key, pair.secret_key),
+        )
+        return pair
+
+    def get_or_create(self, name: str) -> keymod.KeyPair:
+        pair = self.get(name)
+        if pair is None:
+            pair = keymod.create()
+            self.set(name, pair)
+        return pair
+
+    def all_pairs(self) -> Dict[str, keymod.KeyPair]:
+        """Every stored keypair in ONE query (the backend hydrates its
+        actor-key map from this at open — a per-actor SELECT would put
+        sqlite back on the bulk cold-open path)."""
+        return {
+            name: keymod.KeyPair(public_key=pub, secret_key=sec)
+            for name, pub, sec in self.db.query(
+                "SELECT name, public_key, secret_key FROM keys"
+            )
+        }
+
+    def clear(self, name: str) -> None:
+        self.db.execute("DELETE FROM keys WHERE name=?", (name,))
+
+
+class FeedInfoStore:
+    def __init__(self, db: SqlDatabase) -> None:
+        self.db = db
+
+    def save(
+        self, public_id: str, discovery_id: str, is_writable: bool
+    ) -> None:
+        self.db.execute(
+            "INSERT OR REPLACE INTO feeds "
+            "(public_id, discovery_id, is_writable) VALUES (?,?,?)",
+            (public_id, discovery_id, 1 if is_writable else 0),
+        )
+
+    def save_many(self, rows) -> None:
+        """(public_id, discovery_id, is_writable) triples, one statement."""
+        self.db.executemany(
+            "INSERT OR REPLACE INTO feeds "
+            "(public_id, discovery_id, is_writable) VALUES (?,?,?)",
+            [(p, d, 1 if w else 0) for p, d, w in rows],
+        )
+
+    def delete(self, public_id: str) -> None:
+        self.db.execute(
+            "DELETE FROM feeds WHERE public_id=?", (public_id,)
+        )
+
+    def all_public_ids(self) -> List[str]:
+        return [r[0] for r in self.db.query("SELECT public_id FROM feeds")]
+
+    def by_discovery_id(self, discovery_id: str) -> Optional[str]:
+        rows = self.db.query(
+            "SELECT public_id FROM feeds WHERE discovery_id=?",
+            (discovery_id,),
+        )
+        return rows[0][0] if rows else None
+
+    def remove(self, public_id: str) -> None:
+        self.db.execute(
+            "DELETE FROM feeds WHERE public_id=?", (public_id,)
+        )
+
+    def is_writable(self, public_id: str) -> bool:
+        rows = self.db.query(
+            "SELECT is_writable FROM feeds WHERE public_id=?", (public_id,)
+        )
+        return bool(rows and rows[0][0])

@@ -257,10 +257,12 @@ def test_torn_tail_and_auto_compaction(tmp_path, monkeypatch):
         assert raw == f1.read()
 
 
-def test_reset_destroy_and_storage_fns(tmp_path):
+def test_reset_destroy_and_storage_fns(tmp_path, monkeypatch):
     hist = single_writer_history(19)
     w = hist[0].actor
+    monkeypatch.setenv("HM_SLAB", "0")  # one .cols2 file per feed
     fn = port_cc.file_column_storage_fn(str(tmp_path))
+    assert fn.slab is None
     st = fn("abcdef")
     assert st.path == os.path.join(str(tmp_path), "ab", "abcdef.cols2")
     _, pc = fill_caches(hist, ref_cc.MemoryColumnStorage(), st)
@@ -272,10 +274,23 @@ def test_reset_destroy_and_storage_fns(tmp_path):
     pc.destroy()
     assert not os.path.exists(st.path)
     assert isinstance(port_cc.memory_column_storage_fn("x"), port_cc.MemoryColumnStorage)
-    # layouts the port does not read yet raise instead of reading nothing
+    # the oldest four-file layout loads through its own reader
     os.makedirs(tmp_path / "cd" / "cdef.cols")
-    with pytest.raises(NotImplementedError, match="four-file"):
-        fn("cdef")
-    (tmp_path / "cols.slab").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="slab"):
-        port_cc.file_column_storage_fn(str(tmp_path))
+    assert isinstance(fn("cdef"), port_cc.FileColumnStorage)
+    # by default the sidecars live in the corpus slab, and a slab either
+    # package wrote, the other reads
+    monkeypatch.delenv("HM_SLAB")
+    for writer, reader in ((port_cc, ref_cc), (ref_cc, port_cc)):
+        root = str(tmp_path / f"slab-{writer.__name__.split('.')[0]}")
+        wfn = writer.file_column_storage_fn(root)
+        assert isinstance(wfn(w), writer.SlabColumnStorage)
+        wc = writer.FeedColumnCache(wfn(w), writer=w)
+        for c in (hist if writer is ref_cc else to_port(hist)):
+            wc.append_change(c)
+        want = wc.columns()
+        wfn.slab.close()
+        assert os.path.exists(os.path.join(root, "cols.slab"))
+        rfn = reader.file_column_storage_fn(root)
+        got = reader.FeedColumnCache(rfn(w), writer=w).columns()
+        assert_columns_equal(want, got)
+        rfn.slab.close()

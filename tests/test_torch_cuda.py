@@ -18,6 +18,7 @@ from hypermerge_tpu_torch.ops import crdt_kernels as ck
 from hypermerge_tpu_torch.ops.clock_mirror import DeviceClockMirror
 from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
+from hypermerge_tpu_torch.serve import kernels as sk
 from hypermerge_tpu_torch.storage import colcache
 
 pytestmark = pytest.mark.cuda
@@ -220,3 +221,63 @@ def test_clock_mirror_on_card_equals_cpu(cuda):
         m.delete_doc("d6")
     assert gpu.rows() == cpu.rows()
     assert torch.equal(gpu._mat().cpu(), cpu._mat())
+
+
+SERVE_CALLS = {
+    "lookup": (sk.map_lookup_cuda,
+               lambda st, qo, qk: sk.map_lookup_plain(st, qo, qk)),
+    "order": (lambda devs, qo, qk: sk.seq_order_cuda(devs, qo),
+              lambda st, qo, qk: sk.seq_order_plain(st, qo)),
+    "counts": (lambda devs, qo, qk: sk.counts_cuda(devs, qo),
+               lambda st, qo, qk: sk.counts_plain(st, qo)),
+}
+
+
+@pytest.mark.parametrize("N", [64, 4096, 65536])
+@pytest.mark.parametrize("scenario", synth.SERVE_SCENARIOS)
+def test_serve_kernels_equal_plain(cuda, scenario, N):
+    """The three read-serving kernels against their plain versions on the
+    card, with a pad batch slot (entry 0 again, query NO_OBJ); N = 4096
+    and 65536 sort in global scratch."""
+    lanes, qobj, qkey = synth.synth_serve_lanes(5, N, scenario, seed=N)
+    t = torch.from_numpy(lanes).cuda()
+    devs = list(t.unbind(0)) + [t[0]]
+    qobj = np.append(qobj, sk.NO_OBJ).astype(np.int32)
+    qkey = np.append(qkey, -1).astype(np.int32)
+    st = torch.stack(devs)
+    for name, (kernel, plain) in SERVE_CALLS.items():
+        before = sum(ck.launches[k] for k in ck.launches if k.startswith("serve"))
+        got = kernel(devs, qobj, qkey)
+        want = plain(st, torch.from_numpy(qobj).cuda(),
+                     torch.from_numpy(qkey).cuda())
+        for g, w in zip(got, want):
+            w = w.cpu().numpy()
+            assert g.dtype == w.dtype and np.array_equal(g, w), name
+        after = sum(ck.launches[k] for k in ck.launches if k.startswith("serve"))
+        assert after == before + 1
+
+
+def test_repo_reads_on_the_card(cuda):
+    """Repo on its default device (the card): served reads equal the host
+    twin and launch the serve kernels."""
+    from hypermerge_tpu_torch.models import Text
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.serve import host_read
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    r = Repo(memory=True)
+    try:
+        assert r.back.device.type == "cuda"
+        url = r.create({"a": 1, "t": Text("hello")})
+        r.change(url, lambda d: d.__setitem__("l", [1, 2, 3]))
+        before = dict(ck.launches)
+        doc = r.back.docs[validate_doc_url(url)]
+        for q in ({"kind": "lookup", "path": ["a"]},
+                  {"kind": "text", "path": ["t"]},
+                  {"kind": "index", "path": ["l"], "index": 2},
+                  {"kind": "len", "path": []}):
+            assert r.read(url, q) == host_read(doc, q)["value"]
+        for k in ("serve_lookup", "serve_order", "serve_counts"):
+            assert ck.launches[k] > before[k], k
+    finally:
+        r.close()

@@ -13,13 +13,20 @@ the value range with pack_prefix_plain (on the pack inputs of the cases
 of test_torch_pack.py and on its crafted parity traps), and the four
 clock kernels with the plain versions in ops/clock_kernels.py (seeded
 clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
-scatter cells, mass top-k ties). Mutants of the clock kernels (top-k ties
-broken by the higher index, a scatter by plain store, a union started at
-0) must fail. Tolerance: exact.
+scatter cells, mass top-k ties), and the three read-serving kernels with
+the plain versions in serve/kernels.py (synthetic lanes with pad rows,
+pad batch slots, misses, all-matching rows, mass rank ties and ranks at
+the int32 ends; a bucket above serve_order's shared-memory limit sorts in
+global scratch). Mutants of the clock kernels (top-k ties broken by the
+higher index, a scatter by plain store, a union started at 0) and of the
+serve kernels (a lookup that answers -1 when nothing matches, an order
+that breaks ties by the higher row, counts that ignore INSERT) must fail.
+Tolerance: exact.
 """
 
 import ctypes
 import math
+import os
 import random
 import re
 import shutil
@@ -38,6 +45,7 @@ from hypermerge_tpu_torch.ops import crdt_kernels as ck
 from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
 from hypermerge_tpu_torch.ops.columnar import COLUMNS, round_up_pow2
+from hypermerge_tpu_torch.serve import kernels as sk
 from test_torch_pack import CASES as PACK_CASES
 from test_torch_pack import port_pack, trap_inputs, trap_variants
 
@@ -67,6 +75,23 @@ def _host_source(text: str) -> str:
         pos = i
     assert out, "no kernel launch found"
     return "".join(out) + text[pos:]
+
+
+@pytest.fixture(autouse=True)
+def _few_cores():
+    """Run the host-compiled kernels (a std::thread per CUDA thread) and
+    their g++ builds on at most two cores: hundreds of threads meeting at
+    barriers would otherwise crowd out every other test process on the
+    machine."""
+    if not hasattr(os, "sched_setaffinity"):
+        yield
+        return
+    cores = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, sorted(cores)[-2:])
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, cores)
 
 
 def _compile_host(sources, out):
@@ -427,3 +452,106 @@ def test_clock_mutants_fail(tmp_path, name):
     else:
         m = UNION_CASES["negative"]()
         assert not torch.equal(_run_host_union(fn, m), ckk.union_reduce_plain(m))
+
+
+# ---------------------------------------------------------------------------
+# the read-serving kernels: serve_lookup, serve_order, serve_counts
+
+SERVE_PLAIN = {
+    "serve_lookup": lambda st, qo, qk: sk.map_lookup_plain(st, qo, qk),
+    "serve_order": lambda st, qo, _qk: sk.seq_order_plain(st, qo),
+    "serve_counts": lambda st, qo, _qk: sk.counts_plain(st, qo),
+}
+
+
+def _serve_inputs(scenario, N, B=3, seed=0):
+    """Synthetic lanes of B entries plus one pad slot, as stack_entries
+    pads a batch: the pad repeats entry 0's lanes with the NO_OBJ query."""
+    lanes, qobj, qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    lanes = torch.from_numpy(np.concatenate([lanes, lanes[:1]]))
+    qobj = np.append(qobj, sk.NO_OBJ).astype(np.int32)
+    qkey = np.append(qkey, -1).astype(np.int32)
+    return lanes, qobj, qkey
+
+
+def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True):
+    """A serve kernel compiled for the host, called as its wrapper calls
+    it: one int64 argument array of lane pointers and queries (the pad
+    slot points at entry 0's lanes); outputs start as garbage."""
+    B, _, N = lanes.shape
+    stride = lanes[0].numel() * lanes.element_size()
+    ptrs = [lanes.data_ptr() + b * stride for b in range(B)]
+    if pad_ptr:
+        ptrs[-1] = ptrs[0]
+    queries = [qobj] if stem != "serve_lookup" else [qobj, qkey]
+    args = torch.from_numpy(
+        np.concatenate([np.asarray(ptrs, np.int64)]
+                       + [q.astype(np.int64) for q in queries])
+    )
+    if stem == "serve_order":
+        out = torch.full((B * N + B,), 77, dtype=torch.int32)
+        scratch = (
+            torch.full((B, 2, N), 5, dtype=torch.int32)
+            if N > sk.ORDER_SHARED_ROWS else None
+        )
+        rc = fn(args.data_ptr(), B, N, ck._ptr(scratch), out.data_ptr(), None)
+        assert rc == 0
+        return out[: B * N].reshape(B, N), out[B * N :]
+    out = torch.full((2 * B,), 77, dtype=torch.int32)
+    assert fn(args.data_ptr(), B, N, out.data_ptr(), None) == 0
+    if stem == "serve_lookup":
+        return out[:B], out[B:] == 1
+    return out[:B], out[B:]
+
+
+def _serve_equal(got, want):
+    return all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)
+    )
+
+
+SERVE_SOURCE_CASES = [
+    (scenario, N) for scenario in synth.SERVE_SCENARIOS for N in (64, 256)
+] + [("random", 4096), ("ties", 4096)]
+
+
+@pytest.mark.parametrize("scenario,N", SERVE_SOURCE_CASES)
+@pytest.mark.parametrize("stem", list(SERVE_PLAIN))
+def test_serve_source_equals_plain(host_kernels, stem, scenario, N):
+    lanes, qobj, qkey = _serve_inputs(scenario, N, seed=N)
+    got = _run_host_serve(host_kernels[stem], stem, lanes, qobj, qkey)
+    want = SERVE_PLAIN[stem](
+        lanes, torch.from_numpy(qobj), torch.from_numpy(qkey)
+    )
+    assert _serve_equal(got, want)
+
+
+SERVE_MUTANTS = {
+    "lookup_minus_one_when_none": ("serve_lookup", "misses", [
+        ("out[b] = best < N ? best : 0;", "out[b] = best < N ? best : -1;"),
+    ]),
+    "order_ties_by_higher_row": ("serve_order", "ties", [
+        ("val[i] = i;", "val[i] = N - 1 - i;"),
+        ("order[i] = val[i];", "order[i] = N - 1 - val[i];"),
+    ]),
+    "counts_ignore_insert": ("serve_counts", "random", [
+        ("elems += lanes[kLive * N + i] != 0 && lanes[kInsert * N + i] == 1;",
+         "elems += lanes[kLive * N + i] != 0;"),
+    ]),
+}
+
+
+@pytest.mark.parametrize("name", list(SERVE_MUTANTS))
+def test_serve_mutants_fail(tmp_path, name):
+    stem, scenario, edits = SERVE_MUTANTS[name]
+    text = (CSRC / f"{stem}.cu").read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    fn = _compile_host({stem: text}, tmp_path)[stem]
+    lanes, qobj, qkey = _serve_inputs(scenario, 64, B=6, seed=3)
+    got = _run_host_serve(fn, stem, lanes, qobj, qkey)
+    want = SERVE_PLAIN[stem](
+        lanes, torch.from_numpy(qobj), torch.from_numpy(qkey)
+    )
+    assert not _serve_equal(got, want)

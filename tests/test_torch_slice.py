@@ -202,7 +202,8 @@ def test_port_imports_no_jax_and_requires_a_device():
     the port imports, no hypermerge_tpu module is loaded, and an entry
     called without `device=` raises when CUDA is absent: `run_batch`,
     `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
-    `pack_clocks` and `ClockStore`."""
+    `pack_clocks`, `ClockStore` and `Repo` (whose `repo` and `serve`
+    modules import without jax too, and read on the CPU)."""
     code = textwrap.dedent(
         """
         import sys
@@ -273,6 +274,26 @@ def test_port_imports_no_jax_and_requires_a_device():
         m = DeviceClockMirror(device="cpu")
         m.update("d", {"a": 3})
         assert m.union() == {"a": 3}
+        # the Repo facade and its serving tier: the backend resolves its
+        # device before it builds a store
+        import hypermerge_tpu_torch.repo
+        import hypermerge_tpu_torch.serve
+        from hypermerge_tpu_torch.repo import Repo
+        from hypermerge_tpu_torch.serve import ServeTier
+        if not torch.cuda.is_available():
+            try:
+                Repo(memory=True)
+            except RuntimeError as e:
+                assert "device='cpu'" in str(e), e
+            else:
+                raise AssertionError("Repo opened without a device")
+        r = Repo(memory=True, device="cpu")
+        try:
+            assert isinstance(r.back.serve, ServeTier)
+            url = r.create({"a": 1})
+            assert r.read(url, {"kind": "lookup", "path": ["a"]}) == 1
+        finally:
+            r.close()
         assert "hypermerge_tpu" not in sys.modules
         print("ok")
         """
