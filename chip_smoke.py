@@ -25,7 +25,10 @@ prints a result):
      B in {1, 8, 64} x N in {64, 1024, 65536}, each shape with every
      synthetic scenario (ops/synth.py synth_serve_lanes: misses,
      all-matching rows, mass rank ties, ranks at the int32 ends) and a
-     pad batch slot;
+     pad batch slot; the ring all-gather on virtual ranks of this card at
+     n in {2, 3, 4, 8} ranks x rows in {1, 7, 1024, 4096} x W in {1, 3,
+     708, 1540, 4096} bytes, against ring_gather_plain; the min mode of
+     the column reduce at [5, 3] and [8, 131072], and on negative values;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
@@ -66,12 +69,30 @@ prints a result):
         serve_order and serve_counts each launched, their launches
         summing to the tier's `serve.dispatches`, and the bulk kernels
         launched once per slab;
+     e. the multi-device slice (parallel/), on 4 virtual ranks of this
+        card, meshes (4, 1) and (2, 2), each answer equal to the
+        single-device answer on the card: `sharded_full` of the bulk slab
+        (full and lean) byte-equal to `run_batch_full`; `step` over the
+        multi-actor batch (lanes, and the union equal to the host twin of
+        the scatter union); `sharded_clock_union` and `sharded_dominated`
+        at BASELINE config 5 equal to `union_reduce` and `gte`; the
+        product route, a `Repo` on phase d's corpus with
+        `visible_devices()` replaced by the 4 ranks (slabs of 512 docs),
+        `open_many` + `fetch_bulk_summaries` with `sharded_slabs >= 1` and
+        every summary byte-equal to phase d's single-device Repo; then a
+        `MeshBulkScheduler` dispatching the product's slabs, whose
+        `collective_clock_union` and `gather_summaries` equal the
+        per-slab fetches; each wall printed. With two or more cards the
+        same phase runs on min(count, 4) peer ranks; with one it prints
+        that peer ranks were not run;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
      summary wire; torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
-     reads; torch.sort for serve_order); time the pack's host stages,
+     reads; torch.sort for serve_order; one Tensor.copy_ per block and
+     rank for the ring gather, timed at the summary gather's shape of
+     phase 3e and at n = 4, 4096 x 1540); time the pack's host stages,
      config 5's hot query (1,000 writes + union(), host buffering
      included), and print the read mix's QPS, its p50 and p99 from the
      raw per-read latencies (and the `serve.read_s` histogram's bucket
@@ -91,6 +112,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -99,6 +121,7 @@ import tempfile
 import time
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way (900 GB/s both)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores; the
 # published table has no int32 rate, and these kernels do int32 work
 SLAB = dict(n_docs=4096, n_ops=1024, n_actors=1)
@@ -116,6 +139,17 @@ READ = dict(n_docs=2048, n_ops=1024, hot=32, readers=8, reads=4000,
             seed=0xEAD5)
 SERVE = ("serve_lookup", "serve_order", "serve_counts")
 BULK = ("pack_prefix", "materialize", "summary_wire")
+# the multi-device slice: ring shapes of phase 2 (n ranks, rows, W bytes;
+# 708 and 1540 are the lean wires at N = 512 and N = 1024), the mesh of
+# phase 3e and the product route's slab (four slabs of phase 3d's corpus)
+RING_N = (2, 3, 4, 8)
+RING_ROWS = (1, 7, 1024, 4096)
+RING_W = (1, 3, 708, 1540, 4096)
+MESH_RANKS = 4
+MESH_SLAB = 512
+MESH = ("ring_gather", "clock_union_min")
+LANES = ("visible", "map_winner", "elem_winner", "elem_live", "rank",
+         "inc_total", "clock")
 # torch.profiler now and then delivers no device record for a window; a
 # kernel-alone window is tried again, and every window is padded with idle
 # host time so that device records near its edges fall inside it
@@ -877,7 +911,7 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         "clock_pair": (lambda: ckk.pair_cuda(ckk._GTE, q, m),
                        ("clock_pair_kernel",)),
         "clock_union": (lambda: ckk.union_reduce_cuda(m),
-                        ("fill_kernel", "column_max_kernel")),
+                        ("fill_kernel", "column_reduce_kernel")),
         "clock_scatter": (lambda: ckk.scatter_max_cuda_(target, t[0], t[1],
                                                         t[2]),
                           ("scatter_max_kernel",)),
@@ -1181,6 +1215,8 @@ def read_path(ck, sk, root):
         torch.cuda.synchronize()
         counts = dict(ck.launches)
         snap1 = telemetry.snapshot()
+        # the single-device summaries, for phase 3e's product route
+        rows = summary_rows(summ, [validate_doc_url(u) for u in urls])
     finally:
         repo.close()
         for name, fn in wrappers.items():
@@ -1226,7 +1262,20 @@ def read_path(ck, sk, root):
         f"{k}={v!r}" for k, v in numbers.items()))
     shapes = {name: dict(seen[name]) for name in SERVE}
     log(f"phase 3d dispatch shapes (B, N): {shapes}")
-    return counts, numbers, seen, last
+    return counts, numbers, seen, last, urls, rows
+
+
+def summary_rows(summ, doc_ids):
+    """{doc id: the bytes of each summary array and its decoded counts}."""
+    rows = {}
+    for d in doc_ids:
+        arrays, j = summ.arrays(d)
+        rows[d] = tuple(
+            arrays[k][j].tobytes()
+            for k in ("map_winner", "elem_live", "elem_order",
+                      "n_live_elems", "n_map_entries", "clock")
+        ) + (repr(summ.doc(d)),)
+    return rows
 
 
 def time_serve_kernels(sk, seen, last):
@@ -1277,6 +1326,362 @@ def time_serve_kernels(sk, seen, last):
     return res
 
 
+# -- the multi-device slice -----------------------------------------------------
+
+
+def virtual_ranks(n):
+    import torch
+
+    return [torch.device("cuda", 0)] * n
+
+
+def compare_mesh_kernels(ringmod, meshmod, ckk):
+    """Phase 2 for the multi-device slice: ring_gather against
+    ring_gather_plain on virtual ranks of this card at every (n, rows, W)
+    of RING_N x RING_ROWS x RING_W, and clock_union's min mode against
+    min_reduce_plain; returns the max abs err per kernel."""
+    import torch
+
+    errs = dict.fromkeys(MESH, 0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for n in RING_N:
+        mesh = meshmod.make_mesh(n, devices=virtual_ranks(n))
+        for rows in RING_ROWS:
+            for W in RING_W:
+                blocks = [torch.randint(0, 256, (rows, W), generator=g,
+                                        dtype=torch.uint8, device="cuda")
+                          for _ in range(n)]
+                got = ringmod.ring_gather_cuda(blocks, mesh.ring())
+                want = ringmod.ring_gather_plain(blocks, mesh.devices)
+                e = hold(f"ring_gather n={n} [{rows}, {W}]", tuple(got),
+                         tuple(want))
+                errs["ring_gather"] = max(errs["ring_gather"], e)
+    small, big = clock_matrix(5, 5, 3), clock_matrix(8, 8, 131072)
+    for x in (small, big, -1 - small.abs(), -1 - big.abs()):
+        e = hold(f"clock_union min {tuple(x.shape)}", ckk.min_reduce_cuda(x),
+                 ckk.min_reduce_plain(x))
+        errs["clock_union_min"] = max(errs["clock_union_min"], e)
+    log(f"phase 2 ring_gather at n in {RING_N} x rows in {RING_ROWS} x W in "
+        f"{RING_W} (virtual ranks), clock_union min at [5, 3] and "
+        f"[8, 131072] (and negative): kernels == plain (exact)")
+    return errs
+
+
+def host_local_union(clock, doc_actors, n_actors):
+    """The host twin of the scatter union: slot-local clocks maxed into
+    global actor columns."""
+    import numpy as np
+
+    want = np.zeros(n_actors + 1, np.int64)
+    da = np.asarray(doc_actors)
+    np.maximum.at(want, np.where(da >= 0, da, n_actors).ravel(),
+                  np.where(da >= 0, np.asarray(clock), 0).ravel())
+    return want[:n_actors].astype(np.int32)
+
+
+def mesh_references(ck, ckk, slab, multi):
+    """The single-device answers phase 3e is held to, computed on the card
+    before its counts are set to 0."""
+    import numpy as np
+    import torch
+
+    ref = {}
+    for lean in (False, True):
+        ref["wire", lean] = ck.run_batch_full(slab, lean=lean)[1].cpu()
+    single = ck.run_batch(multi)
+    ref["lanes"] = {f: getattr(single, f).cpu().numpy() for f in LANES}
+    da, _A, _K = ck.bucket_doc_actors(multi)
+    ref["union"] = host_local_union(ref["lanes"]["clock"], da,
+                                    len(multi.actors))
+    n, A = CONFIG5["n_docs"], CONFIG5["n_actors"]
+    clocks = np.random.default_rng(0).integers(1, 1000, size=(n, A),
+                                               dtype=np.int32)
+    query = np.full(A, 990, np.int32)
+    m = torch.from_numpy(clocks).cuda()
+    ref["config5"] = (clocks, query)
+    ref["config5_union"] = ckk.union_reduce(m).cpu().numpy()
+    ref["config5_dominated"] = ckk.gte(torch.from_numpy(query).cuda(),
+                                       m).cpu().numpy()
+    torch.cuda.synchronize()
+    return ref
+
+
+def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
+              devices, label):
+    """Phase 3e, the multi-device slice, on the ranks `devices` (virtual:
+    one card repeated; peer: one card each): meshes (n, 1) and, for even
+    n, (n/2, 2); each answer held equal to the single-device answer on
+    the card. Counts set to 0 just before, read just after. Returns
+    (counts, the real shape of the summary gather, the walls)."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+
+    n = len(devices)
+    meshes = [meshmod.make_mesh(n, devices=devices)]
+    if n % 2 == 0:
+        meshes.append(meshmod.make_mesh(n, sp=2, devices=devices))
+    walls = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    for k in ck.launches:
+        ck.launches[k] = 0
+    t_phase = time.perf_counter()
+
+    def full():
+        for lean in (False, True):
+            _out, wire = sharded.sharded_full(slab, meshes[0], lean=lean)
+            if not torch.equal(wire.cpu()[: slab.n_docs], ref["wire", lean]):
+                raise AssertionError(f"sharded_full lean={lean}: wire != "
+                                     "run_batch_full's")
+
+    timed("sharded_full_slab_s", full)
+
+    def step():
+        for mesh in meshes:
+            out, union = sharded.step(multi, mesh)
+            for f in LANES:
+                got = np.asarray(getattr(out, f))[: multi.n_docs]
+                if not np.array_equal(got, ref["lanes"][f]):
+                    raise AssertionError(f"step {mesh}: lane {f} differs")
+            if not np.array_equal(union.cpu().numpy(), ref["union"]):
+                raise AssertionError(f"step {mesh}: union differs")
+
+    timed("step_multi_s", step)
+
+    def clock_queries():
+        clocks, query = ref["config5"]
+        for mesh in meshes:
+            u = sharded.sharded_clock_union(clocks, mesh).cpu().numpy()
+            d = sharded.sharded_dominated(clocks, query, mesh).cpu().numpy()
+            if not np.array_equal(u, ref["config5_union"]):
+                raise AssertionError(f"sharded_clock_union {mesh} differs")
+            if not np.array_equal(d, ref["config5_dominated"]):
+                raise AssertionError(f"sharded_dominated {mesh} differs")
+
+    timed("config5_union_dominated_s", clock_queries)
+
+    # the product route: Repo over the ranks, phase 3d's corpus in slabs
+    # of MESH_SLAB docs, every slab sharded; its packed slabs are kept for
+    # the scheduler below
+    batches = []
+    orig_full = sharded.sharded_full
+
+    def spy(batch, mesh, lean=False):
+        batches.append(batch)
+        return orig_full(batch, mesh, lean=lean)
+
+    orig_visible = meshmod.visible_devices
+    meshmod.visible_devices = lambda: list(devices)
+    sharded.sharded_full = spy
+    old_slab = os.environ.get("HM_BULK_SLAB")
+    os.environ["HM_BULK_SLAB"] = str(MESH_SLAB)
+    repo = Repo(path=root)
+    try:
+        def product():
+            repo.open_many(urls)
+            return repo.back.fetch_bulk_summaries()
+
+        summ = timed("product_open_many_s", product)
+        stats = dict(repo.back.last_bulk_stats)
+        got = summary_rows(summ, list(rows))
+    finally:
+        repo.close()
+        sharded.sharded_full = orig_full
+        meshmod.visible_devices = orig_visible
+        if old_slab is None:
+            del os.environ["HM_BULK_SLAB"]
+        else:
+            os.environ["HM_BULK_SLAB"] = old_slab
+    if stats.get("sharded_slabs", 0) < 1 or stats["fast"] != len(urls):
+        raise AssertionError(f"product route over {n} ranks: {stats}")
+    bad = [d for d in rows if got[d] != rows[d]]
+    if bad:
+        raise AssertionError(f"product route: {len(bad)} summaries differ "
+                             "from the single-device Repo")
+
+    # the mesh scheduler: the product's slabs round-robin over the ranks,
+    # then the collective union and the summary gather
+    def scheduler():
+        sch = sharded.MeshBulkScheduler(meshes[0], track_resident=True)
+        fetched = []
+        n_actors = max(len(b.actors) for b in batches)
+        union = np.zeros(n_actors, np.int32)
+        for b in batches:
+            out, wire = sch.dispatch(b, lean=False)
+            fetched.append(wire.cpu().numpy())  # the per-slab fetch
+            da, _A, _K = ck.bucket_doc_actors(b)
+            union = np.maximum(union, host_local_union(
+                out.clock.cpu().numpy(), da, n_actors))
+        if not np.array_equal(sch.collective_clock_union(n_actors), union):
+            raise AssertionError("collective_clock_union != host merge")
+        gathered = sch.gather_summaries()
+        if [g[0] for g in gathered] != list(range(len(batches))):
+            raise AssertionError("gather_summaries out of dispatch order")
+        for (_seq, _n, host), want in zip(gathered, fetched):
+            if not np.array_equal(host, want):
+                raise AssertionError("gather_summaries != per-slab fetch")
+        per_chip = max(sum(1 for i in range(len(batches)) if i % n == c)
+                       for c in range(n))
+        return (n, per_chip * batches[0].n_docs, fetched[0].shape[1])
+
+    gather_shape = timed("scheduler_s", scheduler)
+    counts = dict(ck.launches)
+    walls["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 3e multi-device slice ({label}, {n} ranks, meshes "
+        f"{[m.shape for m in meshes]}): walls {walls}; product route stats "
+        f"{stats}; launches {counts}")
+    for k in ("ring_gather", "clock_union_min", "clock_union", "clock_pair",
+              "clock_scatter", "materialize", "summary_wire"):
+        if counts[k] == 0:
+            raise AssertionError(f"kernel {k} never launched in phase 3e")
+    log(f"phase 3e check ({label}): sharded_full (full, lean) == "
+        f"run_batch_full; step lanes and union == one device; config-5 union "
+        f"and dominated == one device; {len(urls)} product summaries == the "
+        f"single-device Repo ({stats['sharded_slabs']} sharded slabs); "
+        f"scheduler union and gather == per-slab fetches")
+    return counts, gather_shape, walls
+
+
+def time_mesh_kernels(ringmod, meshmod, ckk, gather_shape):
+    """Phase 4 for the multi-device slice: ring_gather at the summary
+    gather's real shape and at n = 4, 4096 x 1540 on virtual ranks (the
+    wrapper, the kernel alone, the plain version, one Tensor.copy_ per
+    block and rank as the library yardstick), and the min mode at the
+    config-5 pmin's fold ([2, 50000] on the (2, 2) mesh)."""
+    import torch
+
+    res = {}
+    shapes = {"real": gather_shape, "n4_4096x1540": (4, 4096, 1540)}
+    for label, (n, rows, W) in shapes.items():
+        mesh = meshmod.make_mesh(n, devices=virtual_ranks(n))
+        ring = mesh.ring()
+        g = torch.Generator(device="cuda").manual_seed(n + rows)
+        blocks = [torch.randint(0, 256, (rows, W), generator=g,
+                                dtype=torch.uint8, device="cuda")
+                  for _ in range(n)]
+        outs = [torch.empty(n * rows, W, dtype=torch.uint8, device="cuda")
+                for _ in range(n)]
+
+        def copies():
+            for o in outs:
+                for b, blk in enumerate(blocks):
+                    o[b * rows : (b + 1) * rows].copy_(blk)
+
+        B = rows * W
+        r = dict(
+            n=n, rows=rows, W=W,
+            ms=median_ms(lambda: ringmod.ring_gather_cuda(blocks, ring)),
+            kernel_ms=kernel_device_ms(
+                lambda: ringmod.ring_gather_cuda(blocks, ring),
+                "ring_gather_kernel"),
+            plain_ms=median_ms(
+                lambda: ringmod.ring_gather_plain(blocks, mesh.devices)),
+            library_ms=median_ms(copies),
+            # each input block read once, each of the n x n output blocks
+            # written once (virtual ranks: all in this card's memory)
+            bytes=(n + n * n) * B, ops=0,
+        )
+        t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
+        r["bound_ms"] = t_bytes
+        r["bound_by"] = "bytes"
+        log(f"timing ring_gather {label} [n={n}, {rows}, {W}]: " + " ".join(
+            f"{k}={v!r}" for k, v in r.items()))
+        res[label] = r
+    m = clock_matrix(9, 2, CONFIG5["n_docs"] // 2, hi=2, inf_frac=0)
+    out = ckk.min_reduce_cuda(m)
+    r = dict(
+        ms=median_ms(lambda: ckk.min_reduce_cuda(m)),
+        kernel_ms=None,
+        plain_ms=median_ms(lambda: ckk.min_reduce_plain(m)),
+        library_ms=median_ms(lambda: torch.amin(m, dim=0)),
+        bytes=nbytes(m, out), ops=m.numel(),
+    )
+    parts = [kernel_device_ms(lambda: ckk.min_reduce_cuda(m), kn)
+             for kn in ("fill_kernel", "column_reduce_kernel")]
+    r["kernel_ms"] = None if None in parts else sum(parts)
+    t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
+    t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"timing clock_union_min {list(m.shape)}: " + " ".join(
+        f"{k}={v!r}" for k, v in r.items()))
+    return {"ring_gather": res["real"], "clock_union_min": r,
+            "ring_gather_n4": res["n4_4096x1540"]}
+
+
+def time_peer_ring(ringmod, meshmod, cards):
+    """Phase 4 for peer ranks (one card each; runs with two or more cards):
+    ring_gather at n = len(cards), 512 x 1556 and 4096 x 1540 — the
+    wrapper and the plain version by host clock around a synchronise of
+    every card, the kernel alone on card 0 from the profiler, one
+    Tensor.copy_ per block and rank (peer copies) as the library
+    yardstick. Bound: each card receives n - 1 blocks over its NVLink at
+    NVLINK_BYTES_PER_S."""
+    import torch
+
+    n = len(cards)
+    mesh = meshmod.make_mesh(devices=cards)
+    res = {}
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def host_ms(fn, runs=7, warmup=2):
+        for _ in range(warmup):
+            fn()
+        sync_all()
+        times = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            fn()
+            sync_all()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    for rows, W in ((512, 1556), (4096, 1540)):
+        g = torch.Generator().manual_seed(rows)
+        blocks = [torch.randint(0, 256, (rows, W), generator=g,
+                                dtype=torch.uint8).to(d) for d in cards]
+        outs = [torch.empty(n * rows, W, dtype=torch.uint8, device=d)
+                for d in cards]
+
+        def copies():
+            for o in outs:
+                for b, blk in enumerate(blocks):
+                    o[b * rows : (b + 1) * rows].copy_(blk)
+
+        B = rows * W
+        r = dict(
+            n=n, rows=rows, W=W,
+            ms=host_ms(lambda: ringmod.ring_gather_cuda(blocks, mesh.ring())),
+            # the profiler's sum over the n cards' launches, per card
+            kernel_ms_per_card=kernel_device_ms(
+                lambda: ringmod.ring_gather_cuda(blocks, mesh.ring()),
+                "ring_gather_kernel"),
+            plain_ms=host_ms(
+                lambda: ringmod.ring_gather_plain(blocks, mesh.devices)),
+            library_ms=host_ms(copies),
+            nvlink_bytes_per_card=(n - 1) * B,
+        )
+        if r["kernel_ms_per_card"] is not None:
+            r["kernel_ms_per_card"] /= n
+        r["bound_ms"] = (n - 1) * B / NVLINK_BYTES_PER_S * 1e3
+        r["bound_by"] = "bytes (NVLink)"
+        log(f"timing ring_gather peer [n={n}, {rows}, {W}]: " + " ".join(
+            f"{k}={v!r}" for k, v in r.items()))
+        res[rows, W] = r
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1296,6 +1701,9 @@ def main() -> int:
         from hypermerge_tpu_torch.ops import crdt_kernels as ck
         from hypermerge_tpu_torch.ops import materialize as mat
         from hypermerge_tpu_torch.ops import pack_kernels as pk
+        from hypermerge_tpu_torch.parallel import mesh as meshmod
+        from hypermerge_tpu_torch.parallel import ring as ringmod
+        from hypermerge_tpu_torch.parallel import sharded
         from hypermerge_tpu_torch.serve import kernels as sk
         from hypermerge_tpu_torch.storage import colcache, sql, stores
     except ImportError as e:
@@ -1365,6 +1773,7 @@ def main() -> int:
         errs["pack_prefix"] = max(e_slab, e_ragged, e_big)
         errs.update(compare_clock_kernels(ckk))
         errs.update(compare_serve_kernels(synth, sk))
+        errs.update(compare_mesh_kernels(ringmod, meshmod, ckk))
 
         # -- 3. the main paths -------------------------------------------------
         main_path(ck, mat, synth, columnar, slab)
@@ -1372,9 +1781,22 @@ def main() -> int:
         check_slice(ck, columnar, mat, hists, batch, out, arrays, lean)
         clock_counts, mirror, actors = clock_path(ck, PM)
         store_path(ck, PM, sql, stores)
+        refs = mesh_references(ck, ckk, slab, multi)
         with tempfile.TemporaryDirectory(prefix="hm-read-") as read_root:
-            read_counts, read_numbers, seen, last = read_path(
+            read_counts, read_numbers, seen, last, urls, rows = read_path(
                 ck, sk, read_root)
+            mesh_counts, gather_shape, mesh_walls = mesh_path(
+                ck, meshmod, sharded, slab, multi, refs, read_root, urls,
+                rows, virtual_ranks(MESH_RANKS), "virtual ranks")
+            n_cards = torch.cuda.device_count()
+            if n_cards >= 2:
+                cards = [torch.device("cuda", i)
+                         for i in range(min(n_cards, MESH_RANKS))]
+                mesh_path(ck, meshmod, sharded, slab, multi, refs, read_root,
+                          urls, rows, cards, "peer ranks")
+            else:
+                log(f"phase 3e peer ranks: not run ({n_cards} GPU visible)")
+        del refs, rows
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab)
@@ -1386,6 +1808,13 @@ def main() -> int:
         clock_timing, hot_ms = time_clock_kernels(ckk, PM, mirror, actors)
         timing.update(clock_timing)
         timing.update(time_serve_kernels(sk, seen, last))
+        timing.update(time_mesh_kernels(ringmod, meshmod, ckk, gather_shape))
+        if torch.cuda.device_count() >= 2:
+            time_peer_ring(ringmod, meshmod, [
+                torch.device("cuda", i)
+                for i in range(min(torch.cuda.device_count(), MESH_RANKS))])
+        else:
+            log("timing ring_gather peer: not measured (1 GPU visible)")
         del seen, last
         del mirror
         profile_dispatch("first-slice slab dispatch",
@@ -1424,12 +1853,19 @@ def main() -> int:
                         "hypermerge_tpu/serve/kernels.py:102"),
         "serve_counts": ("hypermerge_tpu_torch/kernels/csrc/serve_counts.cu",
                          "hypermerge_tpu/serve/kernels.py:120"),
+        "ring_gather": ("hypermerge_tpu_torch/kernels/csrc/ring_gather.cu",
+                        "hypermerge_tpu/parallel/sharded.py:134"),
+        "clock_union_min": ("hypermerge_tpu_torch/kernels/csrc/clock_union.cu",
+                            "hypermerge_tpu/parallel/sharded.py:360"),
     }
     # launches: each kernel's count on its slice's main path (the sidecar
     # slice, the config-5 clock slice, the read slice)
     counts.update({k: clock_counts[k] for k in CLOCKS})
     counts.update({k: read_counts[k] for k in SERVE})
+    counts.update({k: mesh_counts[k] for k in MESH})
     clock_shape = [131072, CONFIG5["n_actors"]]
+    shapes = {"ring_gather": list(gather_shape),
+              "clock_union_min": [2, CONFIG5["n_docs"] // 2]}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = timing[name]
@@ -1441,9 +1877,11 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": (clock_shape if name in CLOCKS
                       else [r["B"], r["N"]] if name in SERVE
+                      else shapes[name] if name in MESH
                       else list(slab.shape)),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
+    log("mesh_walls " + json.dumps(mesh_walls))
     log("read_mix " + json.dumps(read_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

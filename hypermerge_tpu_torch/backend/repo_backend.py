@@ -11,16 +11,22 @@ columnar batch and materializes them in slab-sized GPU dispatches
 (ops/crdt_kernels.py run_batch_full); `fetch_bulk_summaries` is the
 barrier that brings each slab's summary wire to the host.
 
-The backend runs on ONE device (`device`, cuda unless "cpu"), which it
+The backend runs on its device (`device`, cuda unless "cpu"), which it
 hands to the clock mirror, the bulk loader and the read-serving tier.
+When two or more ranks of that device type are visible
+(parallel/mesh.py `visible_devices`: every CUDA card) and HM_MESH is not
+0, the serial bulk loader shards each slab over a mesh of them
+(parallel/sharded.py `sharded_full`, stat `sharded_slabs`), as the
+reference does.
 Not ported yet; the port behaves as the reference with the switch off:
 live apply (HM_LIVE=0: `self.live` is None), the streaming pipeline
-(HM_PIPELINE=0: slabs load serially), the write-ahead journal (HM_WAL=0)
-and crash recovery (a directory left with its `repo.dirty` marker
-raises NotImplementedError instead of opening unrecovered), the service
-plane (HM_SERVICE=0: no admission control), the mesh and round-robin
-slab schedulers (one device), and the network, file server and hyperfile
-store (their entry points raise NotImplementedError).
+(HM_PIPELINE=0: slabs load serially, so the reference's round-robin
+slab scheduler, `_slab_rr`, has no counterpart), the write-ahead
+journal (HM_WAL=0) and crash recovery (a directory left with its
+`repo.dirty` marker raises NotImplementedError instead of opening
+unrecovered), the service plane (HM_SERVICE=0: no admission control),
+and the network, file server and hyperfile store (their entry points
+raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -67,18 +73,25 @@ _M_D2H = telemetry.counter("mesh.d2h_bytes")
 
 
 def _start_host_copy(wire):
-    """(host tensor, copy event) for a slab's summary wire. On the GPU
-    the copy into pinned host memory starts now, without blocking, and
-    the barrier (_fetch_slab) waits on its event alone, so the transfer
-    overlaps later slabs' pack and compute; a wire on the CPU is its own
-    host copy, with nothing to wait on."""
+    """(host tensor, copy events) for a slab's summary wire: one tensor, or
+    a ShardedTensor whose ranks each hold a row slice. On the GPU the copy
+    into ONE pinned host buffer starts now, without blocking (each rank's
+    rows at their row offset, one event per rank), and the barrier
+    (_fetch_slab) waits on those events alone, so the transfer overlaps
+    later slabs' pack and compute; a wire on the CPU is its own host
+    copy, with nothing to wait on."""
+    shards = getattr(wire, "shards", [wire])
     if wire.device.type != "cuda":
-        return wire, None
+        return (wire.cpu() if len(shards) > 1 else wire), []
     host = torch.empty(wire.shape, dtype=wire.dtype, pin_memory=True)
-    with torch.cuda.device(wire.device):
-        host.copy_(wire, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record()
+    copied, row = [], 0
+    for part in shards:
+        with torch.cuda.device(part.device):
+            host[row : row + part.shape[0]].copy_(part, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        copied.append(event)
+        row += part.shape[0]
     return host, copied
 
 
@@ -806,8 +819,10 @@ class RepoBackend:
         if isinstance(wire, dict):
             return
         host, copied = wire
-        if copied is not None:
-            copied.synchronize()
+        for event in copied:
+            event.synchronize()
+        # a mesh pads the doc axis to a dp multiple: the pad docs go here
+        host = host[: batch.n_docs]
         entry[3] = fetch_summary(host, batch, lean)
         _M_D2H.add(host.nbytes)
 
@@ -853,6 +868,24 @@ class RepoBackend:
         with ThreadPoolExecutor(max_workers=workers) as pool:
             list(pool.map(lambda a: a.columns(), actors))
 
+    def _mesh(self):
+        """The mesh the bulk loader shards over: the visible ranks of the
+        backend's device type, when there are two or more and HM_MESH is
+        not 0 (on a card, every CUDA device; a CPU backend sees none
+        unless a test supplies CPU ranks). Cached per backend."""
+        if getattr(self, "_mesh_cached", False):
+            return self._mesh_value
+        self._mesh_cached = True
+        self._mesh_value = None
+        if os.environ.get("HM_MESH", "1") != "0":
+            from ..parallel import mesh as meshmod
+
+            devs = [d for d in meshmod.visible_devices()
+                    if d.type == self.device.type]
+            if len(devs) > 1:
+                self._mesh_value = meshmod.make_mesh(devices=devs)
+        return self._mesh_value
+
     def _load_slabs(
         self, entries, slab, ready_ids, clock_rows, pad_docs=None,
         pad_rows=None,
@@ -895,7 +928,18 @@ class RepoBackend:
         # ops + host clocks in hand -> skip the seq and value lanes AND
         # the summary wire's clock section
         lean = not bool(np.any(batch.cols["action"] == int(Action.INC)))
-        out, wire = run_batch_full(batch, lean=lean, device=self.device)
+        mesh = self._mesh()
+        if mesh is not None:
+            # multi-device: THE same kernels, doc-sharded over dp
+            from ..parallel.sharded import sharded_full
+
+            out, wire = sharded_full(batch, mesh, lean=lean)
+            with self._stats_lock:
+                self.last_bulk_stats["sharded_slabs"] = (
+                    self.last_bulk_stats.get("sharded_slabs", 0) + 1
+                )
+        else:
+            out, wire = run_batch_full(batch, lean=lean, device=self.device)
         summary = _start_host_copy(wire)
         self._stat_add("t_dispatch", time.perf_counter() - t0)
         dec = DecodedBatch(batch, out, host_clocks=slab_clocks)

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 STEMS = (
     "doc_kernel", "summary_wire", "pack_prefix",
     "clock_pair", "clock_union", "clock_scatter", "clock_topk",
-    "serve_lookup", "serve_order", "serve_counts",
+    "serve_lookup", "serve_order", "serve_counts", "ring_gather",
 )
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -10,7 +10,9 @@ here. Four CUDA kernels carry the programs:
 - `kernels/csrc/clock_pair.cu`: gte, cmp, union, intersection,
   satisfied, cursor_window over two [..., A] operands, either of which may
   be one [A] row broadcast to all rows (a dominated query);
-- `kernels/csrc/clock_union.cu`: `union_reduce`, the column max;
+- `kernels/csrc/clock_union.cu`: `union_reduce`, the column max, and in
+  its min mode `min_reduce`, the column min (the mesh's pmin, folded over
+  partials that parallel/ring.py gathered);
 - `kernels/csrc/clock_scatter.cu`: `scatter_max_`, the mirror's batched
   writes (the reference's `m.at[r, c].max(v)`);
 - `kernels/csrc/clock_topk.cu`: `top_k_dominated`.
@@ -46,6 +48,8 @@ TOPK_CAP = 1 << 20
 
 # op codes of clock_pair.cu
 _GTE, _CMP, _UNION, _INTERSECTION, _CURSOR_WINDOW = range(5)
+# op codes of clock_union.cu
+_MAX, _MIN = 0, 1
 
 
 def _wrap32(t: torch.Tensor) -> torch.Tensor:
@@ -91,6 +95,11 @@ def cursor_window_plain(
 def union_reduce_plain(clocks: torch.Tensor) -> torch.Tensor:
     """[n, A] -> [A]: the column max."""
     return torch.amax(clocks, dim=0)
+
+
+def min_reduce_plain(clocks: torch.Tensor) -> torch.Tensor:
+    """[n, A] -> [A]: the column min."""
+    return torch.amin(clocks, dim=0)
 
 
 def scatter_max_plain_(
@@ -179,10 +188,9 @@ def pair_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def union_reduce_cuda(clocks: torch.Tensor) -> torch.Tensor:
-    """clock_union.cu: [D, A] -> [A] column max on one GPU (D >= 1)."""
+def _column_reduce_cuda(clocks: torch.Tensor, op: int, name: str) -> torch.Tensor:
     if clocks.ndim != 2 or clocks.shape[0] < 1:
-        raise ValueError(f"union_reduce of a {tuple(clocks.shape)} matrix")
+        raise ValueError(f"{name} of a {tuple(clocks.shape)} matrix")
     D, A = clocks.shape
     _check(clocks, "clocks", torch.int32, (D, A))
     dev = clocks.device
@@ -191,9 +199,20 @@ def union_reduce_cuda(clocks: torch.Tensor) -> torch.Tensor:
         return out
     fn = kernel_fn("clock_union")
     with torch.cuda.device(dev):
-        rc = fn(clocks.data_ptr(), D, A, out.data_ptr(), _stream(dev))
-    _launched("clock_union", rc)
+        rc = fn(clocks.data_ptr(), D, A, op, out.data_ptr(), _stream(dev))
+    _launched(name, rc)
     return out
+
+
+def union_reduce_cuda(clocks: torch.Tensor) -> torch.Tensor:
+    """clock_union.cu: [D, A] -> [A] column max on one GPU (D >= 1)."""
+    return _column_reduce_cuda(clocks, _MAX, "clock_union")
+
+
+def min_reduce_cuda(clocks: torch.Tensor) -> torch.Tensor:
+    """clock_union.cu in its min mode: [D, A] -> [A] column min on one GPU
+    (D >= 1); counted as `clock_union_min`."""
+    return _column_reduce_cuda(clocks, _MIN, "clock_union_min")
 
 
 def scatter_max_cuda_(
@@ -306,6 +325,13 @@ def union_reduce(clocks: torch.Tensor) -> torch.Tensor:
     if _on_cuda(clocks):
         return union_reduce_cuda(clocks)
     return union_reduce_plain(clocks)
+
+
+def min_reduce(clocks: torch.Tensor) -> torch.Tensor:
+    """[n, actors] -> [actors]: the column min, the fold of a pmin."""
+    if _on_cuda(clocks):
+        return min_reduce_cuda(clocks)
+    return min_reduce_plain(clocks)
 
 
 def scatter_max_(

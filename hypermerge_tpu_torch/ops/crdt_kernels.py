@@ -329,6 +329,7 @@ launches: Dict[str, int] = {
     "materialize": 0, "summary_wire": 0, "pack_prefix": 0,
     "clock_pair": 0, "clock_union": 0, "clock_scatter": 0, "clock_topk": 0,
     "serve_lookup": 0, "serve_order": 0, "serve_counts": 0,
+    "clock_union_min": 0, "ring_gather": 0,
 }
 
 _P = ctypes.c_void_p
@@ -341,7 +342,7 @@ _SIGNATURES = {
     "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
     # wrappers in ops/clock_kernels.py
     "clock_pair": ("hm_clock_pair", [_P] * 2 + [_I] * 5 + [_P] * 2),
-    "clock_union": ("hm_clock_union", [_P] + [_I] * 2 + [_P] * 2),
+    "clock_union": ("hm_clock_union", [_P] + [_I] * 3 + [_P] * 2),
     "clock_scatter": (
         "hm_clock_scatter", [_P] + [_I] * 2 + [_P] * 3 + [_I, _P]
     ),
@@ -352,6 +353,12 @@ _SIGNATURES = {
     "serve_lookup": ("hm_serve_lookup", [_P] + [_I] * 2 + [_P] * 2),
     "serve_order": ("hm_serve_order", [_P] + [_I] * 2 + [_P] * 3),
     "serve_counts": ("hm_serve_counts", [_P] + [_I] * 2 + [_P] * 2),
+    # wrapper in parallel/ring.py
+    "ring_gather": (
+        "hm_ring_gather",
+        [_P] * 3 + [_I] * 3 + [ctypes.c_longlong] + [_I] * 2
+        + [ctypes.c_longlong, _P],
+    ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)

@@ -281,3 +281,180 @@ def test_repo_reads_on_the_card(cuda):
             assert ck.launches[k] > before[k], k
     finally:
         r.close()
+
+
+# -- the multi-device plane, on virtual ranks of one card ----------------------
+
+
+def _virtual_mesh(n, sp=1):
+    from hypermerge_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, sp=sp, devices=[torch.device("cuda", 0)] * n)
+
+
+@pytest.mark.parametrize("n,rows,W", [(1, 3, 5), (2, 1, 1), (3, 7, 3),
+                                      (4, 1024, 708), (8, 13, 1540)])
+def test_ring_gather_equals_plain(cuda, n, rows, W):
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+
+    mesh = _virtual_mesh(n)
+    g = torch.Generator().manual_seed(n * W + rows)
+    blocks = [torch.randint(0, 256, (rows, W), generator=g, dtype=torch.uint8)
+              .cuda() for _ in range(n)]
+    before = ck.launches["ring_gather"]
+    for _ in range(2):  # the second call runs at the next epoch
+        got = ringmod.ring_gather_cuda(blocks, mesh.ring())
+        want = ringmod.ring_gather_plain(blocks, mesh.devices)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert ck.launches["ring_gather"] == before + 2
+
+
+def test_ring_gather_timeout_raises(cuda, monkeypatch):
+    """A rank that never raises its flag (the C entry's test argument):
+    the wrapper raises RuntimeError instead of returning data, and the
+    ring works again on the next call."""
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+
+    mesh = _virtual_mesh(4)
+    blocks = [torch.full((2, 8), r, dtype=torch.uint8, device="cuda")
+              for r in range(4)]
+    monkeypatch.setattr(ringmod, "_SILENT_RANK", 1)
+    monkeypatch.setattr(ringmod, "TIMEOUT_NS", 50_000_000)
+    with pytest.raises(RuntimeError, match="timed out"):
+        ringmod.ring_gather(blocks, mesh.ring())
+    monkeypatch.setattr(ringmod, "_SILENT_RANK", -1)
+    got = ringmod.ring_gather(blocks, mesh.ring())
+    assert torch.equal(got[0], ringmod.ring_gather_plain(blocks, mesh.devices)[0])
+
+
+def test_min_reduce_equals_plain(cuda):
+    rng = np.random.default_rng(3)
+    for shape in ((5, 3), (8, 131072), (300, 40)):
+        m = torch.from_numpy(rng.integers(-50, 1000, shape).astype(np.int32)).cuda()
+        assert torch.equal(ckk.min_reduce_cuda(m), ckk.min_reduce_plain(m))
+
+
+@pytest.mark.parametrize("lean", [False, True])
+def test_sharded_full_on_virtual_ranks(cuda, lean):
+    """sharded_full on 2 virtual ranks: the wire equals run_batch_full's,
+    and repeated calls build no kernel again."""
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.parallel import sharded
+
+    batch = synth.synth_batch(13, 200, n_actors=3, text_frac=0.5)
+    mesh = _virtual_mesh(2)
+    _o, want = ck.run_batch_full(batch, lean=lean)
+    _out, wire = sharded.sharded_full(batch, mesh, lean=lean)
+    log = dict(_build.build_log)
+    for _ in range(2):
+        _out, wire = sharded.sharded_full(batch, mesh, lean=lean)
+        assert torch.equal(wire.cpu()[:13], want.cpu())
+    assert _build.build_log == log
+
+
+def test_mesh_reductions_on_virtual_ranks(cuda):
+    """Clock union and dominated on (4, 1) and (2, 2): equal to one
+    device, through ring_gather and both modes of clock_union."""
+    from hypermerge_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(0)
+    clocks = rng.integers(0, 1000, (1000, 13)).astype(np.int32)
+    query = clocks[17]
+    for sp in (1, 2):
+        mesh = _virtual_mesh(4, sp=sp)
+        before = dict(ck.launches)
+        union = sharded.sharded_clock_union(clocks, mesh).cpu().numpy()
+        dom = sharded.sharded_dominated(clocks, query, mesh).cpu().numpy()
+        np.testing.assert_array_equal(union, clocks.max(axis=0))
+        np.testing.assert_array_equal(dom, np.all(clocks <= query, axis=-1))
+        assert ck.launches["ring_gather"] > before["ring_gather"]
+        assert ck.launches["clock_union_min"] > before["clock_union_min"]
+
+
+# -- peer ranks: one card each (skipped with fewer than two cards) -------------
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices (peer ranks)")
+    return [torch.device("cuda", i)
+            for i in range(min(torch.cuda.device_count(), 4))]
+
+
+def test_ring_gather_peer_ranks_equal_plain(cards):
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+    from hypermerge_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=cards)
+    assert mesh.mode == "peer"
+    g = torch.Generator().manual_seed(7)
+    for rows, W in ((1, 1), (7, 3), (1024, 708), (512, 1556), (4096, 1540)):
+        blocks = [torch.randint(0, 256, (rows, W), generator=g,
+                                dtype=torch.uint8).to(d) for d in cards]
+        before = ck.launches["ring_gather"]
+        for _ in range(2):
+            got = ringmod.ring_gather_cuda(blocks, mesh.ring())
+            want = ringmod.ring_gather_plain(blocks, mesh.devices)
+            for a, b, d in zip(got, want, cards):
+                assert a.device == d and torch.equal(a, b), (rows, W, d)
+        assert ck.launches["ring_gather"] == before + 2 * len(cards)
+
+
+def test_ring_gather_peer_timeout_raises(cards, monkeypatch):
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+    from hypermerge_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=cards)
+    blocks = [torch.full((2, 8), r, dtype=torch.uint8, device=d)
+              for r, d in enumerate(cards)]
+    monkeypatch.setattr(ringmod, "_SILENT_RANK", 0)
+    monkeypatch.setattr(ringmod, "TIMEOUT_NS", 50_000_000)
+    with pytest.raises(RuntimeError, match="timed out"):
+        ringmod.ring_gather(blocks, mesh.ring())
+    monkeypatch.setattr(ringmod, "_SILENT_RANK", -1)
+    got = ringmod.ring_gather(blocks, mesh.ring())
+    want = ringmod.ring_gather_plain(blocks, mesh.devices)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_mesh_on_peer_ranks(cards):
+    """sharded_full, step, the clock queries and the scheduler over one
+    card per rank: equal to one card."""
+    from hypermerge_tpu_torch.parallel import sharded
+    from hypermerge_tpu_torch.parallel.mesh import make_mesh
+
+    n = len(cards)
+    meshes = [make_mesh(devices=cards)]
+    if n % 2 == 0:
+        meshes.append(make_mesh(sp=2, devices=cards))
+    batch = synth.synth_batch(13, 200, n_actors=3, text_frac=0.5)
+    single, want = ck.run_batch_full(batch, device=cards[0])
+    da, _A, _K = ck.bucket_doc_actors(batch)
+    clocks = np.random.default_rng(1).integers(0, 1000, (999, 13)).astype(np.int32)
+    query = clocks[5]
+    for mesh in meshes:
+        _out, wire = sharded.sharded_full(batch, mesh)
+        assert torch.equal(wire.cpu()[:13], want.cpu())
+        out, union = sharded.step(batch, mesh)
+        assert torch.equal(out.rank.cpu()[:13], single.rank.cpu())
+        want_union = np.zeros(len(batch.actors) + 1, np.int64)
+        dan = np.asarray(da)
+        np.maximum.at(want_union, np.where(dan >= 0, dan, len(batch.actors)).ravel(),
+                      np.where(dan >= 0, single.clock.cpu().numpy(), 0).ravel())
+        assert union.cpu().tolist() == want_union[:-1].tolist()
+        u = sharded.sharded_clock_union(clocks, mesh).cpu().numpy()
+        d = sharded.sharded_dominated(clocks, query, mesh).cpu().numpy()
+        np.testing.assert_array_equal(u, clocks.max(axis=0))
+        np.testing.assert_array_equal(d, np.all(clocks <= query, axis=-1))
+    sch = sharded.MeshBulkScheduler(meshes[0])
+    wires = []
+    for s in range(2 * n + 1):
+        b = synth.synth_batch(5, 64, n_actors=2, seed=s)
+        _o, w = sch.dispatch(b)
+        wires.append(w.cpu().numpy())
+    gathered = sch.gather_summaries()
+    assert [g[0] for g in gathered] == list(range(len(wires)))
+    for (_s, _n, host), w in zip(gathered, wires):
+        np.testing.assert_array_equal(host, w)
+    assert sch.collective_clock_union(2).shape == (2,)

@@ -17,10 +17,16 @@ scatter cells, mass top-k ties), and the three read-serving kernels with
 the plain versions in serve/kernels.py (synthetic lanes with pad rows,
 pad batch slots, misses, all-matching rows, mass rank ties and ranks at
 the int32 ends; a bucket above serve_order's shared-memory limit sorts in
-global scratch). Mutants of the clock kernels (top-k ties broken by the
-higher index, a scatter by plain store, a union started at 0) and of the
-serve kernels (a lookup that answers -1 when nothing matches, an order
-that breaks ties by the higher row, counts that ignore INSERT) must fail.
+global scratch), and the ring gather against the blocks concatenated in
+rank order (n in {1, 2, 3, 5} ranks, odd widths, one-row blocks, a
+second call whose flags a neighbour already advanced, a rank that never
+raises its flag). Mutants of the clock kernels (top-k ties broken by the
+higher index, a scatter by plain store, a union or a min started at 0),
+of the serve kernels (a lookup that answers -1 when nothing matches, an
+order that breaks ties by the higher row, counts that ignore INSERT) and
+of the ring (the source block (r+s), n-2 steps, a wait for == epoch)
+must fail. The ring runs in a subprocess with a time limit of its own,
+so that a deadlock fails its test and the run goes on.
 Tolerance: exact.
 """
 
@@ -57,7 +63,8 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", re.S)
 def _host_source(text: str) -> str:
     """The .cu text with the CUDA runtime include and every <<<>>> launch
     replaced by the shim's (launches run one after another, as on one
-    stream)."""
+    stream); a cooperative launch goes to the shim's own
+    cudaLaunchCooperativeKernel, which runs every block at once."""
     text = text.replace("#include <cuda_runtime.h>", '#include "cuda_host_shim.h"')
     out, pos = [], 0
     for m in _LAUNCH.finditer(text):
@@ -73,7 +80,7 @@ def _host_source(text: str) -> str:
             "; })",
         ]
         pos = i
-    assert out, "no kernel launch found"
+    assert out or "cudaLaunchCooperativeKernel" in text, "no kernel launch found"
     return "".join(out) + text[pos:]
 
 
@@ -126,7 +133,8 @@ def _compile_host(sources, out):
 def host_kernels(tmp_path_factory):
     """{stem: bound C entry} of the kernels compiled for the host."""
     return _compile_host(
-        {stem: (CSRC / f"{stem}.cu").read_text() for stem in ck._SIGNATURES},
+        {stem: (CSRC / f"{stem}.cu").read_text() for stem in ck._SIGNATURES
+         if stem != "ring_gather"},  # runs in a subprocess of its own below
         tmp_path_factory.mktemp("host_kernels"),
     )
 
@@ -318,10 +326,10 @@ def test_clock_pair_source_equals_plain(host_kernels, name):
             assert got.dtype == want.dtype and torch.equal(got, want), (R, A)
 
 
-def _run_host_union(fn, m):
+def _run_host_union(fn, m, op=ckk._MAX):
     D, A = m.shape
     out = torch.full((A,), 12345, dtype=torch.int32)
-    assert fn(m.contiguous().data_ptr(), D, A, out.data_ptr(), None) == 0
+    assert fn(m.contiguous().data_ptr(), D, A, op, out.data_ptr(), None) == 0
     return out
 
 
@@ -329,6 +337,7 @@ UNION_CASES = {
     "clocks": lambda: _clock_matrix(0, 300, 40),  # 5 blocks, 2 tiles
     "negative": lambda: -1 - _clock_matrix(1, 70, 3, hi=100).abs(),
     "one_row": lambda: _clock_matrix(2, 1, 5),
+    "wide": lambda: _clock_matrix(6, 2, 2000),  # 63 column groups
 }
 
 
@@ -337,6 +346,17 @@ def test_clock_union_source_equals_plain(host_kernels, case):
     m = UNION_CASES[case]()
     got = _run_host_union(host_kernels["clock_union"], m)
     assert torch.equal(got, ckk.union_reduce_plain(m))
+
+
+MIN_CASES = dict(UNION_CASES, positive=lambda: 1 + _clock_matrix(3, 90, 7).clamp(max=10**6),
+                 partials=lambda: _clock_matrix(4, 5, 3, hi=2))
+
+
+@pytest.mark.parametrize("case", list(MIN_CASES))
+def test_clock_union_min_mode_equals_plain(host_kernels, case):
+    m = MIN_CASES[case]()
+    got = _run_host_union(host_kernels["clock_union"], m, op=ckk._MIN)
+    assert torch.equal(got, ckk.min_reduce_plain(m))
 
 
 def _scatter_inputs(seed, n):
@@ -429,6 +449,10 @@ MUTANTS = {
     "union_starts_at_zero": ("clock_union", [
         ("constexpr int kNoValue = INT32_MIN;", "constexpr int kNoValue = 0;"),
     ]),
+    "min_starts_at_zero": ("clock_union", [
+        ("constexpr int kMinNoValue = INT32_MAX;",
+         "constexpr int kMinNoValue = 0;"),
+    ]),
 }
 
 
@@ -449,6 +473,10 @@ def test_clock_mutants_fail(tmp_path, name):
         m, trip = _scatter_inputs(3, 64)
         got = _run_host_scatter(fn, m, *trip)
         assert not torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+    elif name == "min_starts_at_zero":
+        m = MIN_CASES["positive"]()
+        assert not torch.equal(_run_host_union(fn, m, op=ckk._MIN),
+                               ckk.min_reduce_plain(m))
     else:
         m = UNION_CASES["negative"]()
         assert not torch.equal(_run_host_union(fn, m), ckk.union_reduce_plain(m))
@@ -555,3 +583,133 @@ def test_serve_mutants_fail(tmp_path, name):
         lanes, torch.from_numpy(qobj), torch.from_numpy(qkey)
     )
     assert not _serve_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the ring gather: cooperative blocks that wait on each other's flags, so
+# every run is a subprocess with its own time limit
+
+RING_RUNNER = r"""
+import ctypes, json, sys
+import numpy as np
+
+fn = ctypes.CDLL(sys.argv[1]).hm_ring_gather
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+fn.argtypes = [P] * 3 + [I] * 3 + [L] + [I] * 2 + [L, P]
+fn.restype = I
+results = []
+for case in json.loads(sys.argv[2]):
+    n, rows, W = case["n"], case["rows"], case["W"]
+    rng = np.random.default_rng(case["seed"])
+    blocks = [rng.integers(0, 256, rows * W).astype(np.uint8) for _ in range(n)]
+    want = np.concatenate(blocks)
+    outs = [np.full(n * rows * W, 0xAB, np.uint8) for _ in range(n)]
+    flags = [np.zeros(n, np.int32) for _ in range(n)]
+    ptrs = [np.asarray([a.ctypes.data for a in arrs], np.int64)
+            for arrs in (blocks, outs, flags)]
+    for epoch, call in enumerate(case["calls"], start=1):
+        if "ahead" in call:  # this rank's left neighbour ran a call ahead
+            flags[call["ahead"]][: n - 1] = epoch + 1
+        for f in flags:
+            f[n - 1] = 0
+        rc = fn(*(p.ctypes.data for p in ptrs), n, 0, n, rows * W, epoch,
+                call.get("silent", -1), call.get("timeout_ns", 10**9), None)
+        results.append(dict(
+            rc=rc, errors=[int(f[n - 1]) for f in flags],
+            equal=[bool(np.array_equal(o, want)) for o in outs]))
+print(json.dumps(results))
+"""
+
+
+def _ring_call(lib, cases, timeout=120):
+    """The ring cases run by RING_RUNNER on `lib`: one result per call,
+    or None when the subprocess outlived its time limit."""
+    import json
+    import sys
+
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", RING_RUNNER, str(lib), json.dumps(cases)],
+            capture_output=True, text=True, timeout=timeout,
+        )
+    except subprocess.TimeoutExpired:
+        return None
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout)
+
+
+def _ring_lib(text, out):
+    _compile_host({"ring_gather": text}, out)
+    return out / "libring_gather.so"
+
+
+@pytest.fixture(scope="module")
+def ring_lib(tmp_path_factory):
+    return _ring_lib((CSRC / "ring_gather.cu").read_text(),
+                     tmp_path_factory.mktemp("ring"))
+
+
+def _ok(r):
+    return r["rc"] == 0 and not any(r["errors"]) and all(r["equal"])
+
+
+# (n, rows, W): odd widths, one-row blocks, a width whose blocks start at
+# every offset modulo 16 (byte copies) and one that takes 16-byte copies
+RING_SHAPES = [(1, 1, 3), (2, 1, 1), (3, 1, 5), (5, 1, 3), (2, 3, 33),
+               (3, 4, 32), (5, 2, 7)]
+
+
+@pytest.mark.parametrize("n,rows,W", RING_SHAPES)
+def test_ring_gather_source_equals_concatenation(ring_lib, n, rows, W):
+    # two calls on the same flags: the second runs at the next epoch
+    res = _ring_call(ring_lib, [dict(n=n, rows=rows, W=W, seed=n * W + rows,
+                                     calls=[{}, {}])])
+    assert res is not None, "the ring deadlocked"
+    assert all(_ok(r) for r in res), res
+
+
+# the second call: rank 1 already finished it and raised rank 2's flags
+# for the call after (its writes of this call's blocks are in place from
+# the first call, on the same buffers), so it raises nothing now
+AHEAD = [{}, {"silent": 1, "ahead": 2, "timeout_ns": 2_000_000_000}]
+
+
+def test_ring_gather_source_passes_pre_advanced_flags(ring_lib):
+    """A wait passes once the flag is >= the epoch: a left neighbour that
+    already raised its flags for a later call also finished this one."""
+    res = _ring_call(ring_lib, [dict(n=5, rows=1, W=3, seed=1, calls=AHEAD)])
+    assert res is not None and all(_ok(r) for r in res), res
+
+
+def test_ring_gather_source_times_out_instead_of_hanging(ring_lib):
+    """A rank that never raises its flag: its right neighbour gives up
+    after the timeout, sets its error word, and every rank returns."""
+    res = _ring_call(ring_lib, [dict(n=4, rows=1, W=5, seed=2, calls=[
+        {"silent": 1, "timeout_ns": 100_000_000}])])
+    assert res is not None, "the ring hung"
+    (r,) = res
+    assert r["rc"] == 0 and r["errors"][2] == 1, r
+
+
+RING_MUTANTS = {
+    "source_r_plus_s": (
+        [("const long long blk = (r - s + n) % n;",
+          "const long long blk = (r + s) % n;")], [{}]),
+    "n_minus_2_steps": (
+        [("for (int s = 1; s < n - 1; ++s) {",
+          "for (int s = 1; s < n - 2; ++s) {")], [{"timeout_ns": 100_000_000}]),
+    "wait_for_equal_epoch": (
+        [("while (*flag < a.epoch) {", "while (*flag != a.epoch) {")], AHEAD),
+}
+
+
+@pytest.mark.parametrize("name", list(RING_MUTANTS))
+def test_ring_mutants_fail(tmp_path, name):
+    edits, calls = RING_MUTANTS[name]
+    text = (CSRC / "ring_gather.cu").read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    res = _ring_call(_ring_lib(text, tmp_path),
+                     [dict(n=5, rows=1, W=3, seed=3, calls=calls)], timeout=60)
+    assert res is None or not all(_ok(r) for r in res), res

@@ -202,8 +202,9 @@ def test_port_imports_no_jax_and_requires_a_device():
     the port imports, no hypermerge_tpu module is loaded, and an entry
     called without `device=` raises when CUDA is absent: `run_batch`,
     `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
-    `pack_clocks`, `ClockStore` and `Repo` (whose `repo` and `serve`
-    modules import without jax too, and read on the CPU)."""
+    `pack_clocks`, `ClockStore`, `Repo` (whose `repo` and `serve`
+    modules import without jax too, and read on the CPU) and `make_mesh`
+    (parallel/, which reduces over CPU ranks)."""
     code = textwrap.dedent(
         """
         import sys
@@ -274,6 +275,19 @@ def test_port_imports_no_jax_and_requires_a_device():
         m = DeviceClockMirror(device="cpu")
         m.update("d", {"a": 3})
         assert m.union() == {"a": 3}
+        # the multi-device plane: the mesh is built from the visible cards
+        # (none here), or from ranks the caller names
+        from hypermerge_tpu_torch.parallel import mesh, ring, sharded
+        if not torch.cuda.is_available():
+            assert mesh.visible_devices() == []
+            try:
+                mesh.make_mesh()
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("make_mesh ran without a device")
+        cpu4 = mesh.make_mesh(devices=[torch.device("cpu")] * 4)
+        assert sharded.sharded_clock_union([[1, 5], [4, 2]], cpu4).cpu().tolist() == [4, 5]
         # the Repo facade and its serving tier: the backend resolves its
         # device before it builds a store
         import hypermerge_tpu_torch.repo
