@@ -29,6 +29,10 @@ prints a result):
      n in {2, 3, 4, 8} ranks x rows in {1, 7, 1024, 4096} x W in {1, 3,
      708, 1540, 4096} bytes, against ring_gather_plain; the min mode of
      the column reduce at [5, 3] and [8, 131072], and on negative values;
+     the live tick's entry `materialize_live_device` against its plain
+     version on the CPU, on the padded tick batches of seeded live
+     columns (INC ops, text) at (D, N) = (1, 262144) with A and K at
+     their bucket floors and (8, 32768) with A = 8, K = 64;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
@@ -85,6 +89,19 @@ prints a result):
         per-slab fetches; each wall printed. With two or more cards the
         same phase runs on min(count, 4) peer ranks; with one it prints
         that peer ranks were not run;
+     f. the live slice (backend/live.py): bench.py `_config6_text_trace`'s
+        doc (one author, one op per change, 259,778 ops) written with its
+        sidecar by `make_corpus`, opened lazily through `open_many`, then
+        `_config6_live_burst`'s traffic through `apply_remote_changes` —
+        a peer's first edit (adoption included), then 256 edits in chunks
+        of 32, each tick at D = 1, N = 262144 on the card; then 8 docs of
+        16,384 ops, each sent a 128-op chunk inside one raised tick window
+        (one dispatch at D = 8, N = 32768). Each burst runs again on a
+        copy of its directory with HM_DEVICE_MIN_CELLS above the bucket
+        (the engine's numpy twin route): every doc's snapshot patch,
+        clock, history length and frontend value identical; one captured
+        tick batch equal to the plain version on the CPU; the engine's
+        stats and the first-edit latency and burst rate printed;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -97,8 +114,11 @@ prints a result):
      included), and print the read mix's QPS, its p50 and p99 from the
      raw per-read latencies (and the `serve.read_s` histogram's bucket
      bounds), the host twin's QPS, p50 and p99 on the same 4,000 reads,
-     and the profiled window's device busy time and idle share; print
-     the kernels as one JSON line; profile one slab dispatch of each
+     and the profiled window's device busy time and idle share; time the
+     live tick's kernel at [1, 262144] and [8, 32768] beside its plain
+     version, the engine's numpy twin on the same docs and its bound;
+     print the bytes bound of each phase-3e mesh program; print the
+     kernels as one JSON line; profile one slab dispatch of each
      slice for its device time by kernel and the device's idle share (a
      profiler reading that gets no device record is printed as not
      measured, None: the profiler is a reading, not a check);
@@ -150,6 +170,14 @@ MESH_SLAB = 512
 MESH = ("ring_gather", "clock_union_min")
 LANES = ("visible", "map_winner", "elem_winner", "elem_live", "rank",
          "inc_total", "clock")
+# the live slice (phase 3f): bench.py _config6_text_trace's doc (the
+# automerge-perf trace's size) under _config6_live_burst's traffic (a
+# first edit, then 256 in chunks of 32), and 8 docs of 16,384 ops each
+# sent a 128-op chunk in one tick window
+LIVE_TRACE = dict(n_docs=1, n_ops=259_778, ops_per_change=1, text_frac=1.0,
+                  seed=3, edits=256, chunk=32, tick_ms=None, bucket=262144)
+LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
+                  seed=0, edits=128, chunk=128, tick_ms=3000, bucket=32768)
 # torch.profiler now and then delivers no device record for a window; a
 # kernel-alone window is tried again, and every window is padded with idle
 # host time so that device records near its edges fall inside it
@@ -1682,6 +1710,389 @@ def time_peer_ring(ringmod, meshmod, cards):
     return res
 
 
+
+# -- the live slice -------------------------------------------------------------
+
+
+def live_columns(columnar, synth, n_ops, n_edits, seed, **kw):
+    """One doc's LiveColumns as the live engine holds it: a synth history
+    adopted from a packed batch, then a peer's `n_edits` live edits
+    (synth_live_edits: a counter, INC ops, text deletes and inserts,
+    conflicting sets) appended."""
+    hist = synth.synth_changes(n_ops, seed=seed, **kw)
+    lv = columnar.LiveColumns.from_batch(columnar.pack_docs([hist]), 0)
+    lv.append_changes(synth.synth_live_edits(hist, n_edits, seed=seed))
+    return lv
+
+
+def live_args(ck, live, lvs, device):
+    """The padded tick batch `_kernel_device` builds for `lvs`, as tensors
+    on `device`, with (A, K)."""
+    import torch
+
+    n = ck.live_bucket(max(lv.n for lv in lvs), ck.LIVE_MIN_ROWS)
+    planes, A, K = live.tick_batch(lvs, n)
+    return tuple(torch.from_numpy(a).to(device) for a in planes), A, K
+
+
+def live_plain(ck, args, A, K):
+    """materialize_live_device's plain version on the card: the plain
+    doc kernel with seq absent and a zero actor map."""
+    import torch
+
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt = args
+    da = torch.zeros(flags.shape[0], A, dtype=torch.int32, device=flags.device)
+    return ck.doc_kernel_plain(
+        *ck.widen_plain(flags, slot, ctr, None, obj, key, ref, value, psrc,
+                        ptgt), da, A=A, K=K)
+
+
+def compare_live_kernel(ck, live, columnar, synth):
+    """Phase 2 for the live slice: materialize_live_device on the card
+    against its plain version on the CPU, exact, on padded tick batches
+    of seeded LiveColumns with INC ops and text, at (D, N) = (1, 262144)
+    (A and K at their bucket floors) and (8, 32768) (A = 8, K = 64).
+    Returns (max abs err, {label: (LiveColumns, args, A, K)})."""
+    import torch
+
+    cases = {
+        "1x262144": [live_columns(columnar, synth, LIVE_TRACE["n_ops"], 300,
+                                  3, n_actors=1, ops_per_change=1,
+                                  text_frac=1.0)],
+        "8x32768": [live_columns(columnar, synth, 30000, 300, 40 + d,
+                                 n_actors=5, n_keys=40, text_frac=0.5)
+                    for d in range(8)],
+    }
+    err, inputs = 0, {}
+    for label, lvs in cases.items():
+        args, A, K = live_args(ck, live, lvs, "cuda")
+        got = ck.materialize_live_device(*args, A=A, K=K)
+        cpu = tuple(a.cpu() for a in args)
+        want = ck.materialize_live_device(*cpu, A=A, K=K)
+        torch.cuda.synchronize()
+        flags = args[0]
+        if not ((flags & 7) == 6).any():  # Action.INC
+            raise AssertionError(f"live batch {label} carries no INC op")
+        e = hold(f"materialize_live {label}",
+                 tuple(getattr(got, f) for f in LANES),
+                 tuple(getattr(want, f).cuda() for f in LANES))
+        if got.clock.any():
+            raise AssertionError(f"materialize_live {label}: clock not zero")
+        err = max(err, e)
+        inputs[label] = (lvs, args, A, K)
+        log(f"phase 2 materialize_live {list(flags.shape)} A={A} K={K} "
+            f"(rows {[lv.n for lv in lvs]}): kernel == plain (exact)")
+    return err, inputs
+
+
+def plain_value(v):
+    """A frontend value as plain Python (Text and Counter by name)."""
+    name = type(v).__name__
+    if name == "Text":
+        return ["__text__", str(v)]
+    if name == "Counter":
+        return ["__counter__", int(v)]
+    if isinstance(v, dict):
+        return {k: plain_value(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [plain_value(x) for x in v]
+    return v
+
+
+def drive_live(ck, root, urls, edits, chunk, device=None, tick_ms=None,
+               min_cells=None):
+    """The live slice through the entry points a user calls: a Repo on
+    `root`, `open_many(urls)` (lazy docs) and `fetch_bulk_summaries`,
+    each doc's first remote edit (adoption included, timed), then the
+    rest of `edits[i]` through `apply_remote_changes` in chunks of
+    `chunk`, every doc's chunk in turn (timed to the last tick's end).
+    `tick_ms` raises the tick window (read when the engine is built);
+    `min_cells` sets HM_DEVICE_MIN_CELLS (above the bucket: the engine's
+    numpy twin route). Every tick's exception is kept and raised.
+    Returns (per-doc outcome, numbers, the (D, N) of each device
+    dispatch, one captured dispatch)."""
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    env = {"HM_LIVE": "1", "HM_LIVE_TICK_MS": tick_ms,
+           "HM_DEVICE_MIN_CELLS": min_cells}
+    saved = {k: os.environ.get(k) for k in env}
+    shapes, captured, errors = [], [], []
+    orig = ck.materialize_live_device
+
+    def spy(*args, A, K):
+        out = orig(*args, A=A, K=K)
+        shapes.append(tuple(args[0].shape))
+        if not captured:
+            captured.append((args, A, K, out))
+        return out
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    ck.materialize_live_device = spy
+    repo = Repo(path=root, device=device)
+    try:
+        back = repo.back
+        eng = back.live
+        if eng is None:
+            raise AssertionError("the repo has no live engine")
+        tick = eng._ticker._fn
+
+        def guarded(batch):
+            try:
+                tick(batch)
+            except BaseException as e:
+                errors.append(e)
+                raise
+
+        eng._ticker._fn = guarded
+        t0 = time.perf_counter()
+        handles = repo.open_many(urls)
+        back.fetch_bulk_summaries()
+        for h in handles:
+            if h.value(timeout=600) is None:
+                raise AssertionError("a doc did not come up")
+        open_s = time.perf_counter() - t0
+        docs = [back.docs[validate_doc_url(u)] for u in urls]
+        if any(d.opset is not None for d in docs):
+            raise AssertionError("open_many built a host OpSet")
+        t0 = time.perf_counter()
+        for d, e in zip(docs, edits):
+            d.apply_remote_changes(e[:1])
+        if not eng.flush_now(600):
+            raise AssertionError("the first edits' ticks did not finish")
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        n_burst = sum(len(e) - 1 for e in edits)
+        t0 = time.perf_counter()
+        for base in range(1, max(len(e) for e in edits), chunk):
+            for d, e in zip(docs, edits):
+                if base < len(e):
+                    d.apply_remote_changes(e[base:base + chunk])
+        if not eng.flush_now(600):
+            raise AssertionError("the burst's ticks did not finish")
+        sync()
+        burst_s = time.perf_counter() - t0
+        peer = edits[0][0].actor
+        for d, e in zip(docs, edits):
+            if d.clock.get(peer, 0) != e[-1].seq:
+                raise AssertionError(f"{d.id[:8]}: edits not all admitted")
+        stats = dict(eng.stats)
+        outcome = [
+            (d.snapshot_patch().to_json(), dict(d.clock), d.history_len,
+             plain_value(h.value(timeout=600)))
+            for d, h in zip(docs, handles)
+        ]
+        if any(d.opset is not None for d in docs):
+            raise AssertionError("a live doc fell to the host OpSet")
+        if stats["refused"]:
+            raise AssertionError(f"adoption refused: {stats}")
+    finally:
+        ck.materialize_live_device = orig
+        repo.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if errors:
+        raise AssertionError(f"a live tick failed: {errors[0]!r}")
+    numbers = dict(open_s=open_s, first_edit_ms=first_ms,
+                   burst_edits=n_burst, burst_s=burst_s,
+                   burst_edits_per_s=n_burst / burst_s, **stats)
+    return outcome, numbers, shapes, captured
+
+
+def write_live_corpus(root, n_docs, n_ops, ops_per_change, text_frac, seed):
+    """A corpus for the live slice (set-up, untimed), its twin copy, and
+    the docs' histories as the peers see them."""
+    import shutil
+
+    from hypermerge_tpu_torch.ops import synth
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+
+    urls = make_corpus(root, n_docs, n_ops, ops_per_change=ops_per_change,
+                       seed=seed, sign=False, text_frac=text_frac)
+    shutil.copytree(root, root + "-twin")
+    hists = [synth.synth_changes(n_ops, n_actors=1,
+                                 ops_per_change=ops_per_change,
+                                 text_frac=text_frac, seed=seed + t)
+             for t in range(min(n_docs, 8))]
+    return urls, hists
+
+
+def live_path(ck, root, device=None):
+    """Phase 3f, the live slice. The trace doc: bench.py
+    `_config6_text_trace`'s doc (one author, one op per change, 259,778
+    ops, `synth_changes(..., text_frac=1.0, seed=3)`) written with its
+    sidecar, opened lazily, then `_config6_live_burst`'s traffic — a
+    peer's first edit, then 256 edits in chunks of 32; every tick over
+    the increment budget runs at D = 1, N = 262144, over
+    HM_DEVICE_MIN_CELLS, on the card. The group: 8 docs of 16,384 ops
+    (`make_corpus`), each sent a 128-op chunk inside one raised tick
+    window, so one dispatch runs at D = 8, N = 32768. Each run's launch
+    counts are set to 0 just before it and read just after; each is
+    replayed on a copy of its directory with HM_DEVICE_MIN_CELLS above
+    the bucket (the numpy twin route), every doc's snapshot patch, clock,
+    history length and frontend value identical; a captured tick batch
+    is held against the plain version on the CPU. Returns (launches,
+    numbers, the captured trace dispatch)."""
+    from hypermerge_tpu_torch.ops import synth
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, cfg in (("trace", LIVE_TRACE), ("group", LIVE_GROUP)):
+        t0 = time.perf_counter()
+        where = os.path.join(root, name)
+        urls, hists = write_live_corpus(
+            where, cfg["n_docs"], cfg["n_ops"], cfg["ops_per_change"],
+            cfg["text_frac"], cfg["seed"])
+        # the corpus stores each doc under its own writer actor
+        edits = [synth.synth_live_edits(
+            hists[i % len(hists)], 1 + cfg["edits"], seed=i,
+            rename={"actor00": validate_doc_url(u)})
+            for i, u in enumerate(urls)]
+        log(f"phase 3f {name} corpus: {cfg['n_docs']} x {cfg['n_ops']} ops "
+            f"written and {sum(map(len, edits))} peer edits made in "
+            f"{time.perf_counter() - t0:.1f} s (set-up)")
+        for k in ck.launches:
+            ck.launches[k] = 0
+        got, numbers, shapes, captured = drive_live(
+            ck, where, urls, edits, cfg["chunk"], device=device,
+            tick_ms=cfg["tick_ms"])
+        counts = dict(ck.launches)
+        for k in ck.launches:
+            ck.launches[k] = 0
+        want, twin, twin_shapes, _c = drive_live(
+            ck, where + "-twin", urls, edits, cfg["chunk"], device=device,
+            tick_ms=cfg["tick_ms"], min_cells=2**31 - 1)
+        if ck.launches["materialize_live"] or twin_shapes:
+            raise AssertionError(f"{name}: the twin route launched the kernel")
+        for i, (g, w) in enumerate(zip(got, want)):
+            for part, a, b in zip(("snapshot", "clock", "history", "value"),
+                                  g, w):
+                if a != b:
+                    raise AssertionError(f"{name} doc {i}: {part} differs "
+                                         "from the numpy twin route")
+        if counts["materialize_live"] == 0 or not shapes:
+            raise AssertionError(f"{name}: materialize_live never launched")
+        if numbers["kernel_runs"] != numbers["device_dispatches"]:
+            raise AssertionError(f"{name}: a kernel group above the cutover "
+                                 f"took the numpy twin: {numbers}")
+        if counts["materialize_live"] != numbers["device_dispatches"]:
+            raise AssertionError(f"{name}: launches {counts} != dispatches")
+        want_shape = (cfg["n_docs"], cfg["bucket"])
+        if want_shape not in shapes:
+            raise AssertionError(f"{name}: no {want_shape} dispatch: {shapes}")
+        runs[name] = dict(counts=counts, numbers=numbers, twin=twin,
+                          shapes=shapes, captured=captured[0])
+        log(f"phase 3f {name} (device route): " + " ".join(
+            f"{k}={v!r}" for k, v in numbers.items()))
+        log(f"phase 3f {name} dispatches (D, N): {shapes}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        log(f"phase 3f {name} (numpy twin route): " + " ".join(
+            f"{k}={v!r}" for k, v in twin.items()))
+    # one captured tick batch against the plain version on the CPU
+    args, A, K, out = runs["trace"]["captured"]
+    cpu = tuple(a.cpu() for a in args)
+    want = ck.materialize_live_device(*cpu, A=A, K=K)
+    hold(f"phase 3f captured tick {list(args[0].shape)}",
+         tuple(getattr(out, f).cpu() for f in LANES),
+         tuple(getattr(want, f) for f in LANES))
+    wall = time.perf_counter() - t_phase
+    launches = sum(r["counts"]["materialize_live"] for r in runs.values())
+    log(f"phase 3f check: {launches} materialize_live launches (trace "
+        f"{runs['trace']['counts']['materialize_live']}, group "
+        f"{runs['group']['counts']['materialize_live']}), every doc's "
+        f"snapshot, clock, history and value == the numpy twin route, the "
+        f"captured [1, {LIVE_TRACE['bucket']}] tick == plain on the CPU; "
+        f"phase wall {wall:.1f} s")
+    numbers = {name: r["numbers"] for name, r in runs.items()}
+    return launches, numbers, runs["trace"]["captured"]
+
+
+def time_live_kernel(ck, live, inputs):
+    """Phase 4 for the live slice: materialize_live_device at [1, 262144]
+    and [8, 32768] — the wrapper (CUDA events), the kernel alone (the
+    profiler), the plain version on the card, the engine's numpy twin
+    (`_host_lanes`, one doc at a time, host clock) on the same docs, and
+    the bound."""
+    import torch
+
+    res = {}
+    for label, (lvs, args, A, K) in inputs.items():
+        flags, slot, ctr, obj, key, ref, value, psrc, ptgt = args
+        D, N = flags.shape
+        out = ck.materialize_live_device(*args, A=A, K=K)
+        rounds = max(1, math.ceil(math.log2(max(N, 2)))) + 1
+        log2n = max(1, int(math.log2(N)))
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for lv in lvs:
+                live.LiveApplyEngine._host_lanes(lv)
+            times.append((time.perf_counter() - t0) * 1e3)
+        r = dict(
+            D=D, N=N, A=A, K=K,
+            ms=median_ms(lambda: ck.materialize_live_device(*args, A=A, K=K)),
+            kernel_ms=kernel_device_ms(
+                lambda: ck.materialize_live_device(*args, A=A, K=K),
+                "materialize_kernel"),
+            plain_ms=median_ms(lambda: live_plain(ck, args, A, K)),
+            numpy_twin_ms=statistics.median(times),
+            library_ms=None,
+            # reads flags..value and ptgt once (psrc is not read), writes
+            # the five bool and two int32 lanes and the clock
+            bytes=nbytes(flags, slot, ctr, obj, key, ref, value, ptgt)
+            + nbytes(*out),
+            ops=D * (2 * N * log2n + 4 * (N + 1) * rounds),
+        )
+        torch.cuda.synchronize()
+        t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"timing materialize_live [{D}, {N}]: " + " ".join(
+            f"{k}={v!r}" for k, v in r.items()))
+        res[label] = r
+    return res
+
+
+def mesh_bounds(ck, ckk, slab, multi):
+    """Bytes each phase-3e mesh program must move (inputs read once,
+    outputs written once, summed over ranks) and its bound over
+    MEM_BYTES_PER_S, at phase 3e's shapes."""
+    import torch
+
+    res = {}
+    for lean in (False, True):
+        args, A, K = cuda_args(ck, slab, lean=lean)
+        out, wire = ck.run_batch_full(slab, lean=lean)
+        b = nbytes(*args) + nbytes(*out) + nbytes(wire)
+        res[f"sharded_full lean={lean} {list(slab.shape)}"] = b
+    args, A, K = cuda_args(ck, multi)
+    out = ck.materialize_cuda(*args, A=A, K=K)
+    res[f"step {list(multi.shape)}"] = nbytes(*args) + nbytes(*out)
+    n, a = CONFIG5["n_docs"], CONFIG5["n_actors"]
+    res[f"union (pmax) [{n}, {a}]"] = 4 * (n * a + a)
+    res[f"dominated (pmin) [{n}, {a}]"] = 4 * (n * a + a) + n
+    torch.cuda.synchronize()
+    out = {k: dict(bytes=v, bound_ms=v / MEM_BYTES_PER_S * 1e3)
+           for k, v in res.items()}
+    log("mesh_bounds " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1694,6 +2105,7 @@ def main() -> int:
     try:
         from hypermerge_tpu_torch.crdt.change import ROOT, Action, Change, Op
         from hypermerge_tpu_torch import native
+        from hypermerge_tpu_torch.backend import live
         from hypermerge_tpu_torch.kernels import _build
         from hypermerge_tpu_torch.ops import clock_kernels as ckk
         from hypermerge_tpu_torch.ops import clock_mirror as PM
@@ -1774,6 +2186,8 @@ def main() -> int:
         errs.update(compare_clock_kernels(ckk))
         errs.update(compare_serve_kernels(synth, sk))
         errs.update(compare_mesh_kernels(ringmod, meshmod, ckk))
+        errs["materialize_live"], live_inputs = compare_live_kernel(
+            ck, live, columnar, synth)
 
         # -- 3. the main paths -------------------------------------------------
         main_path(ck, mat, synth, columnar, slab)
@@ -1797,6 +2211,9 @@ def main() -> int:
             else:
                 log(f"phase 3e peer ranks: not run ({n_cards} GPU visible)")
         del refs, rows
+        with tempfile.TemporaryDirectory(prefix="hm-live-") as live_root:
+            live_launches, live_numbers, _captured = live_path(ck, live_root)
+        del _captured
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab)
@@ -1809,6 +2226,10 @@ def main() -> int:
         timing.update(clock_timing)
         timing.update(time_serve_kernels(sk, seen, last))
         timing.update(time_mesh_kernels(ringmod, meshmod, ckk, gather_shape))
+        mesh_bounds(ck, ckk, slab, multi)
+        live_timing = time_live_kernel(ck, live, live_inputs)
+        timing["materialize_live"] = live_timing["1x262144"]
+        del live_inputs
         if torch.cuda.device_count() >= 2:
             time_peer_ring(ringmod, meshmod, [
                 torch.device("cuda", i)
@@ -1857,15 +2278,19 @@ def main() -> int:
                         "hypermerge_tpu/parallel/sharded.py:134"),
         "clock_union_min": ("hypermerge_tpu_torch/kernels/csrc/clock_union.cu",
                             "hypermerge_tpu/parallel/sharded.py:360"),
+        "materialize_live": ("hypermerge_tpu_torch/kernels/csrc/doc_kernel.cu",
+                             "hypermerge_tpu/ops/crdt_kernels.py:553"),
     }
     # launches: each kernel's count on its slice's main path (the sidecar
     # slice, the config-5 clock slice, the read slice)
     counts.update({k: clock_counts[k] for k in CLOCKS})
     counts.update({k: read_counts[k] for k in SERVE})
     counts.update({k: mesh_counts[k] for k in MESH})
+    counts["materialize_live"] = live_launches
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
-              "clock_union_min": [2, CONFIG5["n_docs"] // 2]}
+              "clock_union_min": [2, CONFIG5["n_docs"] // 2],
+              "materialize_live": [1, LIVE_TRACE["bucket"]]}
     kernels = []
     for name, (source, replaces) in meta.items():
         r = timing[name]
@@ -1877,12 +2302,13 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": (clock_shape if name in CLOCKS
                       else [r["B"], r["N"]] if name in SERVE
-                      else shapes[name] if name in MESH
+                      else shapes[name] if name in shapes
                       else list(slab.shape)),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
     log("read_mix " + json.dumps(read_numbers))
+    log("live " + json.dumps(live_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

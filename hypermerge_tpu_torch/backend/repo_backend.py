@@ -18,8 +18,11 @@ When two or more ranks of that device type are visible
 0, the serial bulk loader shards each slab over a mesh of them
 (parallel/sharded.py `sharded_full`, stat `sharded_slabs`), as the
 reference does.
+Incremental changes on bulk-loaded docs go through the live apply
+engine (backend/live.py, `self.live`; HM_LIVE=0 keeps the host-OpSet
+twin), as in the reference.
 Not ported yet; the port behaves as the reference with the switch off:
-live apply (HM_LIVE=0: `self.live` is None), the streaming pipeline
+the streaming pipeline
 (HM_PIPELINE=0: slabs load serially, so the reference's round-robin
 slab scheduler, `_slab_rr`, has no counterpart), the write-ahead
 journal (HM_WAL=0) and crash recovery (a directory left with its
@@ -270,9 +273,14 @@ class RepoBackend:
         self._store_debounce = (
             os.environ.get("HM_STORE_DEBOUNCE", "1") != "0"
         )
-        # live apply engine (backend/live.py): not ported yet — the
-        # port runs the host-OpSet path, the reference's HM_LIVE=0 twin
+        # live apply engine (backend/live.py): incremental changes on
+        # lazy docs batch through per-tick kernel dispatches. HM_LIVE=0
+        # keeps the host-OpSet path as the correctness twin.
         self.live = None
+        if os.environ.get("HM_LIVE", "1") != "0":
+            from .live import LiveApplyEngine
+
+            self.live = LiveApplyEngine(self)
         # read-serving tier (serve/): reads answer from device-resident
         # summary lanes through batched query kernels. HM_SERVE=0 keeps
         # per-request host materialization as the bit-identical twin.
@@ -1159,6 +1167,43 @@ class RepoBackend:
 
         return load
 
+    def _demoted_snapshot_fn(self, doc_id: str, clock: Dict[str, int]):
+        """Ready/reopen snapshot closure for a doc the live engine
+        DEMOTED back to lazy: decode the feed windows at the doc's
+        serving clock through the numpy kernel twin — no host OpSet,
+        no engine state. Falls back to a clamped OpSet replay when a
+        sidecar can no longer serve the window (e.g. the feed was
+        truncated out-of-band after demotion)."""
+
+        def snap():
+            from ..crdt.opset import OpSet
+            from ..ops.columnar import pack_docs_columns
+            from ..ops.host_kernel import run_batch_host
+            from ..ops.materialize import DecodedBatch, decode_patch
+
+            spec = self._serveable_spec(clock)
+            if spec is not None:
+                batch = pack_docs_columns(
+                    [spec] if spec else [[]], device="cpu"
+                )
+                dec = DecodedBatch(
+                    batch,
+                    run_batch_host(batch),
+                    host_clocks=[dict(clock)],
+                )
+                return decode_patch(dec, 0)
+            sub = OpSet()
+            sub.apply_changes(
+                [
+                    c
+                    for c in self._bulk_history_loader(doc_id)()
+                    if c.seq <= clock.get(c.actor, 0)
+                ]
+            )
+            return sub.snapshot_patch()
+
+        return snap
+
     def _writable_actor_for(self, doc_id: str) -> str:
         cursor = self.cursors.get(self.id, doc_id)
         for actor_id in cursor:
@@ -1268,9 +1313,9 @@ class RepoBackend:
         """[(FeedColumns, 0, end), ...] feed windows able to serve
         `clock` from the columnar sidecars, or None when any actor
         feed is absent, short, or non-contiguous. Non-creating
-        (_peek_actor). The serving tier's install calls this (and, in the
-        reference, live adoption and demotion too), so they can never
-        disagree about what the sidecars can rebuild."""
+        (_peek_actor). The serving tier's install, live adoption and
+        demotion all call this, so they can never disagree about what
+        the sidecars can rebuild."""
         spec = []
         for actor_id, end in clock.items():
             if end <= 0:
@@ -1660,6 +1705,8 @@ class RepoBackend:
         self._closed = True
         if self.serve is not None:
             self.serve.close()  # drains: in-flight reads answer first
+        if self.live is not None:
+            self.live.close()  # drains: final tick patches still emit
         self._syncs.close()
         self._cache_syncs.close()  # drains: sidecars durable on close
         self._stores.close()  # drains AFTER patch sources: last rows land

@@ -10,9 +10,11 @@ and lists, through `batch_from_numpy`, and comes back out through
 column sidecars need no converter: both packages read and write the same
 bytes (storage/colcache.py), and neither do the sqlite clock and cursor
 tables (storage/sql.py keeps the schema). A reference DeviceClockMirror
-crosses through `clock_mirror_from_reference`, and a resident read-serving
+crosses through `clock_mirror_from_reference`, a resident read-serving
 entry (serve/resident.py ResidentDoc) through
-`resident_entry_from_reference`. Nothing here imports the reference
+`resident_entry_from_reference`, and one live doc's appendable columns
+(ops/columnar.py LiveColumns, the live engine's cache) through
+`live_columns_from_reference`. Nothing here imports the reference
 package: the reference's objects are read by their fields.
 """
 
@@ -22,10 +24,10 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .crdt.change import Change
+from .crdt.change import Change, OpId
 from .device import DeviceLike, resolve
 from .ops.clock_mirror import DeviceClockMirror
-from .ops.columnar import COLUMNS, ColumnarBatch
+from .ops.columnar import COLUMNS, ColumnarBatch, LiveColumns
 from .ops.crdt_kernels import MaterializeOut
 
 BATCH_FIELDS = (
@@ -143,3 +145,28 @@ def resident_entry_from_reference(entry: Any, device: DeviceLike = None):
         host_cols, np.array(entry.elem_val, dtype=np.int32),
         _Tables(entry.tables), dict(entry.key_index),
     )
+
+
+def live_columns_from_reference(lv: Any) -> LiveColumns:
+    """A port LiveColumns with a reference LiveColumns' state: its column
+    arrays and pred edges are copied at their capacity (so later appends
+    grow them the same way), the interners keep their items and index (so
+    every table index stays the same), and `row_of` and `opids` cross as
+    the port's OpIds."""
+    out = LiveColumns()
+    out.n = int(lv.n)
+    out.n_preds = int(lv.n_preds)
+    out.cols = {
+        name: np.array(lv.cols[name], dtype=np.int32) for name in COLUMNS
+    }
+    out.psrc = np.array(lv.psrc, dtype=np.int32)
+    out.ptgt = np.array(lv.ptgt, dtype=np.int32)
+    for name in ("actors", "keys", "strings", "floats", "bigints"):
+        ref, interner = getattr(lv, name), getattr(out, name)
+        interner.items = list(ref.items)
+        interner._index = dict(ref._index)
+    out.opids = [OpId(int(c), str(a)) for c, a in lv.opids]
+    out.row_of = {
+        OpId(int(c), str(a)): int(r) for (c, a), r in lv.row_of.items()
+    }
+    return out

@@ -1031,6 +1031,251 @@ def _empty_batch(
     )
 
 
+# ---------------------------------------------------------------------------
+# appendable per-doc packed columns (the live apply engine's cache)
+
+
+class LiveColumns:
+    """ONE document's packed op history, appendable in place.
+
+    The live apply engine (backend/live.py) keeps each hot doc's packed
+    columns host-pinned: incoming changes append rows at the tail (no
+    feed IO, no repack of the prefix), and each tick stacks dirty docs'
+    columns into a padded [D, N] batch for the materialize kernel.
+
+    Row encoding is `_pack_one`'s, with persistent state: `row_of`
+    resolves obj/ref/pred references across appends, the interners are
+    per-DOC (the kernels never read table *contents*, only group by
+    index — so no batch-global remap is ever needed), and unresolvable
+    ops drop exactly as `_pack_one` drops them (the OpSet tolerance).
+
+    Row order is arrival order, NOT the causal linear order `pack_docs`
+    emits. The kernels are row-order-independent (winners come from
+    lexsorts over (group, lamport) keys, RGA order from explicit parent
+    pointers), so appending at the tail is always sound; only consumers
+    that assume causally-sorted rows (none on the live path) may not
+    read these columns.
+
+    Actor column values are intern indices; `slots()` maps them through
+    the string-sort rank LUT the kernels tie-break by (recomputed only
+    when a new actor joins).
+    """
+
+    _INIT_CAP = 64
+
+    def __init__(self) -> None:
+        self.n = 0
+        self.n_preds = 0
+        self.cols: Dict[str, np.ndarray] = {
+            name: np.full(self._INIT_CAP, COL_DEFAULTS.get(name, 0), np.int32)
+            for name in COLUMNS
+        }
+        self.psrc = np.full(self._INIT_CAP, -1, np.int32)
+        self.ptgt = np.full(self._INIT_CAP, -1, np.int32)
+        self.actors = _Interner()
+        self.keys = _Interner()
+        self.strings = _Interner()
+        self.floats = _Interner()
+        self.bigints = _Interner()
+        self.row_of: Dict[OpId, int] = {}
+        self.opids: List[OpId] = []  # row -> OpId (append-only, so the
+        # per-tick decoders reuse it instead of rebuilding O(n) objects)
+        self._rank_lut: Optional[np.ndarray] = None
+
+    @classmethod
+    def from_batch(cls, batch: ColumnarBatch, d: int = 0) -> "LiveColumns":
+        """Adopt one doc's rows out of a packed batch (bulk-loaded docs
+        enter the live engine through this — their history is already
+        packed, so adoption is a column copy plus the row_of index)."""
+        lv = cls()
+        n = int(batch.n_ops[d])
+        lv._reserve_rows(n)
+        for name in COLUMNS:
+            lv.cols[name][:n] = batch.cols[name][d, :n]
+        lv.n = n
+        keep = np.asarray(batch.psrc[d]) >= 0
+        srcs = np.asarray(batch.psrc[d])[keep].astype(np.int32)
+        tgts = np.asarray(batch.ptgt[d])[keep].astype(np.int32)
+        lv._reserve_preds(len(srcs))
+        lv.psrc[: len(srcs)] = srcs
+        lv.ptgt[: len(tgts)] = tgts
+        lv.n_preds = len(srcs)
+        for a in batch.actors:
+            lv.actors(a)
+        for k in batch.keys:
+            lv.keys(k)
+        for s in batch.strings:
+            lv.strings(s)
+        for f in batch.floats:
+            lv.floats(f)
+        for b in batch.bigints:
+            lv.bigints(b)
+        ctr = batch.cols["ctr"][d, :n].tolist()
+        acts = batch.cols["actor"][d, :n]
+        actors = batch.actors
+        if n and int(acts.min()) == int(acts.max()):
+            # single-writer doc (the dominant bulk shape): one actor
+            # lookup for the whole column
+            writer = actors[int(acts[0])]
+            lv.opids = [OpId(c, writer) for c in ctr]
+        else:
+            names = [actors[a] for a in acts.tolist()]
+            lv.opids = list(map(OpId, ctr, names))
+        lv.row_of = dict(zip(lv.opids, range(n)))
+        return lv
+
+    # -- appends --------------------------------------------------------
+
+    def append_changes(self, changes: Sequence[Change]) -> None:
+        """Append already-admitted changes (caller enforces causal
+        order + dedup — the live engine's admission mirror of OpSet)."""
+        for change in changes:
+            self._append_one(change)
+
+    def _append_one(self, change: Change) -> None:
+        row_of = self.row_of
+        for i, op in enumerate(change.ops):
+            opid = change.op_id(i)
+            n_actors = len(self.actors.items)
+            enc = _encode_op_row(
+                op, opid, change, row_of,
+                self.actors, self.keys, self.strings, self.floats,
+                self.bigints,
+            )
+            if enc is None:
+                continue
+            if len(self.actors.items) != n_actors:
+                self._rank_lut = None  # new actor: ranks shift
+            vals, pred_tgts = enc
+            row = self.n
+            self._reserve_rows(row + 1)
+            c = self.cols
+            for name in COLUMNS:
+                c[name][row] = vals[name]
+            for tgt in pred_tgts:
+                k = self.n_preds
+                self._reserve_preds(k + 1)
+                self.psrc[k] = row
+                self.ptgt[k] = tgt
+                self.n_preds = k + 1
+            row_of[opid] = row
+            self.opids.append(opid)
+            self.n = row + 1
+
+    def _reserve_rows(self, n: int) -> None:
+        cap = len(self.cols["action"])
+        if n <= cap:
+            return
+        new_cap = round_up_pow2(n)
+        for name in COLUMNS:
+            grown = np.full(new_cap, COL_DEFAULTS.get(name, 0), np.int32)
+            grown[: self.n] = self.cols[name][: self.n]
+            self.cols[name] = grown
+
+    def _reserve_preds(self, n: int) -> None:
+        cap = len(self.psrc)
+        if n <= cap:
+            return
+        new_cap = round_up_pow2(n)
+        for attr in ("psrc", "ptgt"):
+            grown = np.full(new_cap, -1, np.int32)
+            grown[: self.n_preds] = getattr(self, attr)[: self.n_preds]
+            setattr(self, attr, grown)
+
+    # -- kernel views ---------------------------------------------------
+
+    @property
+    def actor_rank(self) -> np.ndarray:
+        """LUT: actor intern index -> string-sort rank (the kernel's
+        tie-break order)."""
+        if self._rank_lut is None or len(self._rank_lut) != max(
+            1, len(self.actors.items)
+        ):
+            order = sorted(
+                range(len(self.actors.items)),
+                key=lambda i: self.actors.items[i],
+            )
+            lut = np.zeros(max(1, len(self.actors.items)), np.int32)
+            for rank, idx in enumerate(order):
+                lut[idx] = rank
+            self._rank_lut = lut
+        return self._rank_lut
+
+    def slots(self) -> np.ndarray:
+        """[n] int32 actor slots in string-sort rank order."""
+        return self.actor_rank[self.cols["actor"][: self.n]]
+
+    def opid(self, row: int) -> OpId:
+        return OpId(
+            int(self.cols["ctr"][row]),
+            self.actors.items[int(self.cols["actor"][row])],
+        )
+
+    def decode_row_value(self, row: int) -> Any:
+        return decode_live_value(
+            int(self.cols["vkind"][row]),
+            int(self.cols["value"][row]),
+            self,
+        )
+
+    def decode_values(self, rows: np.ndarray) -> List[Any]:
+        """Decoded Python values for the given row indices — the batch
+        twin of `decode_row_value`, vectorized by value kind (one
+        nonzero + one tight fixup pass per kind present instead of a
+        per-row Python call). The live decode's value hot path."""
+        vk = self.cols["vkind"][rows]
+        out: List[Any] = self.cols["value"][rows].tolist()
+        if not out:
+            return out
+        # VK_INT rows are already right (tolist yields Python ints);
+        # patch the other kinds in place
+        m = vk == VK_NONE
+        if m.any():
+            for i in np.nonzero(m)[0].tolist():
+                out[i] = None
+        m = vk == VK_BOOL
+        if m.any():
+            for i in np.nonzero(m)[0].tolist():
+                out[i] = bool(out[i])
+        for code, table in (
+            (VK_FLOAT, self.floats.items),
+            (VK_STR, self.strings.items),
+            (VK_BIGINT, self.bigints.items),
+        ):
+            m = vk == code
+            if m.any():
+                for i in np.nonzero(m)[0].tolist():
+                    out[i] = table[out[i]]
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """Resident host bytes of this doc's live cache: the packed
+        numpy planes plus an estimate of the opids/row_of index
+        structures (~one OpId tuple + two dict/list slots per row).
+        What the live engine's byte-bounded LRU charges a hot doc."""
+        b = self.psrc.nbytes + self.ptgt.nbytes
+        for a in self.cols.values():
+            b += a.nbytes
+        return b + len(self.opids) * 144
+
+
+def decode_live_value(vkind: int, value: int, lv: "LiveColumns") -> Any:
+    if vkind == VK_NONE:
+        return None
+    if vkind == VK_INT:
+        return int(value)
+    if vkind == VK_BOOL:
+        return bool(value)
+    if vkind == VK_FLOAT:
+        return lv.floats.items[value]
+    if vkind == VK_STR:
+        return lv.strings.items[value]
+    if vkind == VK_BIGINT:
+        return lv.bigints.items[value]
+    raise ValueError(f"bad vkind {vkind}")
+
+
 def decode_value(
     vkind: int, value: int, dt: int, batch: ColumnarBatch
 ) -> Any:

@@ -141,11 +141,13 @@ def make_corpus(
     seed: int = 0,
     threads: int = 8,
     sign: bool = True,
+    text_frac: float = 0.85,
 ) -> List[str]:
     """Write a repo directory of `n_docs` single-writer docs with `n_ops`
     ops each; returns their doc urls. Safe to call once per directory.
     `sign=False` skips the .sig sidecars (faster; such feeds cannot
-    replicate to strict peers)."""
+    replicate to strict peers). `text_frac` is synth_changes' share of
+    text inserts (1.0: the automerge-perf trace's shape)."""
     feeds_root = os.path.join(path, "feeds")
     os.makedirs(feeds_root, exist_ok=True)
 
@@ -155,6 +157,7 @@ def make_corpus(
                 n_ops,
                 n_actors=1,
                 ops_per_change=ops_per_change,
+                text_frac=text_frac,
                 seed=seed + t,
             )
         )

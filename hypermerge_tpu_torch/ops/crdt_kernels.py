@@ -326,7 +326,8 @@ def summarize_wire_plain(
 # cudaGetLastError, and adds one to `launches[name]` per launch.
 
 launches: Dict[str, int] = {
-    "materialize": 0, "summary_wire": 0, "pack_prefix": 0,
+    "materialize": 0, "materialize_live": 0, "summary_wire": 0,
+    "pack_prefix": 0,
     "clock_pair": 0, "clock_union": 0, "clock_scatter": 0, "clock_topk": 0,
     "serve_lookup": 0, "serve_order": 0, "serve_counts": 0,
     "clock_union_min": 0, "ring_gather": 0,
@@ -403,10 +404,12 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def materialize_cuda(
     flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
-    A: int, K: int,
+    A: int, K: int, counter: str = "materialize",
 ) -> MaterializeOut:
     """Kernel 1 (doc_kernel.cu) over narrow wire args on one GPU. `seq`
-    and `value` may be None (lean runs): the kernel reads them as zeros."""
+    and `value` may be None (lean runs): the kernel reads them as zeros.
+    The launch counts under `counter` (the live tick's entry counts its
+    own)."""
     D, N = flags.shape
     P = ptgt.shape[1]
     dev = flags.device
@@ -458,7 +461,7 @@ def materialize_cuda(
             scratch.data_ptr(), keys.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _launched("materialize", rc)
+    _launched(counter, rc)
     return out
 
 
@@ -499,14 +502,15 @@ def summary_wire_cuda(
 
 def materialize_device(
     flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
-    A: int, K: int,
+    A: int, K: int, counter: str = "materialize",
 ) -> MaterializeOut:
     """Batched materialization: all args [D, N] narrow wire dtypes (pred
-    edges [D, P], actor map [D, A]); `seq`/`value` may be None."""
+    edges [D, P], actor map [D, A]); `seq`/`value` may be None. A GPU
+    launch counts under `counter`."""
     if flags.device.type == "cuda":
         return materialize_cuda(
             flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt,
-            doc_actors, A, K,
+            doc_actors, A, K, counter=counter,
         )
     if flags.device.type != "cpu":
         raise ValueError(f"unsupported device {flags.device}")
@@ -550,6 +554,33 @@ def materialize_full_lean_device(
         doc_actors, A=A, K=K,
     )
     return out, summarize_wire(out, flags.shape[1], A, lean=True)
+
+
+LIVE_MIN_ROWS = 64
+LIVE_MIN_DOCS = 1
+
+
+def live_bucket(n: int, floor: int) -> int:
+    """Pow2 bucket with a floor: live tick batches pad their row / doc /
+    actor-slot / key axes to these shapes (the same bucketing discipline
+    as the bulk slab path; the kernel needs a power-of-two row axis)."""
+    return max(floor, round_up_pow2(max(n, 1)))
+
+
+def materialize_live_device(
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt, *, A: int, K: int
+) -> MaterializeOut:
+    """The live tick entry: materialize_device minus the seq lane and
+    the doc-actor map. The live engine holds authoritative clocks
+    host-side (admission mirrors OpSet's causal gating), so the clock
+    lane is never read — seq is absent and the [D, A] clock comes back
+    zeros. `value` still rides along: live batches may carry INC ops.
+    Launches count under `materialize_live`."""
+    da = torch.zeros(flags.shape[0], A, dtype=torch.int32, device=flags.device)
+    return materialize_device(
+        flags, slot, ctr, None, obj, key, ref, value, psrc, ptgt, da,
+        A=A, K=K, counter="materialize_live",
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ the same logical workload.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -228,6 +228,70 @@ def synth_changes(
 
 
 SERVE_SCENARIOS = ("random", "misses", "ties", "extreme_ranks", "all_masked")
+
+
+def synth_live_edits(
+    history: List[Change], n_changes: int, actor: str = "livepeer00",
+    seed: int = 0, rename: Optional[Dict[str, str]] = None,
+) -> List[Change]:
+    """A remote peer's `n_changes` single-op edits extending `history`
+    (the live engine's tick traffic), causal and gap-free: a counter,
+    then a seeded mix of INC ops on it, deletes of the history's text
+    elements, text inserts chained after the last element the history
+    created, and root-key sets that conflict with the writer's (no
+    preds). `rename` maps the history's actor ids to the ones stored
+    (ops/corpus.py writes each doc under its own actor)."""
+    rng = np.random.default_rng(seed)
+    rename = rename or {}
+
+    def opid(c: Change, i: int) -> OpId:
+        o = c.op_id(i)
+        return OpId(o.ctr, rename.get(o.actor, o.actor))
+
+    clock: Dict[str, int] = {}
+    max_op = 0
+    text = None
+    elems: List[OpId] = []
+    for c in history:
+        a = rename.get(c.actor, c.actor)
+        clock[a] = max(clock.get(a, 0), c.seq)
+        max_op = max(max_op, c.max_op)
+        for i, op in enumerate(c.ops):
+            if op.action == Action.MAKE_TEXT and text is None:
+                text = opid(c, i)
+            elif op.insert and text is not None and OpId(
+                op.obj.ctr, rename.get(op.obj.actor, op.obj.actor)
+            ) == text:
+                elems.append(opid(c, i))
+    deps = {a: s for a, s in clock.items() if a != actor}
+    seq0 = clock.get(actor, 0)
+    after = elems[-1] if elems else HEAD
+    live = list(elems)
+    counter = None
+    out: List[Change] = []
+    for j in range(n_changes):
+        ctr = max_op + 1 + j
+        kind = int(rng.integers(4))
+        if counter is None:
+            op = Op(action=Action.SET, obj=ROOT, key="cnt", value=1,
+                    datatype="counter")
+            counter = OpId(ctr, actor)
+        elif kind == 0:
+            op = Op(action=Action.INC, obj=ROOT, key="cnt",
+                    value=int(rng.integers(1, 9)), pred=(counter,))
+        elif kind == 1 and live and text is not None:
+            e = live.pop(int(rng.integers(len(live))))
+            op = Op(action=Action.DEL, obj=text, ref=e, pred=(e,))
+        elif kind == 2 and text is not None:
+            op = Op(action=Action.SET, obj=text, ref=after, insert=True,
+                    value=chr(97 + int(rng.integers(26))))
+            after = OpId(ctr, actor)
+        else:
+            op = Op(action=Action.SET, obj=ROOT,
+                    key=f"k{int(rng.integers(10))}", value=j)
+        out.append(Change(actor=actor, seq=seq0 + 1 + j, start_op=ctr,
+                          deps=dict(deps), ops=(op,)))
+    return out
 
 
 def synth_serve_lanes(

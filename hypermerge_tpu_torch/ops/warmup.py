@@ -13,6 +13,7 @@ template feeds in sidecar caches -> `pack_docs_columns` ->
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import List, Optional
 
@@ -28,10 +29,13 @@ from .synth import synth_changes
 INF = float("inf")
 
 
-def bulk_buckets(n_docs_total: int, slab: int = 4096) -> List[int]:
+def bulk_buckets(n_docs_total: int, slab: Optional[int] = None) -> List[int]:
     """The doc-axis buckets a bulk load of `n_docs_total` docs uses:
-    full slabs of `slab` docs share one bucket, the tail rounds up to
-    its own power of two."""
+    full slabs of `slab` docs (default HM_BULK_SLAB, 4096, as the bulk
+    loader reads it) share one bucket, the tail rounds up to its own
+    power of two."""
+    if slab is None:
+        slab = int(os.environ.get("HM_BULK_SLAB", "4096"))
     buckets = []
     for base in range(0, n_docs_total, slab):
         chunk = min(slab, n_docs_total - base)
@@ -44,7 +48,7 @@ def bulk_buckets(n_docs_total: int, slab: int = 4096) -> List[int]:
 def _warm(
     n_docs_total: int,
     n_ops: int,
-    slab: int,
+    slab: Optional[int],
     ops_per_change: int,
     distinct: int,
     seed: int,
@@ -79,7 +83,7 @@ def _warm(
 def warmup_bulk(
     n_docs_total: int,
     n_ops: int,
-    slab: int = 4096,
+    slab: Optional[int] = None,
     ops_per_change: int = 16,
     distinct: int = 8,
     seed: int = 0,

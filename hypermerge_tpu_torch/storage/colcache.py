@@ -197,6 +197,10 @@ class MemoryColumnStorage:
         self.preds: List[np.ndarray] = []
         self.tables: List[str] = []
         self.commits: List[Tuple[int, int, int, int]] = []
+        # running totals: a commit records the row and pred counts so
+        # far without summing every earlier chunk again
+        self._n_rows = 0
+        self._n_preds = 0
 
     def commit_change(
         self,
@@ -207,12 +211,14 @@ class MemoryColumnStorage:
     ) -> None:
         if len(rows):
             self.rows.append(rows)
+            self._n_rows += len(rows)
         if len(preds):
             self.preds.append(preds)
+            self._n_preds += len(preds)
         self.tables.extend(table_lines)
-        n_rows = sum(len(r) for r in self.rows)
-        n_preds = sum(len(p) for p in self.preds)
-        self.commits.append((n_rows, n_preds, len(self.tables), flag))
+        self.commits.append(
+            (self._n_rows, self._n_preds, len(self.tables), flag)
+        )
 
     def load(self):
         rows = (
@@ -235,6 +241,8 @@ class MemoryColumnStorage:
         self.preds.clear()
         self.tables.clear()
         self.commits.clear()
+        self._n_rows = 0
+        self._n_preds = 0
 
     def destroy(self) -> None:
         self.reset()

@@ -458,3 +458,73 @@ def test_mesh_on_peer_ranks(cards):
     for (_s, _n, host), w in zip(gathered, wires):
         np.testing.assert_array_equal(host, w)
     assert sch.collective_clock_union(2).shape == (2,)
+
+
+LIVE_CASES = {
+    # (docs, ops per doc, synth kwargs): the trace doc's bucket with A and
+    # K at their floors, and the 8-doc group's with A = 8 and K = 64
+    "1x262144": (1, 259_778, dict(n_actors=1, ops_per_change=1,
+                                  text_frac=1.0)),
+    "8x32768": (8, 30_000, dict(n_actors=5, n_keys=40, text_frac=0.5)),
+}
+
+
+@pytest.mark.parametrize("name", list(LIVE_CASES))
+def test_live_kernel_equals_plain(cuda, name):
+    """materialize_live_device on the card equals its plain version on
+    the CPU on the padded tick batch of seeded live columns (a packed
+    history plus a peer's INC ops, deletes, inserts and sets)."""
+    from hypermerge_tpu_torch.backend import live
+
+    D, n_ops, kw = LIVE_CASES[name]
+    lvs = []
+    for d in range(D):
+        hist = synth.synth_changes(n_ops, seed=3 + d, **kw)
+        lv = columnar.LiveColumns.from_batch(columnar.pack_docs([hist]), 0)
+        lv.append_changes(synth.synth_live_edits(hist, 300, seed=d))
+        lvs.append(lv)
+    N = ck.live_bucket(max(lv.n for lv in lvs), ck.LIVE_MIN_ROWS)
+    assert name == f"{D}x{N}"
+    planes, A, K = live.tick_batch(lvs, N)
+    args = [torch.from_numpy(a) for a in planes]
+    before = ck.launches["materialize_live"]
+    got = ck.materialize_live_device(*(a.cuda() for a in args), A=A, K=K)
+    torch.cuda.synchronize()
+    assert ck.launches["materialize_live"] == before + 1
+    want = ck.materialize_live_device(*args, A=A, K=K)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert not got.clock.any()
+
+
+def test_live_tick_launches_on_the_card(cuda, tmp_path, monkeypatch):
+    """A remote tick over the cutover on a bulk-loaded doc launches the
+    live kernel on the backend's card and lands the same state as the
+    numpy twin route."""
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    urls = make_corpus(str(tmp_path), 1, 2048, sign=False)
+    doc_id = validate_doc_url(urls[0])
+    hist = synth.synth_changes(2048, n_actors=1, ops_per_change=16)
+    edits = synth.synth_live_edits(hist, 40, rename={"actor00": doc_id})
+    monkeypatch.setenv("HM_LIVE_INC_BUDGET", "0")
+    values = {}
+    for cells in ("0", str(2**31 - 1)):
+        monkeypatch.setenv("HM_DEVICE_MIN_CELLS", cells)
+        repo = Repo(path=str(tmp_path))
+        try:
+            (h,) = repo.open_many(urls)
+            assert h.value(timeout=60) is not None
+            doc = repo.back.docs[doc_id]
+            before = ck.launches["materialize_live"]
+            doc.apply_remote_changes(edits[:1])
+            doc.apply_remote_changes(edits[1:])
+            assert repo.back.live.flush_now(60)
+            launched = ck.launches["materialize_live"] - before
+            assert (launched > 0) == (cells == "0"), launched
+            values[cells] = (doc.snapshot_patch().to_json(), dict(doc.clock))
+        finally:
+            repo.close()
+    assert values["0"] == values[str(2**31 - 1)]

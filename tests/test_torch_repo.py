@@ -427,7 +427,11 @@ def test_repo_runs_on_the_backends_device(repo):
     assert repo.back.device.type == "cpu"
     assert repo.back.clocks.device.type == "cpu"
     assert repo.back.clocks.mirror.device.type == "cpu"
-    assert repo.back.live is None
+    # the live engine (on by default) dispatches on the backend's device
+    from hypermerge_tpu_torch.backend.live import LiveApplyEngine
+
+    assert isinstance(repo.back.live, LiveApplyEngine)
+    assert repo.back.live._back.device.type == "cpu"
     json.dumps(repo.back.telemetry_payload(), default=str)
 
 

@@ -202,9 +202,10 @@ def test_port_imports_no_jax_and_requires_a_device():
     the port imports, no hypermerge_tpu module is loaded, and an entry
     called without `device=` raises when CUDA is absent: `run_batch`,
     `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
-    `pack_clocks`, `ClockStore`, `Repo` (whose `repo` and `serve`
-    modules import without jax too, and read on the CPU) and `make_mesh`
-    (parallel/, which reduces over CPU ranks)."""
+    `pack_clocks`, `ClockStore`, `Repo` (whose `repo`, `serve` and
+    `backend.live` modules import without jax too; it reads on the CPU,
+    with its live engine on) and `make_mesh` (parallel/, which reduces
+    over CPU ranks)."""
     code = textwrap.dedent(
         """
         import sys
@@ -304,6 +305,8 @@ def test_port_imports_no_jax_and_requires_a_device():
         r = Repo(memory=True, device="cpu")
         try:
             assert isinstance(r.back.serve, ServeTier)
+            from hypermerge_tpu_torch.backend.live import LiveApplyEngine
+            assert isinstance(r.back.live, LiveApplyEngine)
             url = r.create({"a": 1})
             assert r.read(url, {"kind": "lookup", "path": ["a"]}) == 1
         finally:
@@ -393,6 +396,24 @@ def test_sidecar_slice_end_to_end(tmp_path, monkeypatch, corpus):
         # the port's own first-slice path over the same history agrees
         one = port_mat.materialize_batch([_to_port(hists[h])], device="cpu")
         assert patch == port_mat.decode_patch(one, 0).to_json()
+
+
+@pytest.mark.parametrize("n_docs", [2048, 10240])
+@pytest.mark.parametrize("slab", [None, "512", "4096"])
+def test_bulk_buckets_read_hm_bulk_slab(monkeypatch, slab, n_docs):
+    """`bulk_buckets(n)` and so `warmup_bulk` warm the buckets the bulk
+    loader launches: both read HM_BULK_SLAB, as the reference does."""
+    from hypermerge_tpu.ops import warmup as ref_warmup
+    from hypermerge_tpu_torch.ops import warmup
+
+    if slab is None:
+        monkeypatch.delenv("HM_BULK_SLAB", raising=False)
+    else:
+        monkeypatch.setenv("HM_BULK_SLAB", slab)
+    got = warmup.bulk_buckets(n_docs)
+    assert got == ref_warmup.bulk_buckets(n_docs)
+    if slab == "512":
+        assert got == [512]
 
 
 def test_warmup_drives_the_slab_path(monkeypatch):
