@@ -21,13 +21,18 @@ prints a result):
      and A = 1024, full and broadcast rows), the scatter-max with 1,000
      and 65,536 triples piled on one cell, the column max (also at
      [5, 3] and on negative clocks), top-k with mass ties and INT32_INF
-     rows at k = 1, 64 and D; the three read-serving kernels at
-     B in {1, 8, 64} x N in {64, 1024, 65536}, each shape with every
-     synthetic scenario (ops/synth.py synth_serve_lanes: misses,
+     rows at k = 1, 64 and D, ties on both sides of every tile boundary,
+     k = tile + 1 and 131,072 - 77 rows, on both of its routes (the
+     tiled select and the large-k sort across blocks); the three
+     read-serving kernels at B in {1, 8, 64} x N in {64, 1024, 65536},
+     each shape with every synthetic scenario (ops/synth.py synth_serve_lanes: misses,
      all-matching rows, mass rank ties, ranks at the int32 ends) and a
      pad batch slot; the ring all-gather on virtual ranks of this card at
      n in {2, 3, 4, 8} ranks x rows in {1, 7, 1024, 4096} x W in {1, 3,
-     708, 1540, 4096} bytes, against ring_gather_plain; the min mode of
+     708, 1540, 4096} bytes on the push route, and at rows in {1, 1024} x
+     W in {3, 1540} also through the flagged launch (the peer route's
+     arrival protocol on one card), against ring_gather_plain; the min
+     mode of
      the column reduce at [5, 3] and [8, 131072], and on negative values;
      the live tick's entry `materialize_live_device` against its plain
      version on the CPU, on the padded tick batches of seeded live
@@ -107,9 +112,12 @@ prints a result):
      the same function, that call (torch.argsort for the sort in the
      summary wire; torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
-     reads; torch.sort for serve_order; one Tensor.copy_ per block and
-     rank for the ring gather, timed at the summary gather's shape of
-     phase 3e and at n = 4, 4096 x 1540); time the pack's host stages,
+     reads, top-k's two kernels apart; torch.sort for serve_order;
+     torch.cat for the ring gather, whose kernel alone is read with cold
+     inputs and outputs and must not be under its bound, with the
+     flagged launch over the same ranks, timed at the summary gather's
+     shape of phase 3e and at n = 4, 4096 x 1540); time the pack's host
+     stages,
      config 5's hot query (1,000 writes + union(), host buffering
      included), and print the read mix's QPS, its p50 and p99 from the
      raw per-read latencies (and the `serve.read_s` histogram's bucket
@@ -141,6 +149,10 @@ import tempfile
 import time
 
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+L2_BYTES = 50 * 2**20  # H100 SXM L2
+# the card's spin per queued call in cold_kernel_ms, longer than a
+# wrapper's host work (0.2 ms at ~2 GHz), so the calls run back to back
+COLD_SLACK_CYCLES = 400_000
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way (900 GB/s both)
 SCALAR_OPS_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores; the
 # published table has no int32 rate, and these kernels do int32 work
@@ -165,6 +177,13 @@ BULK = ("pack_prefix", "materialize", "summary_wire")
 RING_N = (2, 3, 4, 8)
 RING_ROWS = (1, 7, 1024, 4096)
 RING_W = (1, 3, 708, 1540, 4096)
+# runs of the CUDA-event medians of calls whose time is mostly the host's
+# (top-k and the ring gather, their plain and library yardsticks): the
+# host clock spreads more than the card's
+HOST_BOUND_RUNS = 25
+# the subset that also runs the flagged launch over virtual ranks
+RING_PROTOCOL_ROWS = (1, 1024)
+RING_PROTOCOL_W = (3, 1540)
 MESH_RANKS = 4
 MESH_SLAB = 512
 MESH = ("ring_gather", "clock_union_min")
@@ -315,6 +334,23 @@ def median_ms(fn, runs=7, warmup=2) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_call_ms(fn, runs=50, warmup=5) -> float:
+    """Median host time of one call of fn, without waiting for the card:
+    a wrapper's checks, allocations and launches."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -739,13 +775,27 @@ def compare_clock_kernels(ckk):
     ties[::97] = 2**31 - 1  # INT32_INF rows: must rank first, not wrap
     q_all = torch.full((64,), 2**31 - 1, dtype=torch.int32, device="cuda")
     q = torch.full((64,), 990, dtype=torch.int32, device="cuda")
-    for x, qq in ((ties, q_all), (ties, q), (m, q)):
-        for k in (1, 64, D):
-            e = hold(f"clock_topk k={k}", ckk.top_k_dominated_cuda(x, qq, k),
+    T = ckk.TOPK_TILE
+    straddle = m % 2  # equal rows on both sides of every tile boundary
+    for b in range(T, D, T):
+        straddle[b - 7 : b + 7] = 3
+    ragged = ties[: D - 77]  # a row count that is not a multiple of the tile
+    routes = set()
+    for x, qq, ks in ((ties, q_all, (1, 64, D)), (ties, q, (1, 64, D)),
+                      (m, q, (1, 64, D)), (straddle, q_all, (64, T + 1)),
+                      (ragged, q_all, (1, 64, T + 1, D - 77))):
+        for k in ks:
+            route = ckk.topk_plan(x.shape[0], k)[0]
+            routes.add(route)
+            e = hold(f"clock_topk {route} [{x.shape[0]}, 64] k={k}",
+                     ckk.top_k_dominated_cuda(x, qq, k),
                      ckk.top_k_dominated_plain(x, qq, k))
             errs["clock_topk"] = max(errs["clock_topk"], e)
-    log(f"phase 2 clock kernels at [{D}, 64] (pairwise also at A=3, 1024): "
-        f"kernels == plain (exact)")
+    if routes != {"select", "sort"}:
+        raise AssertionError(f"clock_topk phase 2 ran routes {routes}")
+    log(f"phase 2 clock kernels at [{D}, 64] (pairwise also at A=3, 1024; "
+        f"top-k on both routes, ties across tiles, k = {T + 1}, "
+        f"{D - 77} rows): kernels == plain (exact)")
     return errs
 
 
@@ -927,9 +977,12 @@ def time_clock_kernels(ckk, PM, mirror, actors):
     s, i = ckk.top_k_dominated_cuda(m, q, k)
     score = ckk.top_k_scores_plain(m, q)
     res["clock_topk"] = dict(
-        ms=median_ms(lambda: ckk.top_k_dominated_cuda(m, q, k)),
-        plain_ms=median_ms(lambda: ckk.top_k_dominated_plain(m, q, k)),
-        library_ms=median_ms(lambda: torch.topk(score, k)),
+        route=ckk.topk_plan(D, k)[0],
+        ms=median_ms(lambda: ckk.top_k_dominated_cuda(m, q, k), HOST_BOUND_RUNS),
+        host_ms=host_call_ms(lambda: ckk.top_k_dominated_cuda(m, q, k)),
+        plain_ms=median_ms(lambda: ckk.top_k_dominated_plain(m, q, k),
+                           HOST_BOUND_RUNS),
+        library_ms=median_ms(lambda: torch.topk(score, k), HOST_BOUND_RUNS),
         # the matrix and query read once, k pairs written; per element a
         # compare, a min and an add, then the selection over D scores
         bytes=nbytes(m, q, s, i), ops=3 * D * A + D * int(math.log2(D)),
@@ -944,11 +997,13 @@ def time_clock_kernels(ckk, PM, mirror, actors):
                                                         t[2]),
                           ("scatter_max_kernel",)),
         "clock_topk": (lambda: ckk.top_k_dominated_cuda(m, q, k),
-                       ("score_kernel", "select_kernel")),
+                       ("tile_kernel", "merge_kernel")),
     }
     for name, (fn, names) in alone.items():
         parts = [kernel_device_ms(fn, kn) for kn in names]
         res[name]["kernel_ms"] = None if None in parts else sum(parts)
+        if name == "clock_topk":
+            res[name]["tile_ms"], res[name]["merge_ms"] = parts
     for r in res.values():
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -1374,24 +1429,33 @@ def compare_mesh_kernels(ringmod, meshmod, ckk):
     g = torch.Generator(device="cuda").manual_seed(5)
     for n in RING_N:
         mesh = meshmod.make_mesh(n, devices=virtual_ranks(n))
+        protocol = ringmod.Ring(mesh.devices, "protocol")
         for rows in RING_ROWS:
             for W in RING_W:
                 blocks = [torch.randint(0, 256, (rows, W), generator=g,
                                         dtype=torch.uint8, device="cuda")
                           for _ in range(n)]
-                got = ringmod.ring_gather_cuda(blocks, mesh.ring())
                 want = ringmod.ring_gather_plain(blocks, mesh.devices)
-                e = hold(f"ring_gather n={n} [{rows}, {W}]", tuple(got),
-                         tuple(want))
-                errs["ring_gather"] = max(errs["ring_gather"], e)
+                rings = [mesh.ring()]
+                if rows in RING_PROTOCOL_ROWS and W in RING_PROTOCOL_W:
+                    rings.append(protocol)
+                for ring in rings:
+                    got = ringmod.ring_gather_cuda(blocks, ring)
+                    e = hold(f"ring_gather {ring.mode} n={n} [{rows}, {W}]",
+                             tuple(got), tuple(want))
+                    errs["ring_gather"] = max(errs["ring_gather"], e)
+        if mesh.ring()._table is not None or protocol.epoch == 0:
+            raise AssertionError("ring_gather: the virtual route made flags, "
+                                 "or the flagged launch never ran")
     small, big = clock_matrix(5, 5, 3), clock_matrix(8, 8, 131072)
     for x in (small, big, -1 - small.abs(), -1 - big.abs()):
         e = hold(f"clock_union min {tuple(x.shape)}", ckk.min_reduce_cuda(x),
                  ckk.min_reduce_plain(x))
         errs["clock_union_min"] = max(errs["clock_union_min"], e)
     log(f"phase 2 ring_gather at n in {RING_N} x rows in {RING_ROWS} x W in "
-        f"{RING_W} (virtual ranks), clock_union min at [5, 3] and "
-        f"[8, 131072] (and negative): kernels == plain (exact)")
+        f"{RING_W} (virtual ranks, push route; the flagged launch at rows in "
+        f"{RING_PROTOCOL_ROWS} x W in {RING_PROTOCOL_W}), clock_union min at "
+        f"[5, 3] and [8, 131072] (and negative): kernels == plain (exact)")
     return errs
 
 
@@ -1578,12 +1642,51 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
     return counts, gather_shape, walls
 
 
+def cold_kernel_ms(make_call, footprint: int) -> float:
+    """Device time per call in a stream of calls on memory of their own:
+    make_call(i) gives the i-th of k calls on buffers of their own, k x
+    `footprint` (the bytes one call reads and writes) at least 4 x the L2,
+    and every call's result is kept until k calls later. The calls queue
+    behind a spin of the card, then run back to back between two CUDA
+    events (the gaps between launches count), so each reads its inputs
+    from HBM and its writes evict the dirty lines of the calls before it.
+    The stream moves at least 40 x the L2, so what the L2 holds at its
+    ends is under 5% of it: a bytes bound at MEM_BYTES_PER_S holds for
+    this time. Median of 3 streams after one to warm the allocator."""
+    import collections
+    import itertools
+
+    import torch
+
+    k = max(2, math.ceil(4 * L2_BYTES / footprint))
+    runs = max(2 * k, math.ceil(40 * L2_BYTES / footprint))
+    calls = itertools.cycle([make_call(i) for i in range(k)])
+    held = collections.deque(maxlen=k)
+
+    def stream():
+        torch.cuda._sleep(runs * COLD_SLACK_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(runs):
+            held.append(next(calls)())
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / runs
+
+    stream()
+    return statistics.median(stream() for _ in range(3))
+
+
 def time_mesh_kernels(ringmod, meshmod, ckk, gather_shape):
     """Phase 4 for the multi-device slice: ring_gather at the summary
     gather's real shape and at n = 4, 4096 x 1540 on virtual ranks (the
-    wrapper, the kernel alone, the plain version, one Tensor.copy_ per
-    block and rank as the library yardstick), and the min mode at the
-    config-5 pmin's fold ([2, 50000] on the (2, 2) mesh)."""
+    wrapper, its host work, the kernel alone with cold inputs and outputs
+    against the bound, and with its inputs in L2, the plain version, one
+    torch.cat as the library call, the flagged launch over the same
+    ranks), and the min mode at the config-5 pmin's fold ([2, 50000] on
+    the (2, 2) mesh). Fails if the kernel alone, cold, is under its
+    bound: then the bound does not hold."""
     import torch
 
     res = {}
@@ -1592,36 +1695,50 @@ def time_mesh_kernels(ringmod, meshmod, ckk, gather_shape):
         mesh = meshmod.make_mesh(n, devices=virtual_ranks(n))
         ring = mesh.ring()
         g = torch.Generator(device="cuda").manual_seed(n + rows)
-        blocks = [torch.randint(0, 256, (rows, W), generator=g,
-                                dtype=torch.uint8, device="cuda")
-                  for _ in range(n)]
-        outs = [torch.empty(n * rows, W, dtype=torch.uint8, device="cuda")
-                for _ in range(n)]
 
-        def copies():
-            for o in outs:
-                for b, blk in enumerate(blocks):
-                    o[b * rows : (b + 1) * rows].copy_(blk)
+        def make_blocks():
+            return [torch.randint(0, 256, (rows, W), generator=g,
+                                  dtype=torch.uint8, device="cuda")
+                    for _ in range(n)]
 
+        def cold_call(_i):
+            bl = make_blocks()
+            return lambda: ringmod.ring_gather_cuda(bl, ring)
+
+        blocks = make_blocks()
         B = rows * W
+        protocol = ringmod.Ring(mesh.devices, "protocol")
         r = dict(
-            n=n, rows=rows, W=W,
-            ms=median_ms(lambda: ringmod.ring_gather_cuda(blocks, ring)),
-            kernel_ms=kernel_device_ms(
-                lambda: ringmod.ring_gather_cuda(blocks, ring),
-                "ring_gather_kernel"),
+            n=n, rows=rows, W=W, route=ring.mode,
+            ms=median_ms(lambda: ringmod.ring_gather_cuda(blocks, ring),
+                         HOST_BOUND_RUNS),
+            host_ms=host_call_ms(lambda: ringmod.ring_gather_cuda(blocks, ring)),
+            # n input blocks read once, one concatenation written once
+            bytes=2 * n * B, ops=0,
+            kernel_l2_ms=kernel_device_ms(
+                lambda: ringmod.ring_gather_cuda(blocks, ring), "push_kernel"),
             plain_ms=median_ms(
-                lambda: ringmod.ring_gather_plain(blocks, mesh.devices)),
-            library_ms=median_ms(copies),
-            # each input block read once, each of the n x n output blocks
-            # written once (virtual ranks: all in this card's memory)
-            bytes=(n + n * n) * B, ops=0,
+                lambda: ringmod.ring_gather_plain(blocks, mesh.devices),
+                HOST_BOUND_RUNS),
+            # the flagged launch over the same virtual ranks (the peer
+            # route's protocol on one card: n outputs), for comparison
+            protocol_ms=median_ms(
+                lambda: ringmod.ring_gather_cuda(blocks, protocol)),
+            protocol_kernel_ms=kernel_device_ms(
+                lambda: ringmod.ring_gather_cuda(blocks, protocol),
+                "flagged_kernel"),
+            library_ms=median_ms(lambda: torch.cat(blocks), HOST_BOUND_RUNS),
         )
-        t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
-        r["bound_ms"] = t_bytes
+        r["kernel_ms"] = cold_kernel_ms(cold_call, r["bytes"])
+        r["bound_ms"] = r["bytes"] / MEM_BYTES_PER_S * 1e3
         r["bound_by"] = "bytes"
+        r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
         log(f"timing ring_gather {label} [n={n}, {rows}, {W}]: " + " ".join(
             f"{k}={v!r}" for k, v in r.items()))
+        if r["kernel_ms"] < r["bound_ms"]:
+            raise AssertionError(
+                f"ring_gather {label}: the kernel alone ({r['kernel_ms']} ms, "
+                f"cold) is under its bound ({r['bound_ms']} ms)")
         res[label] = r
     m = clock_matrix(9, 2, CONFIG5["n_docs"] // 2, hi=2, inf_frac=0)
     out = ckk.min_reduce_cuda(m)
@@ -1694,7 +1811,7 @@ def time_peer_ring(ringmod, meshmod, cards):
             # the profiler's sum over the n cards' launches, per card
             kernel_ms_per_card=kernel_device_ms(
                 lambda: ringmod.ring_gather_cuda(blocks, mesh.ring()),
-                "ring_gather_kernel"),
+                "flagged_kernel"),
             plain_ms=host_ms(
                 lambda: ringmod.ring_gather_plain(blocks, mesh.devices)),
             library_ms=host_ms(copies),

@@ -5,7 +5,8 @@ Each source `csrc/<stem>.cu` compiles on its own with nvcc into
 (no PyTorch headers, so a build takes seconds). The hash covers the
 source, the headers and the flags, so an edited kernel rebuilds and an
 unchanged one is reused. `build` starts one nvcc per source, all at
-once, and waits for all of them.
+once, and waits for all of them. A build with preprocessor `defines`
+(a test build of a source) is a library of its own beside the plain one.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -31,9 +32,9 @@ NVCC_FLAGS = [
 ]
 
 # ptxas output (registers, shared memory, spills) of each build this
-# process ran, by stem
+# process ran, by stem (and " -D<define>" for each define)
 build_log: Dict[str, str] = {}
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -47,25 +48,30 @@ def nvcc_path() -> str:
     return found
 
 
-def target(stem: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: Iterable[str]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def target(stem: str, defines: Tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{stem}.cu"]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"{stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(stems: Iterable[str] = STEMS) -> Dict[str, Path]:
+def build(stems: Iterable[str] = STEMS,
+          defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
     """Build every stem that is not built yet, all nvcc runs in parallel;
     raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {stem: target(stem) for stem in stems}
+    out = {stem: target(stem, defines) for stem in stems}
     nvcc = nvcc_path()
     running: List[tuple] = []
     for stem, path in out.items():
         if path.exists():
             continue
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -74,7 +80,7 @@ def build(stems: Iterable[str] = STEMS) -> Dict[str, Path]:
     failed = []
     for stem, path, tmp, proc in running:
         log, _ = proc.communicate()
-        build_log[stem] = log
+        build_log[stem + "".join(f" -D{d}" for d in defines)] = log
         if proc.returncode != 0:
             failed.append(f"{stem} (nvcc exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -85,10 +91,10 @@ def build(stems: Iterable[str] = STEMS) -> Dict[str, Path]:
     return out
 
 
-def load(stem: str) -> ctypes.CDLL:
+def load(stem: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of one kernel source, built if needed."""
-    lib = _libs.get(stem)
+    lib = _libs.get((stem, defines))
     if lib is None:
-        lib = ctypes.CDLL(str(build([stem])[stem]))
-        _libs[stem] = lib
+        lib = ctypes.CDLL(str(build([stem], defines)[stem]))
+        _libs[stem, defines] = lib
     return lib

@@ -35,3 +35,118 @@ __device__ void block_bitonic_sort(Key* key, int* val, int n) {
     }
   }
 }
+
+// Sorts of single 64-bit keys on the bitonic network over global positions.
+//
+// Stage (k, j) of the network compare-exchanges positions i and i | j
+// (bit j of i clear), ascending where (i & k) == 0. A kernel that holds n
+// keys (n a power of two) of global positions base .. base + n - 1 in
+// shared memory runs every stage with j < n there (shared_bitonic); a
+// stage with j >= n spans blocks and runs as one launch over the grid
+// (global_bitonic_pair). With base = 0 and stages k = 2 .. n,
+// shared_bitonic is a block-wide ascending sort. The stages with j < 32
+// pair keys of one warp: they run on registers with __shfl_xor_sync, all
+// of one k between two barriers, so a sort of 1,024 keys takes 25
+// barriers where one per stage took 55. The block's threads must be a
+// multiple of 32. Callers pack a unique tie-break (a row index) into each
+// key's low bits, so that the order is total and the result unique.
+
+template <class Key>
+__device__ __forceinline__ void compare_exchange(Key* s, long long i,
+                                                 long long l, bool ascending) {
+  const Key a = s[i], b = s[l];
+  if ((a > b) == ascending) {
+    s[i] = b;
+    s[l] = a;
+  }
+}
+
+// the stages j = j_first, ..., 1 (j_first < 32) on the key this lane
+// holds at position e of a run sorted ascending or not; every lane of the
+// warp takes part
+template <class Key>
+__device__ __forceinline__ Key warp_bitonic(Key key, long long e, bool ascending,
+                                            int j_first) {
+  for (int j = j_first; j > 0; j >>= 1) {
+    const Key other = __shfl_xor_sync(0xffffffffu, key, j);
+    const bool take_min = ((e & j) == 0) == ascending;
+    key = take_min ? (other < key ? other : key) : (other > key ? other : key);
+  }
+  return key;
+}
+
+// the stages k = k_first, 2 k_first, ..., k_last (powers of two) with
+// j < n over the n keys in s; each k ends in a __syncthreads(), so every
+// thread of the block must call this
+template <class Key>
+__device__ void shared_bitonic(Key* s, int n, long long base, long long k_first,
+                               long long k_last) {
+  for (long long k = k_first; k <= k_last; k <<= 1) {
+    int j = static_cast<int>((k < n ? k : n) >> 1);
+    for (; j >= 32; j >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        compare_exchange(s, i, i + j, ((base + i) & k) == 0);
+      }
+      __syncthreads();
+    }
+    if (j == 0) continue;
+    for (int e0 = 0; e0 < n; e0 += blockDim.x) {  // whole warps
+      const int e = e0 + static_cast<int>(threadIdx.x);
+      const Key key = e < n ? s[e] : Key(0);
+      const Key out = warp_bitonic(key, base + e, ((base + e) & k) == 0, j);
+      if (e < n) s[e] = out;
+    }
+    __syncthreads();
+  }
+}
+
+// pair t of stage (k, j) over the keys in global memory
+template <class Key>
+__device__ __forceinline__ void global_bitonic_pair(Key* key, long long t,
+                                                    long long k, long long j) {
+  const long long i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+  compare_exchange(key, i, i + j, (i & k) == 0);
+}
+
+// The n keys of s (n a power of two) hold runs of `run` keys (a power of
+// two), each sorted, ascending and descending in turn. Leaves the n / run
+// runs' `run` smallest keys sorted ascending in s[0, run): at each level
+// the elementwise min of a pair of runs (one ascending, one descending)
+// holds the pair's `run` smallest keys as a bitonic sequence, written
+// over the first run of the pair; log2(run) stages sort it, ascending or
+// descending by its place in the next level's pairs (those with j < 32 on
+// registers, as in shared_bitonic). Every thread of the block must call
+// this, and the block's threads must be a multiple of 32.
+template <class Key>
+__device__ void bitonic_topk(Key* s, int n, int run) {
+  for (int stride = run; stride < n; stride <<= 1) {
+    // the pairs (q, q + stride) for q a multiple of 2 stride
+    const int pairs = n / (2 * stride);
+    for (int t = threadIdx.x; t < pairs * run; t += blockDim.x) {
+      const int q = (t / run) * 2 * stride + t % run;
+      if (s[q + stride] < s[q]) s[q] = s[q + stride];
+    }
+    __syncthreads();
+    int j = run >> 1;
+    for (; j >= 32; j >>= 1) {
+      for (int t = threadIdx.x; t < pairs * (run >> 1); t += blockDim.x) {
+        const int p = t / (run >> 1), u = t % (run >> 1);
+        const int i = ((u & ~(j - 1)) << 1) | (u & (j - 1));
+        compare_exchange(s, p * 2 * stride + i, p * 2 * stride + i + j,
+                         (p & 1) == 0);
+      }
+      __syncthreads();
+    }
+    if (j == 0) continue;
+    for (int t0 = 0; t0 < pairs * run; t0 += blockDim.x) {  // whole warps
+      const int t = t0 + static_cast<int>(threadIdx.x);
+      const int p = t / run, i = t % run;
+      const bool valid = t < pairs * run;
+      const Key key = valid ? s[p * 2 * stride + i] : Key(0);
+      const Key out = warp_bitonic(key, i, (p & 1) == 0, j);
+      if (valid) s[p * 2 * stride + i] = out;
+    }
+    __syncthreads();
+  }
+}

@@ -15,7 +15,9 @@ here. Four CUDA kernels carry the programs:
   partials that parallel/ring.py gathered);
 - `kernels/csrc/clock_scatter.cu`: `scatter_max_`, the mirror's batched
   writes (the reference's `m.at[r, c].max(v)`);
-- `kernels/csrc/clock_topk.cu`: `top_k_dominated`.
+- `kernels/csrc/clock_topk.cu`: `top_k_dominated`, a score and select
+  per tile of rows in shared memory, then one merge of the tiles' top k
+  (`topk_plan` names the route; a large k sorts every key across blocks).
 
 Each entry takes tensors and routes on where they lie: CUDA tensors go to
 the kernel (wrapper `*_cuda`, one count in `crdt_kernels.launches` per
@@ -35,7 +37,8 @@ import torch
 
 from ..device import DeviceLike, resolve
 from .columnar import round_up_pow2
-from .crdt_kernels import _check, _launched, kernel_fn
+from .crdt_kernels import (_check, _launched, kernel_fn, launch_scope,
+                           launch_stream)
 
 INT32_INF = 2**31 - 1
 
@@ -45,6 +48,14 @@ EQ, GT, LT, CONCUR = 0, 1, 2, 3
 # top_k_dominated caps each entry so that the int32 row sum cannot wrap,
 # even over INT32_INF sentinels (up to 2^10 actors)
 TOPK_CAP = 1 << 20
+# clock_topk.cu's launch shape: tiles of TOPK_TILE rows (one block each),
+# TOPK_THREADS threads a block, and at most TOPK_MERGE_MAX candidates
+# merged in one block's shared memory (128 KB, kMaxMerge); above that, or
+# with k above a tile, the large-k route sorts every key across blocks
+TOPK_TILE = 1024
+TOPK_THREADS = 512
+TOPK_MERGE_MAX = 16384
+_TOPK_ROUTE = {"select": 0, "sort": 1}  # clock_topk.cu's route codes
 
 # op codes of clock_pair.cu
 _GTE, _CMP, _UNION, _INTERSECTION, _CURSOR_WINDOW = range(5)
@@ -143,10 +154,6 @@ _PLAIN_PAIR = {
 # CUDA kernel wrappers (launch counts in crdt_kernels.launches)
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _operand(t: torch.Tensor, lead: Tuple[int, ...], A: int):
     """(contiguous tensor, row stride) of one clock_pair operand: the full
     [*lead, A] matrix with stride A, or one [A] row with stride 0."""
@@ -183,7 +190,7 @@ def pair_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = kernel_fn("clock_pair")
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), a_stride, b_stride, R, A, op,
-                out.data_ptr(), _stream(dev))
+                out.data_ptr(), launch_stream(dev))
     _launched("clock_pair", rc)
     return out
 
@@ -199,7 +206,7 @@ def _column_reduce_cuda(clocks: torch.Tensor, op: int, name: str) -> torch.Tenso
         return out
     fn = kernel_fn("clock_union")
     with torch.cuda.device(dev):
-        rc = fn(clocks.data_ptr(), D, A, op, out.data_ptr(), _stream(dev))
+        rc = fn(clocks.data_ptr(), D, A, op, out.data_ptr(), launch_stream(dev))
     _launched(name, rc)
     return out
 
@@ -234,15 +241,30 @@ def scatter_max_cuda_(
     fn = kernel_fn("clock_scatter")
     with torch.cuda.device(dev):
         rc = fn(m.data_ptr(), cap_d, cap_a, rows.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), n, _stream(dev))
+                vals.data_ptr(), n, launch_stream(dev))
     _launched("clock_scatter", rc)
     return m
+
+
+def topk_plan(D: int, k: int, tile: int = TOPK_TILE,
+              merge_max: int = TOPK_MERGE_MAX) -> Tuple[str, int]:
+    """(route, scratch keys) of clock_topk.cu over D rows: "select" with
+    the tiles' tiles x k_pad candidates (k_pad: k rounded up to a power of
+    two) when k_pad is at most a tile and the candidates fit one block's
+    merge, else "sort", the large-k route, with P keys (the tiles' rows
+    rounded up to a power of two; at least two tiles)."""
+    tiles = -(-D // tile)
+    k_pad = round_up_pow2(max(k, 1))
+    if k_pad <= tile and round_up_pow2(tiles * k_pad) <= merge_max:
+        return "select", tiles * k_pad
+    return "sort", round_up_pow2(tiles * tile)
 
 
 def top_k_dominated_cuda(
     clocks: torch.Tensor, query: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """clock_topk.cu: (scores [k], indices [k]) int32 on one GPU."""
+    """clock_topk.cu: (scores [k], indices [k]) int32 on one GPU. Scratch
+    is only the route's int64 keys (`topk_plan`)."""
     if clocks.ndim != 2 or clocks.shape[0] < 1:
         raise ValueError(f"top_k_dominated over a {tuple(clocks.shape)} matrix")
     D, A = clocks.shape
@@ -253,16 +275,14 @@ def top_k_dominated_cuda(
     dev = clocks.device
     if query.device != dev:
         raise ValueError(f"query on {query.device}, clocks on {dev}")
-    P = round_up_pow2(D)
-    key = torch.empty(P, dtype=torch.int64, device=dev)
-    val = torch.empty(P, dtype=torch.int32, device=dev)
-    scores = torch.empty(k, dtype=torch.int32, device=dev)
-    idx = torch.empty(k, dtype=torch.int32, device=dev)
+    route, n_keys = topk_plan(D, k)
+    keys = torch.empty(n_keys, dtype=torch.int64, device=dev)
+    scores, idx = torch.empty(2, k, dtype=torch.int32, device=dev)
     fn = kernel_fn("clock_topk")
-    with torch.cuda.device(dev):
-        rc = fn(clocks.data_ptr(), D, A, query.data_ptr(), k, P,
-                key.data_ptr(), val.data_ptr(), scores.data_ptr(),
-                idx.data_ptr(), _stream(dev))
+    with launch_scope(dev):
+        rc = fn(clocks.data_ptr(), D, A, query.data_ptr(), k, TOPK_TILE,
+                TOPK_THREADS, _TOPK_ROUTE[route], keys.data_ptr(), n_keys,
+                scores.data_ptr(), idx.data_ptr(), launch_stream(dev))
     _launched("clock_topk", rc)
     return scores, idx
 

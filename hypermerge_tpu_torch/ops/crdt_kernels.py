@@ -34,6 +34,7 @@ held equal to it in tests/test_torch_kernels.py.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Dict, NamedTuple, Optional
@@ -348,7 +349,8 @@ _SIGNATURES = {
         "hm_clock_scatter", [_P] + [_I] * 2 + [_P] * 3 + [_I, _P]
     ),
     "clock_topk": (
-        "hm_clock_topk", [_P] + [_I] * 2 + [_P] + [_I] * 2 + [_P] * 5
+        "hm_clock_topk",
+        [_P] + [_I] * 2 + [_P] + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
     ),
     # wrappers in serve/kernels.py
     "serve_lookup": ("hm_serve_lookup", [_P] + [_I] * 2 + [_P] * 2),
@@ -357,8 +359,8 @@ _SIGNATURES = {
     # wrapper in parallel/ring.py
     "ring_gather": (
         "hm_ring_gather",
-        [_P] * 3 + [_I] * 3 + [ctypes.c_longlong] + [_I] * 2
-        + [ctypes.c_longlong, _P],
+        [_P] * 3 + [_I] * 3 + [ctypes.c_longlong, _I, ctypes.c_longlong]
+        + [_I] * 4 + [_P],
     ),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -396,6 +398,21 @@ def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     launches[name] += 1
+
+
+def launch_stream(dev: torch.device) -> int:
+    """The current stream of CUDA device `dev` as a raw handle, read
+    without building a torch Stream object (which costs a few
+    microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def launch_scope(dev: torch.device):
+    """Make CUDA device `dev` current for a launch: torch.cuda.device(dev),
+    or nothing when it already is."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _ptr(t: Optional[torch.Tensor]):

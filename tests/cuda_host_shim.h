@@ -2,11 +2,14 @@
 //
 // tests/test_torch_kernel_sources.py compiles the port's .cu files with
 // g++ against this header. Every CUDA thread of a block is a std::thread;
-// __syncthreads() is a std::barrier over the block, a warp ballot is a
-// std::barrier over its 32 threads; atomics are GCC builtins. A <<<>>>
-// launch runs its blocks one after another; a cooperative launch
+// __syncthreads() is a std::barrier over the block, a warp ballot or
+// shuffle is a std::barrier over its 32 threads; atomics are GCC builtins.
+// A <<<>>> launch runs its blocks one after another, each with the dynamic
+// shared memory the launch asks for; a cooperative launch
 // (cudaLaunchCooperativeKernel) runs every thread of every block at once,
-// as the ring gather's blocks wait on each other. What this checks is the
+// as the ring gather's blocks wait on each other. Launches from several
+// host threads at once (one per card, as peer ranks run) keep their own
+// grid and block shapes. What this checks is the
 // kernel's logic (phases, barriers, indexing, sort keys, flag protocols),
 // not its speed or the GPU compiler's view of it.
 #pragma once
@@ -15,6 +18,7 @@
 #include <chrono>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -31,8 +35,13 @@ typedef void* cudaStream_t;
 typedef int cudaError_t;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaErrorPeerAccessAlreadyEnabled = 704;
+constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
 inline int cudaGetLastError() { return 0; }
 inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
+template <class F>
+inline int cudaFuncSetAttribute(F, int, int) {
+  return 0;
+}
 
 struct shim_dim3 {
   unsigned x = 0, y = 0, z = 0;
@@ -44,15 +53,21 @@ struct dim3 {
 struct uint4 {
   unsigned x, y, z, w;
 };
-inline thread_local shim_dim3 threadIdx, blockIdx;
-inline shim_dim3 blockDim, gridDim;
+struct int4 {
+  int x, y, z, w;
+};
+inline thread_local shim_dim3 threadIdx, blockIdx, blockDim, gridDim;
 
-// one block's barriers and ballot words
+// one block's barriers, ballot words, shuffle slots and dynamic shared
+// memory
 struct shim_block {
   std::barrier<> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warps;
+  std::vector<unsigned long long> shuffles;  // 32 slots per warp
+  std::vector<unsigned long long> dynamic;
   unsigned ballots[32] = {};
-  explicit shim_block(int threads) : bar(threads) {
+  shim_block(int threads, size_t dynamic_bytes)
+      : bar(threads), shuffles(threads), dynamic((dynamic_bytes + 7) / 8) {
     for (int w = 0; w < threads / 32; ++w)
       warps.push_back(std::make_unique<std::barrier<>>(32));
   }
@@ -73,10 +88,35 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   return __atomic_load_n(word, __ATOMIC_SEQ_CST);
 }
 
+// the lane's value from lane ^ mask of its warp; every lane takes part
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int mask) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long));
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::barrier<>& bar = *shim_current->warps[w];
+  unsigned long long* slot = &shim_current->shuffles[32 * w];
+  bar.arrive_and_wait();  // every lane has read the previous exchange
+  std::memcpy(&slot[lane], &v, sizeof(T));
+  bar.arrive_and_wait();
+  T out;
+  std::memcpy(&out, &slot[lane ^ mask], sizeof(T));
+  return out;
+}
+
+// `extern __shared__ T name[];` becomes `T* name = shim_dynamic_shared<T>();`
+template <class T>
+inline T* shim_dynamic_shared() {
+  return reinterpret_cast<T*>(shim_current->dynamic.data());
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+
+inline int atomicExch(int* p, int v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
 }
 
 inline int atomicMax(int* p, int v) {
@@ -120,25 +160,25 @@ inline T __ldcg(const T* p) {
 }
 
 // blocks [0, grid): one after another (sequential) or all at once
-inline void shim_run(int grid, int block, bool concurrent,
+inline void shim_run(int grid, int block, size_t dynamic_bytes, bool concurrent,
                      const std::function<void()>& body) {
-  blockDim.x = block;
-  gridDim.x = grid;
   const int waves = concurrent ? 1 : grid;
   const int per_wave = concurrent ? grid : 1;
   for (int w = 0; w < waves; ++w) {
     std::vector<std::unique_ptr<shim_block>> blocks;
     std::vector<std::thread> threads;
     for (int k = 0; k < per_wave; ++k)
-      blocks.push_back(std::make_unique<shim_block>(block));
+      blocks.push_back(std::make_unique<shim_block>(block, dynamic_bytes));
     for (int k = 0; k < per_wave; ++k) {
       const int b = w * per_wave + k;
       shim_block* ctx = blocks[k].get();
       for (int t = 0; t < block; ++t)
-        threads.emplace_back([&body, ctx, t, b] {
+        threads.emplace_back([&body, ctx, t, b, grid, block] {
           shim_current = ctx;
           threadIdx.x = t;
           blockIdx.x = b;
+          blockDim.x = block;
+          gridDim.x = grid;
           body();
         });
     }
@@ -146,9 +186,10 @@ inline void shim_run(int grid, int block, bool concurrent,
   }
 }
 
-// stands in for kernel<<<grid, block, 0, stream>>>(...)
-inline void shim_launch(int grid, int block, const std::function<void()>& body) {
-  shim_run(grid, block, false, body);
+// stands in for kernel<<<grid, block, dynamic_bytes, stream>>>(...)
+inline void shim_launch(int grid, int block, size_t dynamic_bytes,
+                        const std::function<void()>& body) {
+  shim_run(grid, block, dynamic_bytes, false, body);
 }
 
 // every block resident at once, as the card guarantees for this launch
@@ -157,6 +198,6 @@ inline int cudaLaunchCooperativeKernel(void (*kernel)(Arg), dim3 grid,
                                        dim3 block, void** params, size_t,
                                        cudaStream_t) {
   Arg arg = *static_cast<Arg*>(params[0]);
-  shim_run(grid.x, block.x, true, [&] { kernel(arg); });
+  shim_run(grid.x, block.x, 0, true, [&] { kernel(arg); });
   return 0;
 }

@@ -8,6 +8,8 @@ without jax:
 Tolerance: exact (bool, int32 and uint8 outputs).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -193,6 +195,28 @@ def test_clock_kernels_equal_plain(cuda, A):
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("D,k,route", [
+    (131072, 64, "select"), (131072 - 77, 64, "select"),
+    (131072 - 77, ckk.TOPK_TILE + 1, "sort"), (131072, 131072, "sort"),
+    (3000, 1000, "select"), (3000, 3000, "sort"), (70000, 700, "sort"),
+])
+def test_clock_topk_routes_equal_plain(cuda, D, k, route):
+    """clock_topk.cu on both routes against the plain version: mass ties
+    straddling every tile boundary, INT32_INF rows, a row count that is
+    not a multiple of the tile, k = tile + 1 and k = D."""
+    assert ckk.topk_plan(D, k)[0] == route
+    T = ckk.TOPK_TILE
+    m = _clocks(D, D, 64) % 3
+    for b in range(T, D, T):
+        m[b - 5 : b + 5] = 2  # equal rows on both sides of each boundary
+    m[::997] = ckk.INT32_INF
+    q = torch.full((64,), ckk.INT32_INF, dtype=torch.int32, device="cuda")
+    for qq in (q, torch.full_like(q, 1)):
+        got = ckk.top_k_dominated_cuda(m, qq, k)
+        want = ckk.top_k_dominated_plain(m, qq, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_clock_mirror_on_card_equals_cpu(cuda):
     """One seeded op sequence on a mirror on the card and one on the CPU:
     equal answers and matrices, and the card's queries launch the
@@ -293,38 +317,91 @@ def _virtual_mesh(n, sp=1):
 
 
 @pytest.mark.parametrize("n,rows,W", [(1, 3, 5), (2, 1, 1), (3, 7, 3),
-                                      (4, 1024, 708), (8, 13, 1540)])
+                                      (4, 1024, 708), (8, 13, 1540),
+                                      (4, 4096, 1540), (4, 512, 1556)])
 def test_ring_gather_equals_plain(cuda, n, rows, W):
+    """The virtual route (one push launch into one concatenation that
+    every rank shares, no flags, no error-word read) and the flagged
+    launch over the same virtual ranks."""
     from hypermerge_tpu_torch.parallel import ring as ringmod
 
     mesh = _virtual_mesh(n)
     g = torch.Generator().manual_seed(n * W + rows)
     blocks = [torch.randint(0, 256, (rows, W), generator=g, dtype=torch.uint8)
               .cuda() for _ in range(n)]
+    protocol = ringmod.Ring(mesh.devices, "protocol")
     before = ck.launches["ring_gather"]
-    for _ in range(2):  # the second call runs at the next epoch
-        got = ringmod.ring_gather_cuda(blocks, mesh.ring())
-        want = ringmod.ring_gather_plain(blocks, mesh.devices)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert ck.launches["ring_gather"] == before + 2
+    for ring in (mesh.ring(), protocol):
+        for _ in range(2):  # the second call runs at the next epoch
+            got = ringmod.ring_gather_cuda(blocks, ring)
+            want = ringmod.ring_gather_plain(blocks, mesh.devices)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), ring.mode
+    assert ck.launches["ring_gather"] == before + 4
+    got = ringmod.ring_gather_cuda(blocks, mesh.ring())
+    assert all(g is got[0] for g in got)
+    # the virtual route never made (or read) a flag row
+    assert mesh.ring().mode == "virtual"
+    assert mesh.ring()._table is None and mesh.ring()._flags == []
+    assert protocol._table is not None and protocol.epoch == 2
+
+
+def _ring_hooks(monkeypatch, ringmod):
+    """ring.py's kernel entry swapped for a build of ring_gather.cu with
+    HM_RING_TEST_HOOKS; returns the build's hook setter (silent rank, late
+    rank, late ns; -1, -1, 0 for none), which each test sets first."""
+    from hypermerge_tpu_torch.kernels import _build
+
+    lib = _build.load("ring_gather", ("HM_RING_TEST_HOOKS",))
+    symbol, argtypes = ck._SIGNATURES["ring_gather"]
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    hooks = lib.hm_ring_test_hooks
+    hooks.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    hooks.restype = None
+    monkeypatch.setattr(ringmod, "kernel_fn", lambda stem: fn)
+    return hooks
 
 
 def test_ring_gather_timeout_raises(cuda, monkeypatch):
-    """A rank that never raises its flag (the C entry's test argument):
-    the wrapper raises RuntimeError instead of returning data, and the
-    ring works again on the next call."""
+    """The flagged launch over virtual ranks with a rank that never raises
+    its flag (the test build's hook): the wrapper raises RuntimeError
+    instead of returning data, and the ring works again on the next
+    call."""
     from hypermerge_tpu_torch.parallel import ring as ringmod
 
     mesh = _virtual_mesh(4)
+    ring = ringmod.Ring(mesh.devices, "protocol")
     blocks = [torch.full((2, 8), r, dtype=torch.uint8, device="cuda")
               for r in range(4)]
-    monkeypatch.setattr(ringmod, "_SILENT_RANK", 1)
+    hooks = _ring_hooks(monkeypatch, ringmod)
+    hooks(1, -1, 0)
     monkeypatch.setattr(ringmod, "TIMEOUT_NS", 50_000_000)
     with pytest.raises(RuntimeError, match="timed out"):
-        ringmod.ring_gather(blocks, mesh.ring())
-    monkeypatch.setattr(ringmod, "_SILENT_RANK", -1)
-    got = ringmod.ring_gather(blocks, mesh.ring())
+        ringmod.ring_gather(blocks, ring)
+    hooks(-1, -1, 0)
+    got = ringmod.ring_gather(blocks, ring)
     assert torch.equal(got[0], ringmod.ring_gather_plain(blocks, mesh.devices)[0])
+
+
+def test_ring_gather_protocol_waits_for_a_late_rank(cuda, monkeypatch):
+    """The flagged launch over virtual ranks with a rank whose pushes
+    start 20 ms late (the test build's hook): every rank waits for its
+    flag, and the result is whole."""
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+
+    mesh = _virtual_mesh(4)
+    ring = ringmod.Ring(mesh.devices, "protocol")
+    g = torch.Generator().manual_seed(9)
+    blocks = [torch.randint(0, 256, (512, 1556), generator=g,
+                            dtype=torch.uint8).cuda() for _ in range(4)]
+    hooks = _ring_hooks(monkeypatch, ringmod)
+    hooks(-1, 3, 20_000_000)
+    try:
+        got = ringmod.ring_gather(blocks, ring)
+    finally:
+        hooks(-1, -1, 0)
+    want = ringmod.ring_gather_plain(blocks, mesh.devices)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_min_reduce_equals_plain(cuda):
@@ -408,11 +485,12 @@ def test_ring_gather_peer_timeout_raises(cards, monkeypatch):
     mesh = make_mesh(devices=cards)
     blocks = [torch.full((2, 8), r, dtype=torch.uint8, device=d)
               for r, d in enumerate(cards)]
-    monkeypatch.setattr(ringmod, "_SILENT_RANK", 0)
+    hooks = _ring_hooks(monkeypatch, ringmod)
+    hooks(0, -1, 0)
     monkeypatch.setattr(ringmod, "TIMEOUT_NS", 50_000_000)
     with pytest.raises(RuntimeError, match="timed out"):
         ringmod.ring_gather(blocks, mesh.ring())
-    monkeypatch.setattr(ringmod, "_SILENT_RANK", -1)
+    hooks(-1, -1, 0)
     got = ringmod.ring_gather(blocks, mesh.ring())
     want = ringmod.ring_gather_plain(blocks, mesh.devices)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -13,20 +13,26 @@ the value range with pack_prefix_plain (on the pack inputs of the cases
 of test_torch_pack.py and on its crafted parity traps), and the four
 clock kernels with the plain versions in ops/clock_kernels.py (seeded
 clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
-scatter cells, mass top-k ties), and the three read-serving kernels with
-the plain versions in serve/kernels.py (synthetic lanes with pad rows,
-pad batch slots, misses, all-matching rows, mass rank ties and ranks at
-the int32 ends; a bucket above serve_order's shared-memory limit sorts in
-global scratch), and the ring gather against the blocks concatenated in
-rank order (n in {1, 2, 3, 5} ranks, odd widths, one-row blocks, a
-second call whose flags a neighbour already advanced, a rank that never
-raises its flag). Mutants of the clock kernels (top-k ties broken by the
-higher index, a scatter by plain store, a union or a min started at 0),
-of the serve kernels (a lookup that answers -1 when nothing matches, an
-order that breaks ties by the higher row, counts that ignore INSERT) and
-of the ring (the source block (r+s), n-2 steps, a wait for == epoch)
-must fail. The ring runs in a subprocess with a time limit of its own,
-so that a deadlock fails its test and the run goes on.
+scatter cells; top-k at small tiles on both of its routes: mass ties,
+ties straddling tiles, ragged tiles, k = tile + 1 and k = D, A = 3 and
+wide rows, wrapped and INT32_MIN scores), and the three read-serving
+kernels with the plain versions in serve/kernels.py (synthetic lanes
+with pad rows, pad batch slots, misses, all-matching rows, mass rank ties
+and ranks at the int32 ends; a bucket above serve_order's shared-memory
+limit sorts in global scratch), and the ring gather against the blocks
+concatenated in rank order (n in {1, 2, 3, 5} ranks, odd widths,
+one-row blocks; the push route, and the flagged route as one grid and as
+one launch per rank from concurrent threads: a second call whose flags a
+rank already advanced, a rank that never raises its flag, a rank that
+pushes late). Mutants of the clock kernels (top-k ties broken by the
+higher index, a tile keeping k - 1 candidates, a key packing that loses
+the sign order, a scatter by plain store, a union or a min started at
+0), of the serve kernels (a lookup that answers -1 when nothing matches,
+an order that breaks ties by the higher row, counts that ignore INSERT)
+and of the ring (a wrong source block, a wait over n - 1 ranks, a wait
+for == epoch, a push that skips the last vector, a raise before the
+pushes) must fail. The ring runs in a subprocess with a time limit of
+its own, so that a deadlock fails its test and the run goes on.
 Tolerance: exact.
 """
 
@@ -50,32 +56,35 @@ from hypermerge_tpu_torch.ops import clock_kernels as ckk
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
 from hypermerge_tpu_torch.ops import pack_kernels as pk
 from hypermerge_tpu_torch.ops import synth
-from hypermerge_tpu_torch.ops.columnar import COLUMNS, round_up_pow2
+from hypermerge_tpu_torch.ops.columnar import COLUMNS
 from hypermerge_tpu_torch.serve import kernels as sk
 from test_torch_pack import CASES as PACK_CASES
 from test_torch_pack import port_pack, trap_inputs, trap_variants
 
 TESTS = Path(__file__).resolve().parent
 CSRC = TESTS.parent / "hypermerge_tpu_torch" / "kernels" / "csrc"
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),.*?>>>\(", re.S)
+_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*([^,]+),.*?>>>\(", re.S)
+_DYNAMIC_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 
 def _host_source(text: str) -> str:
     """The .cu text with the CUDA runtime include and every <<<>>> launch
     replaced by the shim's (launches run one after another, as on one
-    stream); a cooperative launch goes to the shim's own
-    cudaLaunchCooperativeKernel, which runs every block at once."""
+    stream, each with its dynamic shared memory); a cooperative launch
+    goes to the shim's own cudaLaunchCooperativeKernel, which runs every
+    block at once."""
     text = text.replace("#include <cuda_runtime.h>", '#include "cuda_host_shim.h"')
+    text = _DYNAMIC_SHARED.sub(r"\1* \2 = shim_dynamic_shared<\1>();", text)
     out, pos = [], 0
     for m in _LAUNCH.finditer(text):
         depth, i = 1, m.end()
         while depth:
             depth += {"(": 1, ")": -1}.get(text[i], 0)
             i += 1
-        kernel, grid, block = m.groups()
+        kernel, grid, block, dynamic = m.groups()
         out += [
             text[pos : m.start()],
-            f"shim_launch({grid}, {block}, [&] {{ {kernel}(",
+            f"shim_launch({grid}, {block}, {dynamic}, [&] {{ {kernel}(",
             text[m.end() : i],
             "; })",
         ]
@@ -388,15 +397,30 @@ def test_clock_scatter_source_equals_plain(host_kernels, n):
     assert torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
 
 
-def _run_host_topk(fn, clocks, q, k):
+# clock_topk.cu's launch shape in these runs: tiles of 16 rows and 32
+# threads (so that tens of rows make several tiles and the shim's
+# std::threads stay few); the route as topk_plan picks it for a merge of
+# at most 32 candidates (so that a k of half a tile already takes the
+# large-k route)
+HOST_TILE, HOST_THREADS, HOST_MERGE_MAX = 16, 32, 32
+
+
+def _run_host_topk(fn, clocks, q, k, route=None, tile=HOST_TILE,
+                   threads=HOST_THREADS, merge_max=HOST_MERGE_MAX):
+    """clock_topk.cu on the host at the shape above, as the wrapper calls
+    it; the scratch keys start as 0 (the key of the best possible row) and
+    the outputs as garbage, so that every slot the kernel leaves unwritten
+    shows."""
     D, A = clocks.shape
-    P = round_up_pow2(D)
-    key = torch.full((P,), 3, dtype=torch.int64)
-    val = torch.full((P,), -9, dtype=torch.int32)
+    plan, n_keys = ckk.topk_plan(D, k, tile, merge_max)
+    if route is not None:
+        assert plan == route, (plan, route)
+    keys = torch.zeros(n_keys, dtype=torch.int64)
     scores = torch.full((k,), 77, dtype=torch.int32)
     idx = torch.full((k,), 77, dtype=torch.int32)
-    rc = fn(clocks.data_ptr(), D, A, q.data_ptr(), k, P, key.data_ptr(),
-            val.data_ptr(), scores.data_ptr(), idx.data_ptr(), None)
+    rc = fn(clocks.contiguous().data_ptr(), D, A, q.data_ptr(), k, tile,
+            threads, ckk._TOPK_ROUTE[plan], keys.data_ptr(), n_keys,
+            scores.data_ptr(), idx.data_ptr(), None)
     assert rc == 0
     return scores, idx
 
@@ -413,6 +437,42 @@ def _topk_ties(D=50, A=4):
     return m, q
 
 
+def _topk_straddle(D=70, A=8):
+    """Equal scores on both sides of every tile boundary: the best six
+    rows straddle the first, the next ties straddle the others and end
+    the last, partial tile."""
+    m = torch.ones((D, A), dtype=torch.int32)
+    for b in range(HOST_TILE, D, HOST_TILE):
+        m[b - 3 : b + 3] = 2
+    m[HOST_TILE - 3 : HOST_TILE + 3] = 3
+    m[D - 2 :] = 2
+    return m, torch.full((A,), 5, dtype=torch.int32)
+
+
+def _topk_extremes(D=40):
+    """Scores at the int32 ends: sums that wrap negative, INT32_MIN,
+    INT32_MAX and -1 (not dominated) rows, one column, ints read one at a
+    time."""
+    m = torch.from_numpy(np.random.default_rng(8).integers(
+        -2**31, 2**20, (D, 1)).astype(np.int32))
+    m[::5] = -2**31
+    m[3] = 2**20
+    m[::7] = -1
+    q = torch.full((1,), 2**20, dtype=torch.int32)
+    q_low = torch.full((1,), -5, dtype=torch.int32)  # some rows not dominated
+    return m, q, q_low
+
+
+def _topk_wrapped(D=40, A=8):
+    """Row sums that wrap (int32, as XLA's sum does): three entries near
+    INT32_MIN wrap past it to a negative sum, two wrap to a positive one."""
+    m = torch.full((D, A), 2**20, dtype=torch.int32)
+    m[::2, :3] = -2**31 + 5
+    m[1::4, :2] = -2**31 + 5
+    m[3::8] = 2**20 - 3
+    return m, torch.full((A,), INF, dtype=torch.int32)
+
+
 TOPK_CASES = {
     "ties_k1": (_topk_ties, 1),
     "ties_k7": (_topk_ties, 7),
@@ -423,24 +483,95 @@ TOPK_CASES = {
     "one_row": (
         lambda: (_clock_matrix(7, 1, 2), torch.full((2,), 9, dtype=torch.int32)), 1
     ),
+    # several tiles, a ragged last one (70 = 4 x 16 + 6), A = 3 read as ints
+    "ragged_tiles_A3": (
+        lambda: (_clock_matrix(9, 70, 3, hi=4), torch.full((3,), 3, dtype=torch.int32)),
+        3),
+    "ties_straddle_tiles": (_topk_straddle, 4),
+    "k_tile_plus_1": (_topk_straddle, HOST_TILE + 1),  # the large-k route
+    "vector_rows_A8": (
+        lambda: (_clock_matrix(10, 100, 8, hi=50), torch.full((8,), 40, dtype=torch.int32)),
+        4),
+    "wide_rows_A70": (
+        lambda: (_clock_matrix(11, 33, 70, hi=9), torch.full((70,), INF, dtype=torch.int32)),
+        4),
+    # 34 16-byte chunks a row: 32 lanes, two of them read a second chunk
+    "wide_vector_rows_A136": (
+        lambda: (_clock_matrix(12, 20, 136, hi=9), torch.full((136,), 8, dtype=torch.int32)),
+        4),
+    "int32_extremes": (lambda: _topk_extremes()[:2], 16),
+    "int32_extremes_not_dominated": (lambda: _topk_extremes()[::2], 4),
+    "wrapped_negative_sums": (_topk_wrapped, 16),
 }
+# which route each case must take at the host shape (the rest: "select")
+TOPK_ROUTES = {"ties_kD": "sort", "pow2_rows_none_dominated": "sort",
+               "k_tile_plus_1": "sort", "int32_extremes": "sort",
+               "wrapped_negative_sums": "sort"}
 
 
 @pytest.mark.parametrize("case", list(TOPK_CASES))
 def test_clock_topk_source_equals_plain(host_kernels, case):
     make, k = TOPK_CASES[case]
     clocks, q = make()
-    got = _run_host_topk(host_kernels["clock_topk"], clocks, q, k)
+    got = _run_host_topk(host_kernels["clock_topk"], clocks, q, k,
+                         route=TOPK_ROUTES.get(case, "select"))
     want = ckk.top_k_dominated_plain(clocks, q, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k,route", [(40, "select"), (100, "sort")])
+def test_clock_topk_source_wide_tiles(host_kernels, k, route):
+    """Tiles of 128 rows and 64 threads: the sorts' stages with j >= 32
+    run in shared memory between barriers (j = 32 in the merge's runs of
+    64; j = 32, 64 in a tile), the rest on warp shuffles; equal ties
+    straddle the tile boundaries."""
+    clocks, q = _topk_straddle(D=300, A=5)
+    clocks[120:136] = 3
+    clocks[250:262] = 3
+    got = _run_host_topk(host_kernels["clock_topk"], clocks, q, k, route=route,
+                         tile=128, threads=64, merge_max=256)
+    want = ckk.top_k_dominated_plain(clocks, q, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [3, 4, 8, 9, 15, 16])
+def test_clock_topk_source_select_and_sort_routes_agree(host_kernels, k):
+    """The same matrix through the select route (a merge of up to 128
+    candidates) and the large-k route (a merge capacity of one tile):
+    both equal the plain version."""
+    clocks, q = _topk_straddle(D=90)
+    want = ckk.top_k_dominated_plain(clocks, q, k)
+    fn = host_kernels["clock_topk"]
+    for merge_max, route in ((128, "select"), (HOST_TILE, "sort")):
+        plan, n_keys = ckk.topk_plan(90, k, HOST_TILE, merge_max)
+        assert plan == route
+        keys = torch.zeros(n_keys, dtype=torch.int64)
+        scores = torch.full((k,), 77, dtype=torch.int32)
+        idx = torch.full((k,), 77, dtype=torch.int32)
+        assert fn(clocks.data_ptr(), 90, 8, q.data_ptr(), k, HOST_TILE,
+                  HOST_THREADS, ckk._TOPK_ROUTE[plan], keys.data_ptr(), n_keys,
+                  scores.data_ptr(), idx.data_ptr(), None) == 0
+        assert torch.equal(scores, want[0]) and torch.equal(idx, want[1]), plan
 
 
 # mutants: each breaks one property the plain version pins; compiled from
 # the real source with one edit, each must disagree with the plain version
 MUTANTS = {
     "topk_ties_by_higher_index": ("clock_topk", [
-        ("val[d] = d;", "val[d] = P - 1 - d;"),
-        ("out_idx[i] = val[i];", "out_idx[i] = P - 1 - val[i];"),
+        ("return (static_cast<Key>(hi) << 32) | static_cast<unsigned>(d);",
+         "return (static_cast<Key>(hi) << 32) | (0xfffffffeu - static_cast<unsigned>(d));"),
+        ("*row = static_cast<int>(key & 0xffffffffu);",
+         "*row = static_cast<int>(0xfffffffeu - (key & 0xffffffffu));"),
+    ]),
+    "topk_tile_keeps_k_minus_1": ("clock_topk", [
+        ("for (int i = threadIdx.x; i < keep; i += blockDim.x)",
+         "for (int i = threadIdx.x; i < keep - 1; i += blockDim.x)"),
+    ]),
+    "topk_key_loses_sign_order": ("clock_topk", [
+        ("const unsigned hi = static_cast<unsigned>(score) ^ kScoreFlip;",
+         "const unsigned hi = static_cast<unsigned>(-score);"),
+        ("*score = static_cast<int>(static_cast<unsigned>(key >> 32) ^ kScoreFlip);",
+         "*score = -static_cast<int>(static_cast<unsigned>(key >> 32));"),
     ]),
     "scatter_plain_store": ("clock_scatter", [
         ("atomicMax(&m[(long long)r * cap_a + c], vals[i]);",
@@ -456,6 +587,15 @@ MUTANTS = {
 }
 
 
+# the top-k cases each mutant must fail, on both routes where it reaches
+# both
+TOPK_MUTANT_CASES = {
+    "topk_ties_by_higher_index": ["ties_kD", "ties_straddle_tiles"],
+    "topk_tile_keeps_k_minus_1": ["ties_k7", "ties_straddle_tiles"],
+    "topk_key_loses_sign_order": ["int32_extremes", "ties_k7"],
+}
+
+
 @pytest.mark.parametrize("name", list(MUTANTS))
 def test_clock_mutants_fail(tmp_path, name):
     stem, edits = MUTANTS[name]
@@ -465,10 +605,15 @@ def test_clock_mutants_fail(tmp_path, name):
         text = text.replace(old, new)
     fn = _compile_host({stem: text}, tmp_path)[stem]
     if stem == "clock_topk":
-        clocks, q = _topk_ties()
-        got = _run_host_topk(fn, clocks, q, 50)
-        want = ckk.top_k_dominated_plain(clocks, q, 50)
-        assert torch.equal(got[0], want[0]) and not torch.equal(got[1], want[1])
+        for case in TOPK_MUTANT_CASES[name]:
+            make, k = TOPK_CASES[case]
+            clocks, q = make()
+            got = _run_host_topk(fn, clocks, q, k)
+            want = ckk.top_k_dominated_plain(clocks, q, k)
+            if name == "topk_ties_by_higher_index":  # the same scores
+                assert torch.equal(got[0], want[0])
+            assert not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])), case
     elif stem == "clock_scatter":
         m, trip = _scatter_inputs(3, 64)
         got = _run_host_scatter(fn, m, *trip)
@@ -586,37 +731,91 @@ def test_serve_mutants_fail(tmp_path, name):
 
 
 # ---------------------------------------------------------------------------
-# the ring gather: cooperative blocks that wait on each other's flags, so
+# the ring gather: the push route (an ordinary launch, no flags) and the
+# flagged route (cooperative blocks that wait on each other's flags), so
 # every run is a subprocess with its own time limit
 
 RING_RUNNER = r"""
-import ctypes, json, sys
+import ctypes, json, sys, threading
 import numpy as np
 
-fn = ctypes.CDLL(sys.argv[1]).hm_ring_gather
+lib = ctypes.CDLL(sys.argv[1])
+fn, hooks = lib.hm_ring_gather, lib.hm_ring_test_hooks
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-fn.argtypes = [P] * 3 + [I] * 3 + [L] + [I] * 2 + [L, P]
+fn.argtypes = [P] * 3 + [I] * 3 + [L, I, L] + [I] * 4 + [P]
 fn.restype = I
+hooks.argtypes = [I, I, L]
+hooks.restype = None
+PUSH, FLAGGED = 0, 1
+THREADS, SLICES, BLOCKS = 32, 3, 2  # a block's threads; per source; per rank
+
+
+def aligned(nbytes, fill):
+    # 64-byte aligned, so that 16-byte copies run wherever offsets allow
+    raw = np.full(nbytes + 64, fill, np.uint8)
+    off = -raw.ctypes.data % 64
+    return raw[off : off + nbytes]
+
+
 results = []
 for case in json.loads(sys.argv[2]):
     n, rows, W = case["n"], case["rows"], case["W"]
+    route = case.get("route", "push")
     rng = np.random.default_rng(case["seed"])
-    blocks = [rng.integers(0, 256, rows * W).astype(np.uint8) for _ in range(n)]
+    blocks = [aligned(rows * W, 0) for _ in range(n)]
+    for b in blocks:
+        b[:] = rng.integers(0, 256, rows * W)
     want = np.concatenate(blocks)
-    outs = [np.full(n * rows * W, 0xAB, np.uint8) for _ in range(n)]
-    flags = [np.zeros(n, np.int32) for _ in range(n)]
+    outs = [aligned(n * rows * W, 0xAB) for _ in range(n)]
+    flags = [np.zeros(n + 2, np.int32) for _ in range(n)]
     ptrs = [np.asarray([a.ctypes.data for a in arrs], np.int64)
             for arrs in (blocks, outs, flags)]
+    B = rows * W
     for epoch, call in enumerate(case["calls"], start=1):
-        if "ahead" in call:  # this rank's left neighbour ran a call ahead
-            flags[call["ahead"]][: n - 1] = epoch + 1
+        ahead = call.get("ahead", -1)
+        for o in outs:  # every call must write every byte, except that a
+            # rank ahead by a call has already written its block of this one
+            kept = o[ahead * B : (ahead + 1) * B].copy()
+            o[:] = 0xAB
+            if ahead >= 0:
+                o[ahead * B : (ahead + 1) * B] = kept
+        if ahead >= 0:  # this rank already raised the next call's flags
+            for f in flags:
+                f[ahead] = epoch + 1
         for f in flags:
-            f[n - 1] = 0
-        rc = fn(*(p.ctypes.data for p in ptrs), n, 0, n, rows * W, epoch,
-                call.get("silent", -1), call.get("timeout_ns", 10**9), None)
+            f[n] = 0
+        hooks(call.get("silent", -1), call.get("late", -1),
+              call.get("late_ns", 0))
+
+        def launch(rank0, count, mode):
+            return fn(*(p.ctypes.data for p in ptrs), n, rank0, count,
+                      B, epoch, call.get("timeout_ns", 10**9), mode, THREADS,
+                      SLICES, BLOCKS, None)
+
+        if route == "peer":
+            # one launch per rank from a host thread of its own, as one
+            # card each runs; a rank's output is read as soon as its
+            # launch returns
+            rcs, snaps = [0] * n, [None] * n
+
+            def run(r):
+                rcs[r] = launch(r, 1, FLAGGED)
+                snaps[r] = outs[r].copy()
+
+            threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        elif route == "push":  # one concatenation, every rank's result
+            rcs = [launch(0, n, PUSH)]
+            snaps = [outs[0].copy()]
+        else:
+            rcs = [launch(0, n, FLAGGED)]
+            snaps = [o.copy() for o in outs]
         results.append(dict(
-            rc=rc, errors=[int(f[n - 1]) for f in flags],
-            equal=[bool(np.array_equal(o, want)) for o in outs]))
+            rc=max(rcs), errors=[int(f[n]) for f in flags],
+            equal=[bool(np.array_equal(s, want)) for s in snaps]))
 print(json.dumps(results))
 """
 
@@ -639,7 +838,8 @@ def _ring_call(lib, cases, timeout=120):
 
 
 def _ring_lib(text, out):
-    _compile_host({"ring_gather": text}, out)
+    """ring_gather.cu built for the host with its test hooks."""
+    _compile_host({"ring_gather": "#define HM_RING_TEST_HOOKS\n" + text}, out)
     return out / "libring_gather.so"
 
 
@@ -661,55 +861,133 @@ RING_SHAPES = [(1, 1, 3), (2, 1, 1), (3, 1, 5), (5, 1, 3), (2, 3, 33),
 
 @pytest.mark.parametrize("n,rows,W", RING_SHAPES)
 def test_ring_gather_source_equals_concatenation(ring_lib, n, rows, W):
-    # two calls on the same flags: the second runs at the next epoch
+    """The push route (one concatenation, every rank's result), twice on
+    the same buffers."""
     res = _ring_call(ring_lib, [dict(n=n, rows=rows, W=W, seed=n * W + rows,
                                      calls=[{}, {}])])
+    assert res is not None, "the push route hung"
+    assert all(_ok(r) for r in res), res
+
+
+@pytest.mark.parametrize("n,rows,W", RING_SHAPES)
+@pytest.mark.parametrize("route", ["protocol", "peer"])
+def test_ring_gather_flagged_source_equals_concatenation(ring_lib, route, n,
+                                                         rows, W):
+    """The flagged launch, over virtual ranks in one cooperative grid and
+    as one launch per rank from concurrent host threads; the second call
+    runs at the next epoch on the same flags."""
+    res = _ring_call(ring_lib, [dict(n=n, rows=rows, W=W, seed=n * W + rows,
+                                     route=route, calls=[{}, {}])])
     assert res is not None, "the ring deadlocked"
     assert all(_ok(r) for r in res), res
 
 
-# the second call: rank 1 already finished it and raised rank 2's flags
-# for the call after (its writes of this call's blocks are in place from
-# the first call, on the same buffers), so it raises nothing now
-AHEAD = [{}, {"silent": 1, "ahead": 2, "timeout_ns": 2_000_000_000}]
+# the second call: rank 1 already finished it (its block of this call is
+# in place) and raised every rank's flag for the call after, so it raises
+# nothing now
+AHEAD = [{}, {"silent": 1, "ahead": 1, "timeout_ns": 500_000_000}]
 
 
 def test_ring_gather_source_passes_pre_advanced_flags(ring_lib):
-    """A wait passes once the flag is >= the epoch: a left neighbour that
-    already raised its flags for a later call also finished this one."""
-    res = _ring_call(ring_lib, [dict(n=5, rows=1, W=3, seed=1, calls=AHEAD)])
+    """A wait passes once the flag is >= the epoch: a rank that already
+    raised its flags for a later call also finished this one."""
+    res = _ring_call(ring_lib, [dict(n=5, rows=1, W=3, seed=1, route="protocol",
+                                     calls=AHEAD)])
     assert res is not None and all(_ok(r) for r in res), res
 
 
 def test_ring_gather_source_times_out_instead_of_hanging(ring_lib):
-    """A rank that never raises its flag: its right neighbour gives up
-    after the timeout, sets its error word, and every rank returns."""
-    res = _ring_call(ring_lib, [dict(n=4, rows=1, W=5, seed=2, calls=[
-        {"silent": 1, "timeout_ns": 100_000_000}])])
+    """A rank that never raises its flag: every rank gives up after the
+    timeout, sets its error word, and returns."""
+    res = _ring_call(ring_lib, [dict(n=4, rows=1, W=5, seed=2, route="protocol",
+                                     calls=[{"silent": 1,
+                                             "timeout_ns": 100_000_000}])])
     assert res is not None, "the ring hung"
     (r,) = res
-    assert r["rc"] == 0 and r["errors"][2] == 1, r
+    assert r["rc"] == 0 and r["errors"][2] == 1 and all(r["errors"]), r
+
+
+# a rank whose pushes start 150 ms late: the others must wait for them
+LATE = [{"late": 4, "late_ns": 150_000_000}]
+PEER_PROTOCOL_CASES = {
+    "pre_advanced_flags": (AHEAD, True),
+    "late_rank": (LATE, True),
+    "timeout": ([{"silent": 1, "timeout_ns": 100_000_000}], False),
+}
+
+
+@pytest.mark.parametrize("case", list(PEER_PROTOCOL_CASES))
+def test_ring_gather_peer_source_protocol(ring_lib, case):
+    """The flagged launch as peer ranks run it: each rank's output is read
+    the moment its own launch returns, so it must be whole by then (a
+    rank that pushes late is waited for); a rank ahead by one call passes;
+    a silent rank makes every rank time out instead of hanging."""
+    calls, ok = PEER_PROTOCOL_CASES[case]
+    res = _ring_call(ring_lib, [dict(n=5, rows=2, W=32, seed=4, route="peer",
+                                     calls=calls)])
+    assert res is not None, "the ring hung"
+    if ok:
+        assert all(_ok(r) for r in res), res
+    else:
+        (r,) = res
+        assert r["rc"] == 0 and all(r["errors"]), r
 
 
 RING_MUTANTS = {
+    # a block reads source block (src + 1) mod n for src's place
     "source_r_plus_s": (
-        [("const long long blk = (r - s + n) % n;",
-          "const long long blk = (r + s) % n;")], [{}]),
+        [("const unsigned char* src_p = a.local[src] + lo;",
+          "const unsigned char* src_p = a.local[(src + 1) % a.n] + lo;")],
+        dict(route="push", calls=[{}])),
+    # the wait covers n - 1 ranks: a late last rank's block is missing
     "n_minus_2_steps": (
-        [("for (int s = 1; s < n - 1; ++s) {",
-          "for (int s = 1; s < n - 2; ++s) {")], [{"timeout_ns": 100_000_000}]),
+        [("for (int src = 0; src < n; ++src) {",
+          "for (int src = 0; src < n - 1; ++src) {")],
+        dict(route="peer", calls=LATE)),
     "wait_for_equal_epoch": (
-        [("while (*flag < a.epoch) {", "while (*flag != a.epoch) {")], AHEAD),
+        [("while (*flag < a.epoch) {", "while (*flag != a.epoch) {")],
+        dict(route="protocol", calls=AHEAD)),
+    # the last 16-byte chunk of every slice is never copied
+    "push_skips_last_vector": (
+        [("for (; i < nvec; i += stride) dv[i]",
+          "for (; i < nvec - 1; i += stride) dv[i]")],
+        dict(route="push", calls=[{}])),
+    # the arrival flags go up before the rank's pushes (and their fence)
+    "raise_before_fence": (
+        [("  const int g = static_cast<int>(blockIdx.x) % a.blocks;\n",
+          "  const int g = static_cast<int>(blockIdx.x) % a.blocks;\n"
+          "  arrive(a, r);\n"),
+         ("  arrive(a, r);\n}\n", "}\n")],
+        dict(route="peer", calls=LATE)),
 }
 
 
 @pytest.mark.parametrize("name", list(RING_MUTANTS))
 def test_ring_mutants_fail(tmp_path, name):
-    edits, calls = RING_MUTANTS[name]
+    edits, case = RING_MUTANTS[name]
     text = (CSRC / "ring_gather.cu").read_text()
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
     res = _ring_call(_ring_lib(text, tmp_path),
-                     [dict(n=5, rows=1, W=3, seed=3, calls=calls)], timeout=60)
+                     [dict(n=5, rows=2, W=32, seed=3, **case)], timeout=60)
     assert res is None or not all(_ok(r) for r in res), res
+
+
+def test_ring_gather_source_without_hooks(tmp_path):
+    """ring_gather.cu built as the wrappers load it: no test hooks are
+    exported, and the push route through the wrappers' signature writes
+    the concatenation."""
+    fn = _compile_host({"ring_gather": (CSRC / "ring_gather.cu").read_text()},
+                       tmp_path)["ring_gather"]
+    assert not hasattr(ctypes.CDLL(str(tmp_path / "libring_gather.so")),
+                       "hm_ring_test_hooks")
+    rng = np.random.default_rng(6)
+    blocks = [rng.integers(0, 256, 37, dtype=np.uint8) for _ in range(3)]
+    out = np.zeros(3 * 37, np.uint8)
+    locals_ = np.asarray([b.ctypes.data for b in blocks], np.int64)
+    outs = np.asarray([out.ctypes.data], np.int64)
+    rc = fn(locals_.ctypes.data, outs.ctypes.data, None, 3, 0, 3, 37, 0, 0, 0,
+            4, 2, 1, None)
+    assert rc == 0
+    np.testing.assert_array_equal(out, np.concatenate(blocks))

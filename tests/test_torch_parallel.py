@@ -361,6 +361,25 @@ def test_ring_gather_plain_equals_reference_gather(n, rows, W):
         ringmod.ring_gather(blocks[:-1], ring)
 
 
+# each block the wrappers refuse, with the reason it names
+BAD_BLOCKS = {
+    "device": (lambda b: b.to("meta"), "on meta"),
+    "shape": (lambda b: b[:, :-1].contiguous(), r"\(2, 4\)"),
+    "dtype": (lambda b: b.to(torch.int16), "torch.int16"),
+    "strided": (lambda b: b.t().contiguous().t(), "contiguous"),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_BLOCKS))
+def test_ring_gather_rejects_a_bad_block(case):
+    bad, reason = BAD_BLOCKS[case]
+    ring = port_mesh(3).ring()
+    blocks = [torch.zeros(2, 5, dtype=torch.uint8) for _ in range(3)]
+    blocks[1] = bad(blocks[1])
+    with pytest.raises(ValueError, match=reason):
+        ringmod.ring_gather(blocks, ring)
+
+
 # ---------------------------------------------------------------------------
 # the product route: Repo.open_many over a mesh
 
