@@ -19,7 +19,9 @@ prints a result):
      row planes); the four clock kernels at the mirror's capacity of
      BASELINE config 5 (131072 x 64): the pairwise ops (also at A = 3
      and A = 1024, full and broadcast rows), the scatter-max with 1,000
-     and 65,536 triples piled on one cell, the column max (also at
+     and 65,536 triples piled on one cell (and its parameter route, host
+     triples in the launch, at 1,024 and at 2 x its per-launch cap + 1,
+     with triples outside the matrix), the column max (also at
      [5, 3] and on negative clocks), top-k with mass ties and INT32_INF
      rows at k = 1, 64 and D, ties on both sides of every tile boundary,
      k = tile + 1 and 131,072 - 77 rows, on both of its routes (the
@@ -27,7 +29,12 @@ prints a result):
      read-serving kernels at B in {1, 8, 64} x N in {64, 1024, 65536},
      each shape with every synthetic scenario (ops/synth.py synth_serve_lanes: misses,
      all-matching rows, mass rank ties, ranks at the int32 ends) and a
-     pad batch slot; the ring all-gather on virtual ranks of this card at
+     pad batch slot, and serve_order at (B, N) in {(1, 1024), (8, 1024),
+     (cap + 2, 64), (3, 65536)} over ops/synth.py synth_order_lanes' cases
+     (head ties, no live row, every row live, ranks at both int32 ends:
+     live rows of key INT32_MAX in the tail), which cover its launches
+     split over the batch and its global route; the ring all-gather on
+     virtual ranks of this card at
      n in {2, 3, 4, 8} ranks x rows in {1, 7, 1024, 4096} x W in {1, 3,
      708, 1540, 4096} bytes on the push route, and at rows in {1, 1024} x
      W in {3, 1540} also through the flagged launch (the peer route's
@@ -113,6 +120,13 @@ prints a result):
      summary wire; torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
      reads, top-k's two kernels apart; torch.sort for serve_order;
+     for clock_scatter and serve_order also the wrapper's host work, the
+     kernel alone cold (`cold_calls_ms`: each call on inputs of its own
+     after the L2 is flushed), the scatter's device-triple route and its
+     kernel beside the parameter route, config 5's flush through
+     `_scatter_pending` beside an upload + scatter_reduce_ (`flush_ms`),
+     serve_order's copy back alone and a like-for-like library dispatch
+     (key, stable torch.sort, one copy to the host);
      torch.cat for the ring gather, whose kernel alone is read with cold
      inputs and outputs and must not be under its bound, with the
      flagged launch over the same ranks, timed at the summary gather's
@@ -197,6 +211,11 @@ LIVE_TRACE = dict(n_docs=1, n_ops=259_778, ops_per_change=1, text_frac=1.0,
                   seed=3, edits=256, chunk=32, tick_ms=None, bucket=262144)
 LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
                   seed=0, edits=128, chunk=128, tick_ms=3000, bucket=32768)
+# readings that a kernel's entry in the `kernels` line carries beside the
+# contract's keys, where phase 4 took them
+EXTRA_READINGS = ("host_ms", "kernel_ms", "cold_kernel_ms", "device_route_ms",
+                  "device_route_kernel_ms", "flush_ms", "flush_library_ms",
+                  "copy_back_ms", "library_dispatch_ms")
 # torch.profiler now and then delivers no device record for a window; a
 # kernel-alone window is tried again, and every window is padded with idle
 # host time so that device records near its edges fall inside it
@@ -215,6 +234,24 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def toolkit_line() -> str:
+    """The nvcc release that builds the kernels (its parameter limit: 4 KB,
+    or 32,764 bytes from CUDA 12.1), the driver's version, and torch's."""
+    import torch
+    from hypermerge_tpu_torch.kernels import _build
+
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"],
+                          capture_output=True, text=True, check=True, timeout=60)
+    release = [ln for ln in nvcc.stdout.splitlines() if "release" in ln]
+    drv = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return (f"toolkit: nvcc {release[0].strip() if release else '?'}; driver "
+            f"{drv.stdout.strip().splitlines()[0]}; torch {torch.__version__} "
+            f"(CUDA {torch.version.cuda})")
 
 
 def make_batch(synth, cfg):
@@ -746,6 +783,8 @@ def compare_clock_kernels(ckk):
     import numpy as np
     import torch
 
+    from hypermerge_tpu_torch.ops.crdt_kernels import launch_cap as ck_launch_cap
+
     D = 131072  # the mirror's capacity at config 5
     errs = dict.fromkeys(CLOCKS, 0)
     m = clock_matrix(0, D, 64)
@@ -769,6 +808,19 @@ def compare_clock_kernels(ckk):
                 for hi in (D, 64, 3000)]
         trip[0][: n // 2], trip[1][: n // 2] = 17, 5  # one hot cell
         e = hold(f"clock_scatter n={n}", ckk.scatter_max_cuda_(m.clone(), *trip),
+                 ckk.scatter_max_plain_(m.clone(), *trip))
+        errs["clock_scatter"] = max(errs["clock_scatter"], e)
+    # the parameter route (the mirror's flush): host triples, at the
+    # flush's 1,024 and above one launch's cap, with duplicates and
+    # triples outside the matrix
+    cap = ck_launch_cap("clock_scatter")
+    for n in (1024, 2 * cap + 1):
+        host = [rng.integers(0, hi, n).astype(np.int32) for hi in (D, 64, 3000)]
+        host[0][: n // 2], host[1][: n // 2] = 17, 5  # one hot cell
+        host[0][-1], host[1][-2] = D, -1  # dropped
+        trip = [torch.from_numpy(a).cuda() for a in host]
+        e = hold(f"clock_scatter params n={n}",
+                 ckk.scatter_max_params_cuda_(m.clone(), *host),
                  ckk.scatter_max_plain_(m.clone(), *trip))
         errs["clock_scatter"] = max(errs["clock_scatter"], e)
     ties = m % 4  # mass ties: row sums from a handful of values
@@ -795,7 +847,8 @@ def compare_clock_kernels(ckk):
         raise AssertionError(f"clock_topk phase 2 ran routes {routes}")
     log(f"phase 2 clock kernels at [{D}, 64] (pairwise also at A=3, 1024; "
         f"top-k on both routes, ties across tiles, k = {T + 1}, "
-        f"{D - 77} rows): kernels == plain (exact)")
+        f"{D - 77} rows; the scatter's parameter route at n = 1024 and "
+        f"{2 * cap + 1}): kernels == plain (exact)")
     return errs
 
 
@@ -953,19 +1006,28 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         library_ms=median_ms(lambda: torch.amax(m, dim=0)),
         bytes=nbytes(m, u), ops=D * A,
     )
-    # the pending flush of config 5: 1,000 writes, padded to 1,024
+    # the pending flush of config 5: 1,000 writes, padded to 1,024, as the
+    # mirror hands them over (host arrays: the parameter route, timed as
+    # `ms`) and the same triples on the card (the device-triple route)
     n = CONFIG5["dirty"]
     rng = np.random.default_rng(2)
     trip = np.zeros((3, 1024), np.int32)
     trip[0, :n] = rng.integers(0, D, n)
     trip[1, :n] = rng.integers(0, A, n)
     trip[2, :n] = 2000 + np.arange(n)
+    host = [np.ascontiguousarray(x) for x in trip]
     t = torch.from_numpy(trip).cuda()
     target = m.clone()
     idx = t[0].long() * A + t[1].long()
     cells = int(torch.unique(idx).numel())
     res["clock_scatter"] = dict(
-        ms=median_ms(lambda: ckk.scatter_max_cuda_(target, t[0], t[1], t[2])),
+        n=1024,
+        ms=median_ms(lambda: ckk.scatter_max_params_cuda_(target, *host)),
+        host_ms=host_call_ms(lambda: ckk.scatter_max_params_cuda_(target, *host)),
+        device_route_ms=median_ms(
+            lambda: ckk.scatter_max_cuda_(target, t[0], t[1], t[2])),
+        device_route_host_ms=host_call_ms(
+            lambda: ckk.scatter_max_cuda_(target, t[0], t[1], t[2])),
         plain_ms=median_ms(lambda: ckk.scatter_max_plain_(target, t[0], t[1],
                                                           t[2])),
         library_ms=median_ms(lambda: target.view(-1).scatter_reduce_(
@@ -973,6 +1035,24 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         # the triples read once, each touched cell read and written once
         bytes=nbytes(t) + 8 * cells, ops=t.shape[1],
     )
+    # the parameter route alone, cold: each call's 1,024 fresh triples
+    # over a matrix of 4 x the L2, so that its cells come from HBM
+    big = torch.zeros(4 * L2_BYTES // (4 * A), A, dtype=torch.int32,
+                      device="cuda")
+
+    def cold_scatter(i):
+        r = np.random.default_rng(100 + i)
+        tr = [r.integers(0, hi, 1024).astype(np.int32)
+              for hi in (big.shape[0], A, 5000)]
+        return lambda: ckk.scatter_max_params_cuda_(big, *tr)
+
+    res["clock_scatter"]["cold_kernel_ms"] = cold_calls_ms(cold_scatter)
+    del big
+    res["clock_scatter"]["structs"] = time_param_structs(ckk, target)
+    res["clock_scatter"]["device_route_kernel_ms"] = kernel_device_ms(
+        lambda: ckk.scatter_max_cuda_(target, t[0], t[1], t[2]),
+        "scatter_max_kernel")
+    res["clock_scatter"].update(time_mirror_flush(PM, mirror, actors))
     k = 64
     s, i = ckk.top_k_dominated_cuda(m, q, k)
     score = ckk.top_k_scores_plain(m, q)
@@ -993,9 +1073,8 @@ def time_clock_kernels(ckk, PM, mirror, actors):
                        ("clock_pair_kernel",)),
         "clock_union": (lambda: ckk.union_reduce_cuda(m),
                         ("fill_kernel", "column_reduce_kernel")),
-        "clock_scatter": (lambda: ckk.scatter_max_cuda_(target, t[0], t[1],
-                                                        t[2]),
-                          ("scatter_max_kernel",)),
+        "clock_scatter": (lambda: ckk.scatter_max_params_cuda_(target, *host),
+                          ("scatter_params_kernel",)),
         "clock_topk": (lambda: ckk.top_k_dominated_cuda(m, q, k),
                        ("tile_kernel", "merge_kernel")),
     }
@@ -1029,6 +1108,86 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         f"wall_ms={walls['hot_query_ms']!r}; union() with nothing pending "
         f"{walls['union_alone_ms']!r} ms")
     return res, walls["hot_query_ms"]
+
+
+def time_param_structs(ckk, target):
+    """clock_scatter's parameter route by struct: at 1,024 host triples in
+    the 12 KB struct (the entry's choice) and in the 24 KB one, at 2,048
+    in one launch of 24 KB (the entry's choice) and in two of 12 KB, each
+    beside the device-triple route on the same triples: device time per
+    call in a back-to-back stream (`cold_calls_ms` of one call repeated)
+    and the host wall of one call ending in a synchronize (all in turns).
+    params.cuh sizes the structs by this reading."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    D, A = target.shape
+    rng = np.random.default_rng(3)
+    host = [rng.integers(0, hi, 2048).astype(np.int32) for hi in (D, A, 5000)]
+    dev = [torch.from_numpy(a).cuda() for a in host]
+    fn = ck.kernel_fn("clock_scatter_params")
+    stream = ck.launch_stream(target.device)
+
+    def params(n, per_launch):
+        def call():
+            if fn(target.data_ptr(), D, A, *(a.ctypes.data for a in host),
+                  n, per_launch, stream):
+                raise AssertionError("clock_scatter params failed to launch")
+        return call
+
+    calls = {"n1024_struct_12k": params(1024, 0),
+             "n1024_struct_24k": params(1024, 2048),
+             "n1024_device_route": lambda: ckk.scatter_max_cuda_(
+                 target, *(d[:1024] for d in dev)),
+             "n2048_struct_24k": params(2048, 0),
+             "n2048_two_12k": params(2048, 1024),
+             "n2048_device_route": lambda: ckk.scatter_max_cuda_(target, *dev)}
+    walls = host_medians_ms(calls, runs=25, warmup=5)
+    return {name: dict(stream_ms=cold_calls_ms(lambda _i, c=call: c),
+                       wall_ms=walls[name])
+            for name, call in calls.items()}
+
+
+def time_mirror_flush(PM, mirror, actors, rounds=9, warmup=2):
+    """The mirror's flush as the mirror runs it: 1,000 pending writes
+    (`update`s made before the clock starts) scatter-maxed by
+    `_scatter_pending` (host triples in the launch parameters), beside
+    the library route on the same pending arrays (a pageable
+    torch.from_numpy(...).to(dev) upload, then scatter_reduce_); host
+    clock around each, ending in a synchronize, the two in turns.
+    Returns {flush_ms, flush_library_ms} (medians)."""
+    import numpy as np
+    import torch
+
+    n, A = CONFIG5["dirty"], len(actors)
+
+    def library_flush():
+        trip = torch.from_numpy(np.stack(mirror._pending_arrays())).to(
+            mirror.device)
+        mat = mirror._mat()
+        mat.view(-1).scatter_reduce_(
+            0, trip[0].long() * mat.shape[1] + trip[1].long(), trip[2], "amax")
+
+    routes = {"flush_ms": mirror._scatter_pending,
+              "flush_library_ms": library_flush}
+    times = {name: [] for name in routes}
+    base = 10**6
+    for r in range(warmup + rounds):
+        for name, flush in routes.items():
+            base += 10**4
+            for j in range(n):
+                mirror.update(f"d{j}", {actors[j % A]: base + j})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flush()
+            torch.cuda.synchronize()
+            if r >= warmup:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    if mirror._pending:
+        raise AssertionError("the flush left writes pending")
+    return {name: statistics.median(v) for name, v in times.items()}
 
 
 # -- the read slice -----------------------------------------------------------
@@ -1085,6 +1244,8 @@ def compare_serve_kernels(synth, sk):
     kernel and raises on any difference."""
     import numpy as np
 
+    from hypermerge_tpu_torch.ops.crdt_kernels import launch_cap as sk_launch_cap
+
     errs = dict.fromkeys(SERVE, 0)
     for B in (1, 8, 64):
         for N in (64, 1024, 65536):
@@ -1106,6 +1267,32 @@ def compare_serve_kernels(synth, sk):
                                 "plain")
     log("phase 2 serve kernels at B in {1, 8, 64} x N in {64, 1024, 65536}, "
         f"scenarios {list(synth.SERVE_SCENARIOS)}: kernels == plain (exact)")
+    # serve_order's split into a sorted head and a tail in row order: the
+    # read mix's shapes, a batch above one launch's entries, and a
+    # 65,536-row bucket (keys in global scratch; "all_live" takes the
+    # global route), live rows of rank -2^31 + 1 and INT32_MIN included
+    import torch
+
+    cap = sk_launch_cap("serve_order", 0)
+    shapes = ((1, 1024), (8, 1024), (cap + 2, 64), (3, 65536))
+    for B, N in shapes:
+        for case in synth.ORDER_CASES:
+            lanes, qobj = synth.synth_order_lanes(case, B, N, seed=B + N)
+            devs = list(torch.from_numpy(lanes).cuda().unbind(0))
+            if B > 1:
+                devs[-1], qobj[-1] = devs[0], sk.NO_OBJ
+            got = sk.seq_order_cuda(devs, qobj)
+            want = serve_plain(sk, "serve_order", devs, qobj,
+                               np.full(B, -1, np.int32))
+            for g, w in zip(got, want):
+                if g.dtype != w.dtype or not np.array_equal(g, w):
+                    raise AssertionError(
+                        f"serve_order B={B} N={N} {case}: kernel != plain")
+                errs["serve_order"] = max(
+                    errs["serve_order"],
+                    int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()))
+    log(f"phase 2 serve_order at (B, N) in {list(shapes)}, cases "
+        f"{list(synth.ORDER_CASES)}: kernel == plain (exact)")
     return errs
 
 
@@ -1308,7 +1495,10 @@ def read_path(ck, sk, root):
     def delta(key):
         return int(snap1.get(key, 0) - snap0.get(key, 0))
 
-    dispatches = delta("serve.dispatches")
+    # a serve_order dispatch above one launch's entries takes more launches
+    cap = ck.launch_cap("serve_order", 0)
+    dispatches = delta("serve.dispatches") + sum(
+        n * (-(-B // cap) - 1) for (B, _N), n in seen["serve_order"].items())
     serve_sum = sum(counts[k] for k in SERVE)
     log(f"phase 3d reads: 2 x {len(mix)} len reads (timed, profiled) + "
         f"{n_mixed} mixed, launches "
@@ -1321,7 +1511,8 @@ def read_path(ck, sk, root):
             raise AssertionError(f"kernel {k} never launched on the read path")
     if serve_sum != dispatches:
         raise AssertionError(
-            f"serve launches {serve_sum} != serve.dispatches {dispatches}")
+            f"serve launches {serve_sum} != serve.dispatches {dispatches} "
+            "(with serve_order's extra launches)")
     if any(counts[k] != bulk[k] for k in BULK):
         raise AssertionError(f"bulk kernels launched during reads: {counts}")
     if delta("serve.fallbacks"):
@@ -1361,6 +1552,64 @@ def summary_rows(summ, doc_ids):
     return rows
 
 
+def time_order_dispatch(sk, devs, qobj, B, N):
+    """serve_order's extra readings at one dispatch's inputs: the
+    wrapper's host work (it ends in the dispatch's sync, so this is its
+    wall), the copy back alone (device output into the thread's pinned
+    buffer), the kernel alone cold, the bare torch.sort of a key already
+    on the card (`library_ms`), and the like-for-like library dispatch
+    (stack, key, stable torch.sort, order and counts to the host in one
+    copy)."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    dev = devs[0].device
+    qo = torch.from_numpy(qobj).cuda()
+
+    def key_of(st):
+        mask = (st[:, 0] != 0) & (st[:, 2] == qo[:, None]) & (st[:, 3] == 1)
+        return mask, torch.where(mask, -st[:, 1], 2**31 - 1)
+
+    _mask, key = key_of(torch.stack(devs))
+
+    def library_dispatch():
+        mask, k = key_of(torch.stack(devs))
+        order = torch.sort(k, dim=1, stable=True).indices.to(torch.int32)
+        return torch.cat([order.flatten(),
+                          mask.sum(dim=1, dtype=torch.int32)]).cpu()
+
+    n_out = B * N + B
+    out, host = sk._order_buffers.get(dev, n_out)
+    r = dict(
+        host_ms=host_call_ms(lambda: sk.seq_order_cuda(devs, qobj)),
+        copy_back_ms=median_ms(
+            lambda: host[:n_out].copy_(out[:n_out], non_blocking=True)),
+        library_ms=median_ms(lambda: torch.sort(key, dim=1, stable=True)),
+        library_dispatch_ms=median_ms(library_dispatch),
+        cold_kernel_ms=None,
+    )
+    if N <= sk.ORDER_SHARED_KEYS:  # no scratch: the entry alone, no copy
+        fn = ck.kernel_fn("serve_order")
+        stream = ck.launch_stream(dev)
+
+        def cold_order(_i):
+            lanes = [d.clone() for d in devs]
+            ptrs, q = sk.lane_pointers(lanes), qobj.copy()
+            out_i = torch.empty(n_out, dtype=torch.int32, device=dev)
+
+            def call():
+                if fn(ptrs.ctypes.data, q.ctypes.data, B, N, 0, 0, None, 0,
+                      out_i.data_ptr(), None, stream):
+                    raise AssertionError("serve_order alone failed to launch")
+                return lanes, out_i
+            return call
+
+        r["cold_kernel_ms"] = cold_calls_ms(cold_order)
+    return r
+
+
 def time_serve_kernels(sk, seen, last):
     """Phase 4 for the serve kernels, each at the (B, N) that the read
     slice dispatched most, on the lanes of one of those dispatches."""
@@ -1393,12 +1642,7 @@ def time_serve_kernels(sk, seen, last):
                  else lanes_read[name] * B * N),
         )
         if name == "serve_order":
-            st = torch.stack(devs)
-            qo = torch.from_numpy(qobj).cuda()
-            mask = (st[:, 0] != 0) & (st[:, 2] == qo[:, None]) & (st[:, 3] == 1)
-            key = torch.where(mask, -st[:, 1], 2**31 - 1)
-            r["library_ms"] = median_ms(
-                lambda: torch.sort(key, dim=1, stable=True))
+            r.update(time_order_dispatch(sk, devs, qobj, B, N))
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -1673,6 +1917,34 @@ def cold_kernel_ms(make_call, footprint: int) -> float:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / runs
+
+    stream()
+    return statistics.median(stream() for _ in range(3))
+
+
+def cold_calls_ms(make_call, count=256) -> float:
+    """Device time per call of `count` calls each on memory of its own
+    (make_call(i)), for calls too small for cold_kernel_ms's stream of 40
+    x the L2: a 4 x L2 buffer is zeroed first (which evicts every line
+    the calls' inputs held), the calls queue behind a spin of the card
+    and run back to back between two CUDA events, so each reads its
+    inputs from HBM once. Median of 3 streams after one to warm."""
+    import torch
+
+    calls = [make_call(i) for i in range(count)]
+    flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda")
+
+    def stream():
+        flush.zero_()
+        torch.cuda._sleep(count * COLD_SLACK_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for call in calls:
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / count
 
     stream()
     return statistics.median(stream() for _ in range(3))
@@ -2251,6 +2523,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
+    log(toolkit_line())
+    log(f"phase 1 parameter caps: clock_scatter "
+        f"{ck.launch_cap('clock_scatter')} triples a launch, serve_order "
+        f"{ck.launch_cap('serve_order', 0)} entries a launch, "
+        f"{ck.launch_cap('serve_order', 1)} keys in shared memory")
     for stem, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2421,6 +2698,10 @@ def main() -> int:
                       else [r["B"], r["N"]] if name in SERVE
                       else shapes[name] if name in shapes
                       else list(slab.shape)),
+            # the other readings where this run took them: the wrapper's
+            # host work, the kernel alone (profiler; cold), the flush and
+            # the library dispatch
+            **{k: r[k] for k in EXTRA_READINGS if k in r},
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))

@@ -13,8 +13,10 @@ here. Four CUDA kernels carry the programs:
 - `kernels/csrc/clock_union.cu`: `union_reduce`, the column max, and in
   its min mode `min_reduce`, the column min (the mesh's pmin, folded over
   partials that parallel/ring.py gathered);
-- `kernels/csrc/clock_scatter.cu`: `scatter_max_`, the mirror's batched
-  writes (the reference's `m.at[r, c].max(v)`);
+- `kernels/csrc/clock_scatter.cu`: `scatter_max_`, the batched writes
+  (the reference's `m.at[r, c].max(v)`) of triples on the card, and
+  `scatter_max_host_`, the mirror's pending writes from host memory,
+  which travel in the launch's parameters (no upload);
 - `kernels/csrc/clock_topk.cu`: `top_k_dominated`, a score and select
   per tile of rows in shared memory, then one merge of the tiles' top k
   (`topk_plan` names the route; a large k sorts every key across blocks).
@@ -37,8 +39,8 @@ import torch
 
 from ..device import DeviceLike, resolve
 from .columnar import round_up_pow2
-from .crdt_kernels import (_check, _launched, kernel_fn, launch_scope,
-                           launch_stream)
+from .crdt_kernels import (_check, _launched, kernel_fn, launch_cap,
+                           launch_scope, launch_stream)
 
 INT32_INF = 2**31 - 1
 
@@ -222,27 +224,70 @@ def min_reduce_cuda(clocks: torch.Tensor) -> torch.Tensor:
     return _column_reduce_cuda(clocks, _MIN, "clock_union_min")
 
 
+def _check_matrix(m: torch.Tensor) -> None:
+    if (m.ndim != 2 or m.device.type != "cuda" or m.dtype != torch.int32
+            or not m.is_contiguous()):
+        raise ValueError(
+            f"scatter_max into a {m.dtype} {tuple(m.shape)} tensor on "
+            f"{m.device}: expected a contiguous int32 matrix on a GPU")
+
+
 def scatter_max_cuda_(
     m: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor
 ) -> torch.Tensor:
-    """clock_scatter.cu: the scatter-max of n triples into m, in place."""
-    if m.ndim != 2:
-        raise ValueError(f"scatter_max into a {tuple(m.shape)} tensor")
-    cap_d, cap_a = m.shape
+    """clock_scatter.cu: the scatter-max of n triples on m's card into m,
+    in place."""
+    _check_matrix(m)
     n = rows.shape[0]
-    _check(m, "m", torch.int32, (cap_d, cap_a))
     for name, t in (("rows", rows), ("cols", cols), ("vals", vals)):
-        _check(t, name, torch.int32, (n,))
-        if t.device != m.device:
-            raise ValueError(f"{name} on {t.device}, the matrix on {m.device}")
+        if (t.device != m.device or t.dtype != torch.int32
+                or t.shape != (n,) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name}: expected contiguous int32 [{n}] on {m.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if n == 0:
         return m
     dev = m.device
     fn = kernel_fn("clock_scatter")
-    with torch.cuda.device(dev):
-        rc = fn(m.data_ptr(), cap_d, cap_a, rows.data_ptr(), cols.data_ptr(),
-                vals.data_ptr(), n, launch_stream(dev))
+    with launch_scope(dev):
+        rc = fn(m.data_ptr(), m.shape[0], m.shape[1], rows.data_ptr(),
+                cols.data_ptr(), vals.data_ptr(), n, launch_stream(dev))
     _launched("clock_scatter", rc)
+    return m
+
+
+# the triples one launch of clock_scatter.cu's parameter route takes under
+# the oldest toolkit (its 4,096-byte parameter limit); above this the
+# wrapper reads the source's own cap to count the launches
+SCATTER_PARAM_TRIPLES_MIN = 256
+
+
+def scatter_max_params_cuda_(
+    m: torch.Tensor, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray
+) -> torch.Tensor:
+    """clock_scatter.cu's parameter route: n triples in host memory
+    scatter-maxed into m, in place, with no upload. The C entry copies
+    them into the launches' parameters (launch_cap("clock_scatter")
+    triples a launch, 2,048 under CUDA 12.1 and later, each launch in the
+    smallest struct that holds them) before it returns, so the arrays
+    need only live through the call."""
+    _check_matrix(m)
+    n = len(rows)
+    for name, a in (("rows", rows), ("cols", cols), ("vals", vals)):
+        if (not isinstance(a, np.ndarray) or a.dtype != np.int32
+                or a.shape != (n,) or not a.flags.c_contiguous):
+            raise ValueError(
+                f"{name}: expected a C-contiguous int32 numpy array of {n}")
+    if n == 0:
+        return m
+    dev = m.device
+    fn = kernel_fn("clock_scatter_params")
+    with launch_scope(dev):
+        rc = fn(m.data_ptr(), m.shape[0], m.shape[1], rows.ctypes.data,
+                cols.ctypes.data, vals.ctypes.data, n, 0, launch_stream(dev))
+    per_launch = (n if n <= SCATTER_PARAM_TRIPLES_MIN
+                  else launch_cap("clock_scatter"))
+    _launched("clock_scatter", rc, -(-n // per_launch))
     return m
 
 
@@ -362,6 +407,19 @@ def scatter_max_(
     if _on_cuda(m):
         return scatter_max_cuda_(m, rows, cols, vals)
     return scatter_max_plain_(m, rows, cols, vals)
+
+
+def scatter_max_host_(
+    m: torch.Tensor, rows: np.ndarray, cols: np.ndarray, vals: np.ndarray
+) -> torch.Tensor:
+    """The mirror's flush: m.at[rows, cols].max(vals), in place, from
+    int32 numpy triples. On a GPU the triples travel in the kernel's
+    launch parameters; on the CPU the plain version runs on tensors made
+    from the same arrays. Returns m."""
+    if _on_cuda(m):
+        return scatter_max_params_cuda_(m, rows, cols, vals)
+    return scatter_max_plain_(
+        m, *(torch.from_numpy(np.asarray(a, np.int32)) for a in (rows, cols, vals)))
 
 
 def top_k_dominated(

@@ -10,7 +10,8 @@ top-k covered docs — read nothing from the host beyond the query vector:
 
 - writes buffer host-side (dict of (row, col) -> seq, monotonic max)
   and flush lazily as ONE scatter-max (clock_scatter.cu) right before the
-  next query — interactive writes never pay a device round trip;
+  next query, its triples passed in the launch's parameters rather than
+  uploaded — interactive writes never pay a device round trip;
 - union() with writes pending runs the scatter and the column max
   (clock_union.cu) back to back on one stream, with no host sync between
   them, and reads back [actors];
@@ -194,10 +195,10 @@ class DeviceClockMirror:
         return rows, cols, vals
 
     def _scatter_pending(self) -> torch.Tensor:
-        """The pending writes scatter-maxed into the matrix (one upload
-        of the triples, one launch); returns the matrix."""
-        triples = self._upload(np.stack(self._pending_arrays()))
-        return K.scatter_max_(self._mat(), triples[0], triples[1], triples[2])
+        """The pending writes scatter-maxed into the matrix: on a GPU the
+        host triples travel in the launch's parameters (one launch per
+        2,048, no upload); returns the matrix."""
+        return K.scatter_max_host_(self._mat(), *self._pending_arrays())
 
     def _flush_locked(self) -> None:
         if self._pending:

@@ -324,7 +324,8 @@ def summarize_wire_plain(
 #
 # Each wrapper checks what its kernel takes, allocates outputs and scratch
 # with torch.empty, launches on the current stream, raises on a non-zero
-# cudaGetLastError, and adds one to `launches[name]` per launch.
+# cudaGetLastError, and adds one to `launches[name]` per launch (an entry
+# that splits a batch over several launches counts each).
 
 launches: Dict[str, int] = {
     "materialize": 0, "materialize_live": 0, "summary_wire": 0,
@@ -348,13 +349,20 @@ _SIGNATURES = {
     "clock_scatter": (
         "hm_clock_scatter", [_P] + [_I] * 2 + [_P] * 3 + [_I, _P]
     ),
+    # the same source's entry for triples in host memory
+    "clock_scatter_params": (
+        "hm_clock_scatter_params", [_P] + [_I] * 2 + [_P] * 3 + [_I] * 2 + [_P]
+    ),
     "clock_topk": (
         "hm_clock_topk",
         [_P] + [_I] * 2 + [_P] + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
     ),
     # wrappers in serve/kernels.py
     "serve_lookup": ("hm_serve_lookup", [_P] + [_I] * 2 + [_P] * 2),
-    "serve_order": ("hm_serve_order", [_P] + [_I] * 2 + [_P] * 3),
+    "serve_order": (
+        "hm_serve_order",
+        [_P] * 2 + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
+    ),
     "serve_counts": ("hm_serve_counts", [_P] + [_I] * 2 + [_P] * 2),
     # wrapper in parallel/ring.py
     "ring_gather": (
@@ -363,24 +371,51 @@ _SIGNATURES = {
         + [_I] * 4 + [_P],
     ),
 }
+# entries of a source besides its main one: name -> source stem
+_STEMS = {"clock_scatter_params": "clock_scatter"}
+# per-launch caps each source reports (its C entry hm_<stem>_cap)
+_CAP_SYMBOLS = {
+    "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
+    "serve_order": ("hm_serve_order_cap", [_I]),
+}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+_caps: Dict[tuple, int] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)
 _DOC_SCRATCH_LANES = 8
 _WIRE_INT_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
-def kernel_fn(stem: str):
-    """The bound C entry of one kernel source, built at first use."""
-    fn = _fns.get(stem)
+def kernel_fn(name: str):
+    """The bound C entry `name` (a source stem, or an entry of `_STEMS`),
+    its source built at first use."""
+    fn = _fns.get(name)
     if fn is None:
         from ..kernels._build import load
 
-        symbol, argtypes = _SIGNATURES[stem]
+        symbol, argtypes = _SIGNATURES[name]
+        fn = getattr(load(_STEMS.get(name, name)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch_cap(stem: str, which: int = 0) -> int:
+    """A cap the source `stem` was compiled with, read once from its C
+    entry hm_<stem>..._cap(which). which = 0: the most triples or entries
+    one launch passes by value (they follow the toolkit's parameter
+    limit); clock_scatter's 1: the triples of its middle struct;
+    serve_order's 1: the keys it sorts in shared memory."""
+    cap = _caps.get((stem, which))
+    if cap is None:
+        from ..kernels._build import load
+
+        symbol, argtypes = _CAP_SYMBOLS[stem]
         fn = getattr(load(stem), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fns[stem] = fn
-    return fn
+        cap = _caps[(stem, which)] = int(fn(which))
+    return cap
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -394,10 +429,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _launched(name: str, rc: int) -> None:
+def _launched(name: str, rc: int, n: int = 1) -> None:
+    """Count n launches of `name`, or raise if its entry returned an
+    error."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
-    launches[name] += 1
+    launches[name] += n
 
 
 def launch_stream(dev: torch.device) -> int:

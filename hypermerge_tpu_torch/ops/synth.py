@@ -341,3 +341,42 @@ def synth_serve_lanes(
         elif scenario == "misses":
             qobj[b], qkey[b] = ((6, 0), (qobj[b], 9), (-7, -1))[b % 3]
     return lanes, qobj, qkey
+
+
+ORDER_CASES = ("ties_across_head", "none_live", "all_live", "int32_ends")
+
+
+def synth_order_lanes(
+    case: str, B: int, N: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Element-order query inputs that stress serve_order's split into a
+    sorted head and a tail in row order: ([B, 6, N] int32 lanes, [B]
+    int32 qobj, every query naming container 3). Rows of another
+    container and non-inserting rows are mixed in (except in "all_live"),
+    so the mask is not the live lane alone. Cases: "ties_across_head"
+    (ranks from three values), "none_live" (no row matches), "all_live"
+    (every row matches, ranks over all of int32), "int32_ends" (ranks at
+    and near both int32 ends: a live row of rank -2^31 + 1 has key
+    INT32_MAX and belongs to the tail, one of rank INT32_MIN wraps to the
+    lowest key)."""
+    if case not in ORDER_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    rng = np.random.default_rng(seed)
+    i32 = np.iinfo(np.int32)
+    lanes = np.zeros((B, 6, N), np.int32)
+    live, rank, obj, ins = (lanes[:, k] for k in (0, 1, 2, 3))
+    obj[:] = np.where(rng.random((B, N)) < 0.85, 3, 4)
+    ins[:] = rng.random((B, N)) < 0.9
+    live[:] = rng.random((B, N)) < 0.7
+    if case == "ties_across_head":
+        rank[:] = rng.integers(0, 3, (B, N))
+    elif case == "none_live":
+        live[:] = 0
+        rank[:] = rng.integers(0, 4 * N, (B, N))
+    elif case == "all_live":
+        obj[:], ins[:], live[:] = 3, 1, 1
+        rank[:] = rng.integers(i32.min, i32.max, (B, N), dtype=np.int64)
+    else:
+        rank[:] = rng.choice([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1,
+                              i32.max], (B, N))
+    return lanes, np.full(B, 3, np.int32)

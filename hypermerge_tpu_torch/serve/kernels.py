@@ -10,10 +10,13 @@ Each query is a hand-written CUDA kernel (kernels/csrc/serve_lookup.cu,
 serve_order.cu, serve_counts.cu) with its plain PyTorch version beside
 it; a wrapper launches the kernel for entries on a GPU and runs the plain
 version for entries on the CPU. The kernels read the entries' lanes in
-place: the wrapper uploads ONE small int64 tensor per dispatch holding
-the batch's lane pointers and query vectors, where the reference stacks
-the entries inside its jitted program. The batch axis pads to a power
-of two with copies of entry 0 and the query NO_OBJ, which no row matches
+place, where the reference stacks the entries inside its jitted program.
+serve_lookup and serve_counts read the batch's lane pointers and query
+vectors from ONE small int64 tensor the wrapper uploads per dispatch;
+serve_order takes them by value in its launch parameters (no upload) and
+copies its result into a pinned host buffer that each calling thread
+keeps per device and reuses. The batch axis pads to a power of two with
+copies of entry 0 and the query NO_OBJ, which no row matches
 (`stack_entries`). Results come back to the host as numpy in one copy
 per dispatch, which is also the dispatch's only sync point.
 
@@ -23,6 +26,7 @@ resident doc — a single host->device transfer per install):
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -45,9 +49,13 @@ _INT32_MAX = 2**31 - 1
 # qobj value that matches no container: real obj rows are >= -1 (root)
 NO_OBJ = -7
 
-# rows of a bucket whose (key, row) pairs serve_order.cu sorts in shared
-# memory (its kSharedRows); larger buckets sort in global scratch
-ORDER_SHARED_ROWS = 2048
+# the most keys serve_order.cu sorts in shared memory (its kSharedKeys); a
+# bucket above it keeps its keys in global scratch
+ORDER_SHARED_KEYS = 16384
+# the entries one serve_order launch passes by value under the oldest
+# toolkit (its 4,096-byte parameter limit); above this the wrapper reads
+# the source's own cap to size scratch and count the launches
+ORDER_ENTRIES_MIN = 256
 
 
 class ServeDeviceError(RuntimeError):
@@ -125,9 +133,9 @@ def counts_plain(stacked, qobj):
 # CUDA kernel wrappers (launch counts in crdt_kernels.launches)
 
 
-def dispatch_args(devs, *queries: np.ndarray) -> torch.Tensor:
-    """The one int64 tensor a serve kernel reads: the B lane pointers,
-    then each [B] query vector, on the lanes' device."""
+def lane_pointers(devs) -> np.ndarray:
+    """The batch's B lane pointers (int64), once every entry's lanes are
+    checked to be contiguous int32 [LANES, N] on one device."""
     dev, N = devs[0].device, devs[0].shape[1]
     for t in devs:
         if t.device != dev or t.dtype != torch.int32:
@@ -136,18 +144,48 @@ def dispatch_args(devs, *queries: np.ndarray) -> torch.Tensor:
             raise ValueError(f"serve lanes: expected contiguous [{N_LANES}, {N}]")
     if N < 1 or N & (N - 1):
         raise ValueError(f"row bucket N={N} must be a power of two")
+    return np.asarray([t.data_ptr() for t in devs], np.int64)
+
+
+def dispatch_args(devs, *queries: np.ndarray) -> torch.Tensor:
+    """The one int64 tensor serve_lookup and serve_counts read: the B lane
+    pointers, then each [B] query vector, on the lanes' device."""
     host = np.concatenate(
-        [np.asarray([t.data_ptr() for t in devs], np.int64)]
-        + [np.asarray(q, np.int64) for q in queries]
+        [lane_pointers(devs)] + [np.asarray(q, np.int64) for q in queries]
     )
-    return torch.from_numpy(host).to(dev)
+    return torch.from_numpy(host).to(devs[0].device)
 
 
 def _launch(stem: str, name: str, dev, *args) -> None:
     fn = ck.kernel_fn(stem)
-    with torch.cuda.device(dev):  # the batcher thread launches here
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with ck.launch_scope(dev):  # the batcher thread launches here
+        rc = fn(*args, ck.launch_stream(dev))
     ck._launched(name, rc)
+
+
+class _OrderBuffers(threading.local):
+    """Each calling thread's serve_order result buffers, by device: the
+    device output and the pinned host copy the C entry writes it into.
+    Reused while they are large enough, replaced by ones twice the
+    size otherwise. Every dispatch syncs before it returns, so no copy
+    is in flight when the next dispatch of the thread reuses them."""
+
+    def __init__(self) -> None:
+        self.by_dev = {}
+
+    def get(self, dev: torch.device, n: int):
+        bufs = self.by_dev.get(dev)
+        if bufs is None or bufs[0].numel() < n:
+            size = round_up_pow2(n)
+            bufs = self.by_dev[dev] = (
+                torch.empty(size, dtype=torch.int32, device=dev),
+                torch.empty(size, dtype=torch.int32,
+                            pin_memory=dev.type == "cuda"),
+            )
+        return bufs
+
+
+_order_buffers = _OrderBuffers()
 
 
 def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
@@ -161,19 +199,32 @@ def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
 
 
 def seq_order_cuda(devs, qobj: np.ndarray):
+    """serve_order.cu over the batch: the lane pointers and qobj pass by
+    value in the launch parameters; the entry copies [B * N + B] results
+    into this thread's pinned buffer and waits for the stream. Returns
+    copies, so the next dispatch may reuse the buffer."""
     B, N, dev = len(devs), devs[0].shape[1], devs[0].device
-    args = dispatch_args(devs, qobj)
-    out = torch.empty(B * N + B, dtype=torch.int32, device=dev)
-    # (key, row) pairs of a bucket above ORDER_SHARED_ROWS sort in global
-    # scratch
-    scratch = (
-        torch.empty(B, 2, N, dtype=torch.int32, device=dev)
-        if N > ORDER_SHARED_ROWS else None
-    )
-    _launch("serve_order", "serve_order", dev, args.data_ptr(), B, N,
-            ck._ptr(scratch), out.data_ptr())
-    host = out.cpu().numpy()
-    return host[: B * N].reshape(B, N), host[B * N :]
+    ptrs = lane_pointers(devs)
+    qobj = np.ascontiguousarray(qobj, dtype=np.int32)
+    per_launch = (B if B <= ORDER_ENTRIES_MIN
+                  else ck.launch_cap("serve_order", 0))
+    n_out = B * N + B
+    out, host = _order_buffers.get(dev, n_out)
+    # the keys of a bucket above ORDER_SHARED_KEYS live in global scratch,
+    # one launch's entries at a time, then their head sizes
+    scratch, scratch_len = None, 0
+    if N > ORDER_SHARED_KEYS:
+        m = min(B, per_launch)
+        scratch_len = m * N + m
+        scratch = torch.empty(scratch_len, dtype=torch.int64, device=dev)
+    fn = ck.kernel_fn("serve_order")
+    with ck.launch_scope(dev):
+        rc = fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, 0, 0,
+                ck._ptr(scratch), scratch_len, out.data_ptr(),
+                host.data_ptr(), ck.launch_stream(dev))
+    ck._launched("serve_order", rc, -(-B // per_launch))
+    res = host[:n_out].numpy()
+    return res[: B * N].reshape(B, N).copy(), res[B * N :].copy()
 
 
 def counts_cuda(devs, qobj: np.ndarray):

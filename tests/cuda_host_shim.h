@@ -9,9 +9,14 @@
 // (cudaLaunchCooperativeKernel) runs every thread of every block at once,
 // as the ring gather's blocks wait on each other. Launches from several
 // host threads at once (one per card, as peer ranks run) keep their own
-// grid and block shapes. What this checks is the
-// kernel's logic (phases, barriers, indexing, sort keys, flag protocols),
-// not its speed or the GPU compiler's view of it.
+// grid and block shapes. A kernel parameter passed by value
+// (`const __grid_constant__`, a struct of up to the 32,764 bytes CUDA
+// 12.1 allows) is copied to each thread that runs the kernel: a 24 KB
+// struct costs 24 KB of every std::thread's stack. CUDART_VERSION is
+// that of a CUDA 12.4 toolkit unless the build defines another. A
+// cudaMemcpyAsync is a memcpy, done when it returns. What this checks is
+// the kernel's logic (phases, barriers, indexing, sort keys, flag
+// protocols), not its speed or the GPU compiler's view of it.
 #pragma once
 #include <atomic>
 #include <barrier>
@@ -28,6 +33,10 @@
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __grid_constant__
+#ifndef CUDART_VERSION
+#define CUDART_VERSION 12040
+#endif
 #define __shared__ static  // a block's shared memory; kernels launched
                            // cooperatively here must not use it
 
@@ -36,7 +45,14 @@ typedef int cudaError_t;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaErrorPeerAccessAlreadyEnabled = 704;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaMemcpyDeviceToHost = 2;
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int,
+                           cudaStream_t) {
+  std::memcpy(dst, src, bytes);
+  return 0;
+}
+inline int cudaStreamSynchronize(cudaStream_t) { return 0; }
 inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
 template <class F>
 inline int cudaFuncSetAttribute(F, int, int) {

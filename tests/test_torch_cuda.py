@@ -247,6 +247,97 @@ def test_clock_mirror_on_card_equals_cpu(cuda):
     assert torch.equal(gpu._mat().cpu(), cpu._mat())
 
 
+@pytest.mark.parametrize("n", [0, 1, 1024, 2049, 5000])
+def test_clock_scatter_params_equal_plain(cuda, n):
+    """clock_scatter.cu's parameter route (host triples in the launch
+    parameters, the mirror's flush) against the plain version and the
+    device-triple route: one hot cell, triples outside the matrix, and
+    batches above one launch's cap, each launch counted."""
+    m = _clocks(5, 3000, 64)
+    rng = np.random.default_rng(n)
+    rows, cols, vals = (rng.integers(0, hi, n).astype(np.int32)
+                        for hi in (3000, 64, 5000))
+    rows[: n // 3], cols[: n // 3] = 7, 3
+    if n > 4:
+        rows[-1], cols[-2] = 3000, -1  # dropped
+    before = ck.launches["clock_scatter"]
+    got = ckk.scatter_max_params_cuda_(m.clone(), rows, cols, vals)
+    cap = ck.launch_cap("clock_scatter")
+    assert cap == 2048
+    assert ck.launches["clock_scatter"] == before + -(-n // cap)
+    trip = [torch.from_numpy(a).cuda() for a in (rows, cols, vals)]
+    want = ckk.scatter_max_plain_(m.clone(), *trip)
+    assert torch.equal(got, want)
+    assert torch.equal(ckk.scatter_max_cuda_(m.clone(), *trip), want)
+
+
+def test_clock_scatter_wrappers_reject_what_they_do_not_take(cuda):
+    m = _clocks(6, 16, 8)
+    rows = np.zeros(4, np.int32)
+    for bad in (rows.astype(np.int64), np.zeros(8, np.int32)[::2],
+                torch.zeros(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows"):
+            ckk.scatter_max_params_cuda_(m, bad, rows, rows)
+    with pytest.raises(ValueError, match="int32 matrix"):
+        ckk.scatter_max_params_cuda_(m.t(), rows, rows, rows)
+    dev = torch.zeros(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="cols"):
+        ckk.scatter_max_cuda_(m, dev, dev.cpu(), dev)
+
+
+def _order_dispatch(case, B, N, seed):
+    """(lane tensors on the card with a pad slot when B > 1, qobj) of a
+    serve_order dispatch over synth_order_lanes."""
+    lanes, qobj = synth.synth_order_lanes(case, B, N, seed=seed)
+    devs = list(torch.from_numpy(lanes).cuda().unbind(0))
+    if B > 1:
+        devs[-1], qobj[-1] = devs[0], sk.NO_OBJ
+    return devs, qobj
+
+
+@pytest.mark.parametrize("B,N", [(1, 1024), (8, 1024), (2050, 64), (3, 65536)])
+@pytest.mark.parametrize("case", synth.ORDER_CASES)
+def test_serve_order_equals_plain(cuda, case, B, N):
+    """serve_order.cu's packed-key head sort and straight tail against the
+    plain version: the read mix's shape, a batch above one launch's
+    entries (two launches, one output), and a 65,536-row bucket whose
+    keys live in global scratch ("all_live" runs the global route)."""
+    devs, qobj = _order_dispatch(case, B, N, seed=B + N)
+    before = ck.launches["serve_order"]
+    got = sk.seq_order_cuda(devs, qobj)
+    assert ck.launch_cap("serve_order", 0) == 2048
+    assert ck.launches["serve_order"] == before + -(-B // 2048)
+    want = sk.seq_order_plain(torch.stack(devs), torch.from_numpy(qobj).cuda())
+    for g, w in zip(got, want):
+        w = w.cpu().numpy()
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_serve_order_threads_keep_their_own_buffers(cuda):
+    """Dispatches from several threads at once, each on its own inputs,
+    each through its thread's pinned buffer: every answer its own."""
+    import threading
+
+    work = [_order_dispatch(synth.ORDER_CASES[i % 4], 1 + i % 3, 256 << (i % 3),
+                            seed=i) for i in range(8)]
+    want = [tuple(x.cpu().numpy() for x in sk.seq_order_plain(
+        torch.stack(d), torch.from_numpy(q).cuda())) for d, q in work]
+    bad = []
+
+    def run(i):
+        for _ in range(20):
+            got = sk.seq_order_cuda(*work[i])
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[i])):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+
+
 SERVE_CALLS = {
     "lookup": (sk.map_lookup_cuda,
                lambda st, qo, qk: sk.map_lookup_plain(st, qo, qk)),

@@ -110,9 +110,19 @@ def _few_cores():
         os.sched_setaffinity(0, cores)
 
 
-def _compile_host(sources, out):
-    """{stem: bound C entry} of .cu texts ({stem: text}) compiled for the
-    host into `out`, one g++ per source, all at once."""
+def _bind(lib, symbol, argtypes):
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _compile_host(sources, out, defines=()):
+    """{name: bound C entry} of .cu texts ({stem: text}) compiled for the
+    host into `out`, one g++ per source, all at once: each source's main
+    entry by its stem, its other entries by their names in
+    crdt_kernels._SIGNATURES, and its cap query (if any) as
+    "<stem>_cap"."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernel sources for the host")
@@ -122,6 +132,7 @@ def _compile_host(sources, out):
         src.write_text(_host_source(text))
         procs[stem] = subprocess.Popen(
             [gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+             *(f"-D{d}" for d in defines),
              f"-I{CSRC}", f"-I{TESTS}", "-o", str(out / f"lib{stem}.so"),
              str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -130,20 +141,22 @@ def _compile_host(sources, out):
     for stem, proc in procs.items():
         log, _ = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{stem}:\n{log}"
-        symbol, argtypes = ck._SIGNATURES[stem]
-        fn = getattr(ctypes.CDLL(str(out / f"lib{stem}.so")), symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        fns[stem] = fn
+        lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
+        for name, (symbol, argtypes) in ck._SIGNATURES.items():
+            if ck._STEMS.get(name, name) == stem:
+                fns[name] = _bind(lib, symbol, argtypes)
+        if stem in ck._CAP_SYMBOLS:
+            fns[f"{stem}_cap"] = _bind(lib, *ck._CAP_SYMBOLS[stem])
     return fns
 
 
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
-    """{stem: bound C entry} of the kernels compiled for the host."""
+    """{name: bound C entry} of the kernels compiled for the host."""
     return _compile_host(
         {stem: (CSRC / f"{stem}.cu").read_text() for stem in ck._SIGNATURES
-         if stem != "ring_gather"},  # runs in a subprocess of its own below
+         if stem not in ck._STEMS
+         and stem != "ring_gather"},  # runs in a subprocess of its own below
         tmp_path_factory.mktemp("host_kernels"),
     )
 
@@ -397,6 +410,96 @@ def test_clock_scatter_source_equals_plain(host_kernels, n):
     assert torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
 
 
+def _run_host_params(fn, m, rows, cols, vals, per_launch=0):
+    """The parameter route, called as scatter_max_params_cuda_ calls it:
+    the triples as host arrays (here numpy views of the tensors)."""
+    m = m.clone()
+    arrs = [t.numpy() for t in (rows, cols, vals)]
+    rc = fn(m.data_ptr(), m.shape[0], m.shape[1], *(a.ctypes.data for a in arrs),
+            len(arrs[0]), per_launch, None)
+    assert rc == 0
+    return m
+
+
+def _params_inputs(n, seed):
+    """_scatter_inputs at any n >= 0, with the last triple raising its
+    cell above every other value, so that a launch that drops it shows."""
+    if n < 8:
+        m = torch.from_numpy(
+            np.random.default_rng(seed).integers(0, 50, (16, 8)).astype(np.int32))
+        trip = [torch.from_numpy(np.arange(n, dtype=np.int32) % k)
+                for k in (16, 8)] + [torch.full((n,), 60, dtype=torch.int32)]
+    else:
+        m, trip = _scatter_inputs(seed, n)
+    if n:
+        trip[0][-1], trip[1][-1], trip[2][-1] = 7, 3, 1000
+    return m, trip
+
+
+# (n, per_launch): 0 takes launches of up to the source's cap (2,048 at
+# CUDA 12.1 and later), each in the smallest struct that holds it; a
+# per_launch sizes every launch's struct for that many
+PARAMS_CASES = {
+    "empty": (0, 0), "one": (1, 0), "duplicates": (64, 0),
+    "config5_flush": (1024, 0), "cap_plus_one": (17, 16),
+    "split_five_ways": (1000, 200), "mid_struct_plus_one": (1025, 1024),
+    "source_cap_plus_one": (2049, 0), "largest_struct_part_full": (1000, 2048),
+}
+
+
+@pytest.mark.parametrize("case", list(PARAMS_CASES))
+def test_clock_scatter_params_source_equals_plain(host_kernels, case):
+    """hm_clock_scatter_params (the mirror's route: host triples in the
+    launch parameters) against the plain version: duplicate cells, values
+    below the cell's, the mirror's (0, 0, 0) pads, triples outside the
+    matrix, n = 0, and batches split over several launches (per_launch
+    below the cap, and the cap itself + 1: a full struct then a small
+    one)."""
+    n, per_launch = PARAMS_CASES[case]
+    assert host_kernels["clock_scatter_cap"](0) == 2048
+    assert host_kernels["clock_scatter_cap"](1) == 1024
+    m, trip = _params_inputs(n, seed=n + per_launch)
+    got = _run_host_params(host_kernels["clock_scatter_params"], m, *trip,
+                           per_launch=per_launch)
+    assert torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+
+
+def test_clock_scatter_params_rejects_a_launch_above_its_cap(host_kernels):
+    m, trip = _params_inputs(8, seed=1)
+    arrs = [t.numpy() for t in trip]
+    assert host_kernels["clock_scatter_params"](
+        m.data_ptr(), 16, 8, *(a.ctypes.data for a in arrs), 8, 2049, None) == -1
+
+
+def test_clock_scatter_params_source_under_an_old_toolkit(tmp_path):
+    """Built as under CUDA 11.8 (the 4,096-byte parameter limit): 256
+    triples a launch, so 300 take two."""
+    fns = _compile_host({"clock_scatter": (CSRC / "clock_scatter.cu").read_text()},
+                        tmp_path, defines=("CUDART_VERSION=11080",))
+    assert fns["clock_scatter_cap"](0) == fns["clock_scatter_cap"](1) == 256
+    m, trip = _params_inputs(300, seed=3)
+    got = _run_host_params(fns["clock_scatter_params"], m, *trip)
+    assert torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+
+
+def test_scatter_max_host_equals_reference_on_the_cpu():
+    """The mirror's entry on the CPU (the plain version on tensors made
+    from the host arrays) against the reference's jitted scatter-max, on
+    triples inside the matrix as the mirror makes them (duplicates, the
+    (0, 0, 0) pads)."""
+    from hypermerge_tpu.ops import clock_mirror as ref_mirror
+
+    rng = np.random.default_rng(5)
+    m = rng.integers(0, 50, (16, 8)).astype(np.int32)
+    rows, cols, vals = (rng.integers(0, hi, 1024).astype(np.int32)
+                        for hi in (16, 8, 100))
+    rows[:300], cols[:300] = 5, 2
+    rows[1000:] = cols[1000:] = vals[1000:] = 0
+    got = ckk.scatter_max_host_(torch.from_numpy(m.copy()), rows, cols, vals)
+    want = ref_mirror._jits()[0](m, rows, cols, vals)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # clock_topk.cu's launch shape in these runs: tiles of 16 rows and 32
 # threads (so that tens of rows make several tiles and the shim's
 # std::threads stay few); the route as topk_plan picks it for a merge of
@@ -574,8 +677,12 @@ MUTANTS = {
          "*score = -static_cast<int>(static_cast<unsigned>(key >> 32));"),
     ]),
     "scatter_plain_store": ("clock_scatter", [
-        ("atomicMax(&m[(long long)r * cap_a + c], vals[i]);",
-         "m[(long long)r * cap_a + c] = vals[i];"),
+        ("atomicMax(&m[static_cast<long long>(r) * cap_a + c], v);",
+         "m[static_cast<long long>(r) * cap_a + c] = v;"),
+    ]),
+    "scatter_split_drops_last_chunk": ("clock_scatter", [
+        ("for (int i0 = 0; i0 < n; i0 += chunk) {",
+         "for (int i0 = 0; i0 + chunk < n; i0 += chunk) {"),
     ]),
     "union_starts_at_zero": ("clock_union", [
         ("constexpr int kNoValue = INT32_MIN;", "constexpr int kNoValue = 0;"),
@@ -603,7 +710,8 @@ def test_clock_mutants_fail(tmp_path, name):
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
-    fn = _compile_host({stem: text}, tmp_path)[stem]
+    fns = _compile_host({stem: text}, tmp_path)
+    fn = fns[stem]
     if stem == "clock_topk":
         for case in TOPK_MUTANT_CASES[name]:
             make, k = TOPK_CASES[case]
@@ -614,10 +722,17 @@ def test_clock_mutants_fail(tmp_path, name):
                 assert torch.equal(got[0], want[0])
             assert not (torch.equal(got[0], want[0])
                         and torch.equal(got[1], want[1])), case
-    elif stem == "clock_scatter":
-        m, trip = _scatter_inputs(3, 64)
-        got = _run_host_scatter(fn, m, *trip)
+    elif name == "scatter_split_drops_last_chunk":  # n = per_launch + 1
+        m, trip = _params_inputs(17, seed=2)
+        got = _run_host_params(fns["clock_scatter_params"], m, *trip,
+                               per_launch=16)
         assert not torch.equal(got, ckk.scatter_max_plain_(m.clone(), *trip))
+    elif stem == "clock_scatter":  # both routes
+        m, trip = _scatter_inputs(3, 64)
+        want = ckk.scatter_max_plain_(m.clone(), *trip)
+        assert not torch.equal(_run_host_scatter(fn, m, *trip), want)
+        got = _run_host_params(fns["clock_scatter_params"], m, *trip)
+        assert not torch.equal(got, want)
     elif name == "min_starts_at_zero":
         m = MIN_CASES["positive"]()
         assert not torch.equal(_run_host_union(fn, m, op=ckk._MIN),
@@ -647,29 +762,45 @@ def _serve_inputs(scenario, N, B=3, seed=0):
     return lanes, qobj, qkey
 
 
-def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True):
+def _run_host_order(fn, ptrs, qobj, N, per_launch=0, shared_keys=0):
+    """serve_order's entry as seq_order_cuda calls it: the lane pointers
+    and qobj as host arrays, a device output and a host copy (standing in
+    for the pinned buffer) that start as garbage, scratch when N is above
+    the keys sorted in shared memory; returns what the copy holds."""
+    B = len(ptrs)
+    ptrs = np.asarray(ptrs, np.int64)
+    qobj = np.ascontiguousarray(qobj, np.int32)
+    out = torch.full((B * N + B,), 77, dtype=torch.int32)
+    host = torch.full((B * N + B,), 78, dtype=torch.int32)
+    scratch, scratch_len = None, 0
+    if N > (shared_keys or sk.ORDER_SHARED_KEYS):
+        m = min(B, per_launch or B)
+        scratch_len = m * N + m
+        scratch = torch.full((scratch_len,), 5, dtype=torch.int64)
+    rc = fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, per_launch, shared_keys,
+            ck._ptr(scratch), scratch_len, out.data_ptr(), host.data_ptr(),
+            None)
+    assert rc == 0
+    return host[: B * N].reshape(B, N), host[B * N :]
+
+
+def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True, **order_kw):
     """A serve kernel compiled for the host, called as its wrapper calls
-    it: one int64 argument array of lane pointers and queries (the pad
-    slot points at entry 0's lanes); outputs start as garbage."""
+    it: serve_order with its arguments in host memory, the others with one
+    int64 argument array of lane pointers and queries (the pad slot points
+    at entry 0's lanes); outputs start as garbage."""
     B, _, N = lanes.shape
     stride = lanes[0].numel() * lanes.element_size()
     ptrs = [lanes.data_ptr() + b * stride for b in range(B)]
     if pad_ptr:
         ptrs[-1] = ptrs[0]
+    if stem == "serve_order":
+        return _run_host_order(fn, ptrs, qobj, N, **order_kw)
     queries = [qobj] if stem != "serve_lookup" else [qobj, qkey]
     args = torch.from_numpy(
         np.concatenate([np.asarray(ptrs, np.int64)]
                        + [q.astype(np.int64) for q in queries])
     )
-    if stem == "serve_order":
-        out = torch.full((B * N + B,), 77, dtype=torch.int32)
-        scratch = (
-            torch.full((B, 2, N), 5, dtype=torch.int32)
-            if N > sk.ORDER_SHARED_ROWS else None
-        )
-        rc = fn(args.data_ptr(), B, N, ck._ptr(scratch), out.data_ptr(), None)
-        assert rc == 0
-        return out[: B * N].reshape(B, N), out[B * N :]
     out = torch.full((2 * B,), 77, dtype=torch.int32)
     assert fn(args.data_ptr(), B, N, out.data_ptr(), None) == 0
     if stem == "serve_lookup":
@@ -685,45 +816,139 @@ def _serve_equal(got, want):
 
 SERVE_SOURCE_CASES = [
     (scenario, N) for scenario in synth.SERVE_SCENARIOS for N in (64, 256)
-] + [("random", 4096), ("ties", 4096)]
+] + [("random", 4096), ("ties", 4096), ("all_masked", 4096)]
 
 
 @pytest.mark.parametrize("scenario,N", SERVE_SOURCE_CASES)
 @pytest.mark.parametrize("stem", list(SERVE_PLAIN))
 def test_serve_source_equals_plain(host_kernels, stem, scenario, N):
+    """At N = 4096 serve_order sorts at most 1,024 keys in shared memory,
+    so its keys live in global scratch: heads of up to 1,024 keys are
+    sorted in shared memory after all, larger ones ("all_masked") on the
+    global route."""
     lanes, qobj, qkey = _serve_inputs(scenario, N, seed=N)
-    got = _run_host_serve(host_kernels[stem], stem, lanes, qobj, qkey)
+    kw = {"shared_keys": 1024} if stem == "serve_order" and N > 1024 else {}
+    got = _run_host_serve(host_kernels[stem], stem, lanes, qobj, qkey, **kw)
     want = SERVE_PLAIN[stem](
         lanes, torch.from_numpy(qobj), torch.from_numpy(qkey)
     )
     assert _serve_equal(got, want)
 
 
+def _order_lanes(case, B, N, seed):
+    """synth_order_lanes of B entries, then a pad slot (entry 0 again,
+    query NO_OBJ)."""
+    lanes, qobj = synth.synth_order_lanes(case, B, N, seed=seed)
+    return (np.concatenate([lanes, lanes[:1]]),
+            np.append(qobj, sk.NO_OBJ).astype(np.int32))
+
+
+# (B with its pad slot, N, per_launch, shared_keys); 0 takes the source's
+# cap. "split": several launches of 2 entries; "global": keys above
+# shared_keys in global scratch, heads above it on the global route;
+# "global_split": both, scratch reused launch after launch
+ORDER_SHAPES = {
+    "shared": (6, 64, 0, 0), "tiny_bucket": (3, 16, 0, 0),
+    "split": (6, 64, 2, 0), "global": (4, 256, 0, 32),
+    "global_split": (6, 256, 4, 32),
+}
+
+
+@pytest.mark.parametrize("shape", list(ORDER_SHAPES))
+@pytest.mark.parametrize("case", synth.ORDER_CASES)
+def test_serve_order_source_equals_plain_and_reference(host_kernels, case,
+                                                       shape):
+    """serve_order's packed-key sort of the head and straight tail against
+    seq_order_plain on every slot, and the real slots against the JAX
+    package's jitted _build_seq_order (which pads the batch itself)."""
+    import jax.numpy as jnp
+    from hypermerge_tpu.serve import kernels as ref_sk
+
+    B, N, per_launch, shared_keys = ORDER_SHAPES[shape]
+    lanes, qobj = _order_lanes(case, B - 1, N, seed=B * N + per_launch)
+    t = torch.from_numpy(lanes)
+    ptrs = [t[b].data_ptr() for b in range(B)]
+    ptrs[-1] = ptrs[0]
+    got = _run_host_order(host_kernels["serve_order"], ptrs, qobj, N,
+                          per_launch, shared_keys)
+    want = sk.seq_order_plain(t, torch.from_numpy(qobj))
+    assert _serve_equal(got, want)
+
+    class _Entry:
+        def __init__(self, dev):
+            self.dev = dev
+
+    ref_order, ref_count = ref_sk.seq_order(
+        [_Entry(jnp.asarray(lanes[b])) for b in range(B - 1)],
+        list(qobj[: B - 1]))
+    np.testing.assert_array_equal(got[0][: B - 1].numpy(), ref_order[: B - 1])
+    np.testing.assert_array_equal(got[1][: B - 1].numpy(), ref_count[: B - 1])
+
+
+def test_serve_order_source_under_an_old_toolkit(tmp_path):
+    """Built as under CUDA 11.8: 256 entries a launch, so 300 take two,
+    the second through the small struct."""
+    fns = _compile_host({"serve_order": (CSRC / "serve_order.cu").read_text()},
+                        tmp_path, defines=("CUDART_VERSION=11080",))
+    assert fns["serve_order_cap"](0) == 256
+    assert fns["serve_order_cap"](1) == sk.ORDER_SHARED_KEYS
+    lanes, qobj = _order_lanes("ties_across_head", 299, 32, seed=7)
+    t = torch.from_numpy(lanes)
+    got = _run_host_order(fns["serve_order"], [t[b].data_ptr() for b in range(300)],
+                          qobj, 32)
+    assert _serve_equal(got, sk.seq_order_plain(t, torch.from_numpy(qobj)))
+
+
+def test_serve_order_source_rejects_bad_arguments(host_kernels):
+    fn = host_kernels["serve_order"]
+    assert host_kernels["serve_order_cap"](0) == 2048
+    lanes, qobj = _order_lanes("all_live", 1, 64, seed=1)
+    t = torch.from_numpy(lanes)
+    ptrs = np.asarray([t[b].data_ptr() for b in range(2)], np.int64)
+    out = torch.zeros(2 * 64 + 2, dtype=torch.int32)
+    for B, N, per_launch, shared_keys in ((2, 48, 0, 0), (2, 64, 2049, 0),
+                                          (2, 64, 0, 24), (2, 64, 0, 32)):
+        # N not a power of two; a launch above the cap; shared keys not a
+        # power of two; N above shared keys without scratch
+        assert fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, per_launch,
+                  shared_keys, None, 0, out.data_ptr(), None, None) == -1
+
+
 SERVE_MUTANTS = {
     "lookup_minus_one_when_none": ("serve_lookup", "misses", [
         ("out[b] = best < N ? best : 0;", "out[b] = best < N ? best : -1;"),
-    ]),
-    "order_ties_by_higher_row": ("serve_order", "ties", [
-        ("val[i] = i;", "val[i] = N - 1 - i;"),
-        ("order[i] = val[i];", "order[i] = N - 1 - val[i];"),
-    ]),
+    ], {}),
+    "order_ties_by_higher_row": ("serve_order", "all_masked", [
+        ("= pack_key(key, i);", "= pack_key(key, 0x7ffffffe - i);"),
+        ("return static_cast<int>(key & 0xffffffffu);",
+         "return 0x7ffffffe - static_cast<int>(key & 0xffffffffu);"),
+    ], {}),
+    "order_tail_reversed": ("serve_order", "random", [
+        ("if (w > warp) later += v;", "if (w < warp) later += v;"),
+        ("- __popc(tb & behind)] = i;",
+         "- __popc(tb & ~behind & ~(1u << lane))] = i;"),
+    ], {}),
+    "order_split_drops_last_chunk": ("serve_order", "random", [
+        ("for (int b0 = 0; rc == 0 && b0 < B; b0 += chunk) {",
+         "for (int b0 = 0; rc == 0 && b0 + chunk < B; b0 += chunk) {"),
+    ], {"per_launch": 4}),
     "counts_ignore_insert": ("serve_counts", "random", [
         ("elems += lanes[kLive * N + i] != 0 && lanes[kInsert * N + i] == 1;",
          "elems += lanes[kLive * N + i] != 0;"),
-    ]),
+    ], {}),
 }
 
 
 @pytest.mark.parametrize("name", list(SERVE_MUTANTS))
 def test_serve_mutants_fail(tmp_path, name):
-    stem, scenario, edits = SERVE_MUTANTS[name]
+    stem, scenario, edits, kw = SERVE_MUTANTS[name]
     text = (CSRC / f"{stem}.cu").read_text()
     for old, new in edits:
         assert text.count(old) == 1, old
         text = text.replace(old, new)
     fn = _compile_host({stem: text}, tmp_path)[stem]
     lanes, qobj, qkey = _serve_inputs(scenario, 64, B=6, seed=3)
-    got = _run_host_serve(fn, stem, lanes, qobj, qkey)
+    got = _run_host_serve(fn, stem, lanes, qobj, qkey, **kw)
     want = SERVE_PLAIN[stem](
         lanes, torch.from_numpy(qobj), torch.from_numpy(qkey)
     )

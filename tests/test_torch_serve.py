@@ -30,7 +30,6 @@ import functools
 import random
 import shutil
 import threading
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -565,13 +564,9 @@ def _fail_launches(monkeypatch, public):
     monkeypatch.setattr(sk, public, cuda_route)
     monkeypatch.setattr(sk, "_on_gpu", lambda devs: on[0])
     monkeypatch.setattr(ck, "kernel_fn", lambda stem: (lambda *a: 719))
-    monkeypatch.setattr(
-        torch.cuda, "device", lambda dev: contextlib.nullcontext()
-    )
-    monkeypatch.setattr(
-        torch.cuda, "current_stream",
-        lambda dev=None: types.SimpleNamespace(cuda_stream=0),
-    )
+    # the wrappers' launch helpers (the device made current, its stream)
+    monkeypatch.setattr(ck, "launch_scope", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(ck, "launch_stream", lambda dev: 0)
     return dict(ck.launches)
 
 
