@@ -41,6 +41,14 @@ prints a result):
      arrival protocol on one card), against ring_gather_plain; the min
      mode of
      the column reduce at [5, 3] and [8, 131072], and on negative values;
+     both modes of the column reduce on both of its routes (the one-launch
+     columns route for at most 64 rows, the tall route above): [2, 50000],
+     [4, 64], [64, 1000] and [65, 1000], [2, 4099], each on clocks,
+     negative values and the int32 ends, and a [3, 4096] view whose base
+     sits 4 bytes past an aligned address; serve_counts at B in {1, 8,
+     512} x N in {2, 1024, 65536} and at its launch cap + 2 entries (a
+     split launch), from two threads at once, and in turn with
+     serve_order on one thread (the one pinned buffer they share);
      the live tick's entry `materialize_live_device` against its plain
      version on the CPU, on the padded tick batches of seeded live
      columns (INC ops, text) at (D, N) = (1, 262144) with A and K at
@@ -120,13 +128,16 @@ prints a result):
      summary wire; torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
      reads, top-k's two kernels apart; torch.sort for serve_order;
-     for clock_scatter and serve_order also the wrapper's host work, the
+     torch.amin for the min mode at the pmin's [2, 50000];
+     for clock_scatter, serve_order, serve_counts and the min mode also
+     the wrapper's host work, the
      kernel alone cold (`cold_calls_ms`: each call on inputs of its own
      after the L2 is flushed), the scatter's device-triple route and its
      kernel beside the parameter route, config 5's flush through
      `_scatter_pending` beside an upload + scatter_reduce_ (`flush_ms`),
-     serve_order's copy back alone and a like-for-like library dispatch
-     (key, stable torch.sort, one copy to the host);
+     serve_order's and serve_counts' copy back alone and their
+     like-for-like library dispatches (key, stable torch.sort, one copy
+     to the host; masks, two sums, one cat, one copy to the host);
      torch.cat for the ring gather, whose kernel alone is read with cold
      inputs and outputs and must not be under its bound, with the
      flagged launch over the same ranks, timed at the summary gather's
@@ -777,6 +788,47 @@ def hold(label, got, want) -> int:
     return err
 
 
+def union_route_cases():
+    """(label, [D, A] int32 on the card) of the column reduce's phase-2
+    holds beyond the main shapes: the pmin's [2, 50000], a short matrix,
+    both sides of the columns route's boundary (D = 64 and 65), an A that
+    is not a multiple of 4, a base 4 bytes past an aligned address (a
+    view of an offset flat buffer), negative values and the int32 ends."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    i32 = np.iinfo(np.int32)
+    cases = []
+    for D, A in ((2, CONFIG5["n_docs"] // 2), (4, 64), (64, 1000),
+                 (65, 1000), (2, 4099), (3, 4096)):
+        m = clock_matrix(D * A, D, A)
+        ends = torch.from_numpy(rng.choice(
+            [i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max],
+            (D, A)).astype(np.int32)).cuda()
+        cases += [(f"[{D}, {A}]", m), (f"[{D}, {A}] negative", -1 - m.abs()),
+                  (f"[{D}, {A}] int32 ends", ends)]
+    flat = torch.empty(3 * 4096 + 1, dtype=torch.int32, device="cuda")
+    flat[1:] = clock_matrix(7, 3, 4096).flatten()
+    off = flat[1:].view(3, 4096)
+    if off.data_ptr() % 16 != 4:
+        raise AssertionError("the offset view is not 4 bytes off alignment")
+    cases.append(("[3, 4096] base + 4 bytes", off))
+    return cases
+
+
+def hold_column_reduce(kernel, plain, mode):
+    """Phase 2's route cases of one mode of clock_union.cu; returns the
+    max abs err."""
+    err = 0
+    cases = union_route_cases()
+    for label, x in cases:
+        err = max(err, hold(f"clock_union {mode} {label}", kernel(x), plain(x)))
+    log(f"phase 2 clock_union {mode} on both routes ({len(cases)} cases: "
+        f"{', '.join(label for label, _ in cases)}): kernel == plain (exact)")
+    return err
+
+
 def compare_clock_kernels(ckk):
     """Phase 2 for the clock kernels: each against its plain version on
     the same card tensors; returns the max abs err per kernel."""
@@ -802,6 +854,8 @@ def compare_clock_kernels(ckk):
         e = hold(f"clock_union {tuple(x.shape)}", ckk.union_reduce_cuda(x),
                  ckk.union_reduce_plain(x))
         errs["clock_union"] = max(errs["clock_union"], e)
+    errs["clock_union"] = max(errs["clock_union"], hold_column_reduce(
+        ckk.union_reduce_cuda, ckk.union_reduce_plain, "max"))
     rng = np.random.default_rng(1)
     for n in (1000, 65536):
         trip = [torch.from_numpy(rng.integers(0, hi, n).astype(np.int32)).cuda()
@@ -1293,7 +1347,84 @@ def compare_serve_kernels(synth, sk):
                     int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max()))
     log(f"phase 2 serve_order at (B, N) in {list(shapes)}, cases "
         f"{list(synth.ORDER_CASES)}: kernel == plain (exact)")
+    errs["serve_counts"] = max(errs["serve_counts"],
+                               compare_counts_kernel(synth, sk))
     return errs
+
+
+def compare_counts_kernel(synth, sk):
+    """serve_counts' phase-2 holds beyond the shared serve shapes: B in
+    {1, 8, 512} x N in {2, 1024, 65536}, a batch above one launch's
+    entries (the launch splits), two threads dispatching at once, and one
+    thread alternating seq_order and counts dispatches of different sizes
+    through its one pinned buffer. Returns the max abs err."""
+    import threading
+
+    import numpy as np
+
+    from hypermerge_tpu_torch.ops.crdt_kernels import launch_cap
+
+    def inputs(B, N, scenario, seed):
+        devs, qobj, _qkey = serve_inputs(synth, sk, B, N, scenario, seed)
+        none = np.full(B, -1, np.int32)
+        return devs, qobj, serve_plain(sk, "serve_counts", devs, qobj, none)
+
+    err = 0
+
+    def check(label, got, want):
+        nonlocal err
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"serve_counts {label}: kernel != plain")
+            err = max(err, int(np.abs(g.astype(np.int64)
+                                      - w.astype(np.int64)).max()))
+
+    cap = launch_cap("serve_counts", 0)
+    shapes = [(B, N) for B in (1, 8, 512) for N in (2, 1024, 65536)
+              if B * N <= 2**24] + [(cap + 2, 64)]
+    for B, N in shapes:
+        for i, scenario in enumerate(synth.SERVE_SCENARIOS):
+            devs, qobj, want = inputs(B, N, scenario, seed=B + N + i)
+            check(f"B={B} N={N} {scenario}", sk.counts_cuda(devs, qobj), want)
+    # two threads at once, each through its own pinned buffer
+    work = [inputs(8 << (3 * i), 1024, "random", seed=40 + i) for i in range(2)]
+    bad = []
+
+    def run(i):
+        devs, qobj, want = work[i]
+        for _ in range(50):
+            got = sk.counts_cuda(devs, qobj)
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if bad:
+        raise AssertionError(f"serve_counts from two threads: threads {bad} "
+                             "read another dispatch's answer")
+    # one thread, seq_order and counts in turn, sizes that grow and shrink
+    kept = []
+    for B, N in ((1, 1024), (64, 4096), (2, 64), (512, 1024), (1, 2)):
+        devs, qobj, want = inputs(B, N, "random", seed=B * N)
+        kept.append((f"alternating B={B} N={N}", sk.counts_cuda(devs, qobj),
+                     want))
+        order_want = serve_plain(sk, "serve_order", devs, qobj,
+                                 np.full(B, -1, np.int32))
+        got = sk.seq_order_cuda(devs, qobj)
+        for g, w in zip(got, order_want):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(
+                    f"serve_order alternating B={B} N={N}: kernel != plain")
+    for label, got, want in kept:
+        check(label, got, want)
+    log(f"phase 2 serve_counts at (B, N) in {shapes} (above {cap} entries "
+        "the launch splits), scenarios "
+        f"{list(synth.SERVE_SCENARIOS)}, from two threads at once, and in "
+        "turn with serve_order on one thread: kernel == plain (exact)")
+    return err
 
 
 def hist_quantile_ms(bounds, before, after, q):
@@ -1581,7 +1712,7 @@ def time_order_dispatch(sk, devs, qobj, B, N):
                           mask.sum(dim=1, dtype=torch.int32)]).cpu()
 
     n_out = B * N + B
-    out, host = sk._order_buffers.get(dev, n_out)
+    out, host = sk._result_buffers.get(dev, n_out)
     r = dict(
         host_ms=host_call_ms(lambda: sk.seq_order_cuda(devs, qobj)),
         copy_back_ms=median_ms(
@@ -1608,6 +1739,54 @@ def time_order_dispatch(sk, devs, qobj, B, N):
 
         r["cold_kernel_ms"] = cold_calls_ms(cold_order)
     return r
+
+
+def time_counts_dispatch(sk, devs, qobj, B, N):
+    """serve_counts' extra readings at one dispatch's inputs: the
+    wrapper's host work (it ends in the dispatch's sync, so this is its
+    wall), the copy back alone (device output into the thread's pinned
+    buffer), the kernel alone cold, and the like-for-like library
+    dispatch (stack, the two masks, two sums, one cat, one copy to the
+    host). No one PyTorch call computes the function: library_ms stays
+    None."""
+    import torch
+
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    dev = devs[0].device
+    qo = torch.from_numpy(qobj).cuda()
+
+    def library_dispatch():
+        st = torch.stack(devs)
+        at_obj = st[:, 2] == qo[:, None]
+        elems = ((st[:, 0] != 0) & at_obj & (st[:, 3] == 1)).sum(
+            dim=1, dtype=torch.int32)
+        mapped = ((st[:, 5] != 0) & at_obj).sum(dim=1, dtype=torch.int32)
+        return torch.cat([elems, mapped]).cpu()
+
+    out, host = sk._result_buffers.get(dev, 2 * B)
+    fn = ck.kernel_fn("serve_counts")
+    stream = ck.launch_stream(dev)
+
+    def cold_counts(_i):
+        lanes = [d.clone() for d in devs]
+        ptrs, q = sk.lane_pointers(lanes), qobj.copy()
+        out_i = torch.empty(2 * B, dtype=torch.int32, device=dev)
+
+        def call():  # the entry alone: no copy back, no sync
+            if fn(ptrs.ctypes.data, q.ctypes.data, B, N, 0, out_i.data_ptr(),
+                  None, stream):
+                raise AssertionError("serve_counts alone failed to launch")
+            return lanes, out_i
+        return call
+
+    return dict(
+        host_ms=host_call_ms(lambda: sk.counts_cuda(devs, qobj)),
+        copy_back_ms=median_ms(
+            lambda: host[: 2 * B].copy_(out[: 2 * B], non_blocking=True)),
+        library_dispatch_ms=median_ms(library_dispatch),
+        cold_kernel_ms=cold_calls_ms(cold_counts),
+    )
 
 
 def time_serve_kernels(sk, seen, last):
@@ -1643,6 +1822,8 @@ def time_serve_kernels(sk, seen, last):
         )
         if name == "serve_order":
             r.update(time_order_dispatch(sk, devs, qobj, B, N))
+        if name == "serve_counts":
+            r.update(time_counts_dispatch(sk, devs, qobj, B, N))
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -1696,6 +1877,8 @@ def compare_mesh_kernels(ringmod, meshmod, ckk):
         e = hold(f"clock_union min {tuple(x.shape)}", ckk.min_reduce_cuda(x),
                  ckk.min_reduce_plain(x))
         errs["clock_union_min"] = max(errs["clock_union_min"], e)
+    errs["clock_union_min"] = max(errs["clock_union_min"], hold_column_reduce(
+        ckk.min_reduce_cuda, ckk.min_reduce_plain, "min"))
     log(f"phase 2 ring_gather at n in {RING_N} x rows in {RING_ROWS} x W in "
         f"{RING_W} (virtual ranks, push route; the flagged launch at rows in "
         f"{RING_PROTOCOL_ROWS} x W in {RING_PROTOCOL_W}), clock_union min at "
@@ -2012,18 +2195,27 @@ def time_mesh_kernels(ringmod, meshmod, ckk, gather_shape):
                 f"ring_gather {label}: the kernel alone ({r['kernel_ms']} ms, "
                 f"cold) is under its bound ({r['bound_ms']} ms)")
         res[label] = r
-    m = clock_matrix(9, 2, CONFIG5["n_docs"] // 2, hi=2, inf_frac=0)
+    shape = (2, CONFIG5["n_docs"] // 2)
+    m = clock_matrix(9, *shape, hi=2, inf_frac=0)
     out = ckk.min_reduce_cuda(m)
+
+    def cold_min(i):
+        x = clock_matrix(100 + i, *shape, hi=2, inf_frac=0)
+        return lambda: ckk.min_reduce_cuda(x)
+
     r = dict(
+        route="columns",
         ms=median_ms(lambda: ckk.min_reduce_cuda(m)),
-        kernel_ms=None,
+        host_ms=host_call_ms(lambda: ckk.min_reduce_cuda(m)),
+        # the one columns_kernel launch (D <= 64: no fill, no atomics)
+        kernel_ms=kernel_device_ms(lambda: ckk.min_reduce_cuda(m),
+                                   "columns_kernel"),
+        cold_kernel_ms=cold_calls_ms(cold_min),
         plain_ms=median_ms(lambda: ckk.min_reduce_plain(m)),
         library_ms=median_ms(lambda: torch.amin(m, dim=0)),
         bytes=nbytes(m, out), ops=m.numel(),
     )
-    parts = [kernel_device_ms(lambda: ckk.min_reduce_cuda(m), kn)
-             for kn in ("fill_kernel", "column_reduce_kernel")]
-    r["kernel_ms"] = None if None in parts else sum(parts)
+    r["library_ratio"] = r["ms"] / r["library_ms"]
     t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
     t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
     r["bound_ms"] = max(t_bytes, t_ops)
@@ -2527,7 +2719,8 @@ def main() -> int:
     log(f"phase 1 parameter caps: clock_scatter "
         f"{ck.launch_cap('clock_scatter')} triples a launch, serve_order "
         f"{ck.launch_cap('serve_order', 0)} entries a launch, "
-        f"{ck.launch_cap('serve_order', 1)} keys in shared memory")
+        f"{ck.launch_cap('serve_order', 1)} keys in shared memory, "
+        f"serve_counts {ck.launch_cap('serve_counts', 0)} entries a launch")
     for stem, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:

@@ -28,3 +28,26 @@ constexpr int pow2_floor(int x) {
   while (2 * p <= x) p *= 2;
   return p;
 }
+
+// The batch entries the serve kernels (serve_order.cu, serve_counts.cu)
+// take by value: each entry's [6, N] lane pointer and query container, 12
+// bytes an entry. kLaneEntries is the most one launch takes (the largest
+// power of two whose struct fits beside kLaneOtherParamBytes of other
+// parameters: 2,048 under CUDA 12.1 and later, 256 under the old
+// 4,096-byte limit); kMidLaneEntries (1,024) and kSmallLaneEntries (64)
+// size the two smaller structs.
+constexpr int kLaneOtherParamBytes = 64;
+constexpr int kLaneEntries =
+    pow2_floor((kMaxParamBytes - kLaneOtherParamBytes) / 12);
+constexpr int kMidLaneEntries =
+    pow2_floor((kMidParamBytes - kLaneOtherParamBytes) / 12);
+constexpr int kSmallLaneEntries = 64 < kMidLaneEntries ? 64 : kMidLaneEntries;
+
+template <int K>
+struct LaneEntries {
+  const int* lanes[K];
+  int qobj[K];
+};
+static_assert(sizeof(LaneEntries<kLaneEntries>) + kLaneOtherParamBytes <=
+                  kMaxParamBytes,
+              "the entries exceed one launch's parameters");

@@ -45,13 +45,13 @@
 // P is smaller skips them (the stages above a sorted P are no-ops).
 //
 // Arguments by value. The batch's lane pointers and qobj travel in a
-// `const __grid_constant__` struct (12 bytes an entry; kEntries entries a
-// launch, 2,048 under CUDA 12.1 and later, each launch in the smallest of
-// three structs that holds its entries), copied from host memory by
-// the entry: no upload precedes the launch. A batch above kEntries goes in
-// several launches, each writing its own rows of the one output. The
-// entry then copies the output into the caller's pinned host buffer and
-// waits for the stream: the dispatch's one sync.
+// `const __grid_constant__` struct (params.cuh LaneEntries, 12 bytes an
+// entry; kLaneEntries a launch, 2,048 under CUDA 12.1 and later, each
+// launch in the smallest of three structs that holds its entries), copied
+// from host memory by the entry: no upload precedes the launch. A batch
+// above kLaneEntries goes in several launches, each writing its own rows
+// of the one output. The entry then copies the output into the caller's
+// pinned host buffer and waits for the stream: the dispatch's one sync.
 //
 // What bounds it on the H100: barriers and operations on one SM per batch
 // row. At the read mix's B = 1, N = 1024 the block reads 16 KB of lanes
@@ -74,23 +74,6 @@ constexpr int kLive = 0, kRank = 1, kObj = 2, kInsert = 3;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr unsigned kKeyFlip = 0x80000000u;
 constexpr Key kPad = ~0ull;
-constexpr int kOtherParamBytes = 64;  // the kernel's other parameters
-
-// the entries of the three structs (params.cuh): the most one launch
-// takes (the largest power of two whose struct fits beside the other
-// parameters: 2,048 under CUDA 12.1 and later, 256 under the old
-// 4,096-byte limit), the middle one (1,024) and the small one (64)
-constexpr int kEntries = pow2_floor((kMaxParamBytes - kOtherParamBytes) / 12);
-constexpr int kMidEntries = pow2_floor((kMidParamBytes - kOtherParamBytes) / 12);
-constexpr int kSmallEntries = 64 < kMidEntries ? 64 : kMidEntries;
-
-template <int K>
-struct Entries {
-  const int* lanes[K];
-  int qobj[K];
-};
-static_assert(sizeof(Entries<kEntries>) + kOtherParamBytes <= kMaxParamBytes,
-              "the entries exceed one launch's parameters");
 
 __device__ __forceinline__ Key pack_key(int key, int row) {
   return (static_cast<Key>(static_cast<unsigned>(key) ^ kKeyFlip) << 32) |
@@ -112,7 +95,7 @@ __device__ __forceinline__ int pow2_at_least(int x) {
 // entries' head sizes for the global route, or null.
 template <int K>
 __global__ void __launch_bounds__(kMaxThreads) order_kernel(
-    const __grid_constant__ Entries<K> args, int b0, int B, int N,
+    const __grid_constant__ LaneEntries<K> args, int b0, int B, int N,
     int shared_keys, Key* gkeys, int* heads, int* out) {
   extern __shared__ Key order_keys[];
   __shared__ int warp_counts[2][32];  // (heads << 16) | tails, per warp
@@ -252,7 +235,7 @@ template <int K>
 int launch_order(const long long* lane_ptrs, const int* qobj, int b0, int n,
                  int B, int N, int shared_keys, Key* gkeys, int* heads,
                  int* out, cudaStream_t stream) {
-  Entries<K> args;
+  LaneEntries<K> args;
   for (int e = 0; e < n; ++e) {
     args.lanes[e] = reinterpret_cast<const int*>(lane_ptrs[b0 + e]);
     args.qobj[e] = qobj[b0 + e];
@@ -301,7 +284,7 @@ int launch_global(Key* gkeys, const int* heads, int b0, int n, int N, int T,
 // hm_serve_order_cap(0): the entries one launch takes at most;
 // hm_serve_order_cap(1): the most keys sorted in shared memory.
 extern "C" int hm_serve_order_cap(int which) {
-  return which == 0 ? kEntries : kSharedKeys;
+  return which == 0 ? kLaneEntries : kSharedKeys;
 }
 
 // lane_ptrs: host int64 [B] (device pointers of [6, N] int32 lanes);
@@ -319,8 +302,8 @@ extern "C" int hm_serve_order(const long long* lane_ptrs, const int* qobj,
                               void* scratch, long long scratch_len, int* out,
                               int* host_out, void* stream) {
   if (B <= 0 || N < 2 || (N & (N - 1)) != 0) return -1;
-  if (per_launch < 0 || per_launch > kEntries) return -1;
-  const int chunk = per_launch == 0 ? kEntries : per_launch;
+  if (per_launch < 0 || per_launch > kLaneEntries) return -1;
+  const int chunk = per_launch == 0 ? kLaneEntries : per_launch;
   const int T = shared_keys == 0 ? kSharedKeys : shared_keys;
   if (T < 2 || T > kSharedKeys || (T & (T - 1)) != 0) return -1;
   const int m = B < chunk ? B : chunk;
@@ -336,14 +319,14 @@ extern "C" int hm_serve_order(const long long* lane_ptrs, const int* qobj,
   int rc = 0;
   for (int b0 = 0; rc == 0 && b0 < B; b0 += chunk) {
     const int n = B - b0 < chunk ? B - b0 : chunk;
-    rc = n <= kSmallEntries
-             ? launch_order<kSmallEntries>(lane_ptrs, qobj, b0, n, B, N, T,
-                                           gkeys, heads, out, s)
-         : n <= kMidEntries
-             ? launch_order<kMidEntries>(lane_ptrs, qobj, b0, n, B, N, T,
-                                         gkeys, heads, out, s)
-             : launch_order<kEntries>(lane_ptrs, qobj, b0, n, B, N, T, gkeys,
-                                      heads, out, s);
+    rc = n <= kSmallLaneEntries
+             ? launch_order<kSmallLaneEntries>(lane_ptrs, qobj, b0, n, B, N,
+                                               T, gkeys, heads, out, s)
+         : n <= kMidLaneEntries
+             ? launch_order<kMidLaneEntries>(lane_ptrs, qobj, b0, n, B, N, T,
+                                             gkeys, heads, out, s)
+             : launch_order<kLaneEntries>(lane_ptrs, qobj, b0, n, B, N, T,
+                                          gkeys, heads, out, s);
     if (rc == 0 && global)
       rc = launch_global(gkeys, heads, b0, n, N, T, out, s);
   }

@@ -12,7 +12,9 @@ here. Four CUDA kernels carry the programs:
   be one [A] row broadcast to all rows (a dominated query);
 - `kernels/csrc/clock_union.cu`: `union_reduce`, the column max, and in
   its min mode `min_reduce`, the column min (the mesh's pmin, folded over
-  partials that parallel/ring.py gathered);
+  partials that parallel/ring.py gathered); a matrix of at most 64 rows
+  (every cross-rank fold) takes one launch that folds each column in a
+  thread of its own;
 - `kernels/csrc/clock_scatter.cu`: `scatter_max_`, the batched writes
   (the reference's `m.at[r, c].max(v)`) of triples on the card, and
   `scatter_max_host_`, the mirror's pending writes from host memory,
@@ -207,7 +209,7 @@ def _column_reduce_cuda(clocks: torch.Tensor, op: int, name: str) -> torch.Tenso
     if A == 0:
         return out
     fn = kernel_fn("clock_union")
-    with torch.cuda.device(dev):
+    with launch_scope(dev):
         rc = fn(clocks.data_ptr(), D, A, op, out.data_ptr(), launch_stream(dev))
     _launched(name, rc)
     return out

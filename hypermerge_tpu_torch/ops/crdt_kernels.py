@@ -363,7 +363,7 @@ _SIGNATURES = {
         "hm_serve_order",
         [_P] * 2 + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
     ),
-    "serve_counts": ("hm_serve_counts", [_P] + [_I] * 2 + [_P] * 2),
+    "serve_counts": ("hm_serve_counts", [_P] * 2 + [_I] * 3 + [_P] * 3),
     # wrapper in parallel/ring.py
     "ring_gather": (
         "hm_ring_gather",
@@ -377,6 +377,7 @@ _STEMS = {"clock_scatter_params": "clock_scatter"}
 _CAP_SYMBOLS = {
     "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
     "serve_order": ("hm_serve_order_cap", [_I]),
+    "serve_counts": ("hm_serve_counts_cap", [_I]),
 }
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 _caps: Dict[tuple, int] = {}

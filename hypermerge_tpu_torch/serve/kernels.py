@@ -11,10 +11,10 @@ serve_order.cu, serve_counts.cu) with its plain PyTorch version beside
 it; a wrapper launches the kernel for entries on a GPU and runs the plain
 version for entries on the CPU. The kernels read the entries' lanes in
 place, where the reference stacks the entries inside its jitted program.
-serve_lookup and serve_counts read the batch's lane pointers and query
-vectors from ONE small int64 tensor the wrapper uploads per dispatch;
-serve_order takes them by value in its launch parameters (no upload) and
-copies its result into a pinned host buffer that each calling thread
+serve_lookup reads the batch's lane pointers and query vectors from ONE
+small int64 tensor the wrapper uploads per dispatch; serve_order and
+serve_counts take them by value in their launch parameters (no upload)
+and copy their result into a pinned host buffer that each calling thread
 keeps per device and reuses. The batch axis pads to a power of two with
 copies of entry 0 and the query NO_OBJ, which no row matches
 (`stack_entries`). Results come back to the host as numpy in one copy
@@ -52,10 +52,11 @@ NO_OBJ = -7
 # the most keys serve_order.cu sorts in shared memory (its kSharedKeys); a
 # bucket above it keeps its keys in global scratch
 ORDER_SHARED_KEYS = 16384
-# the entries one serve_order launch passes by value under the oldest
-# toolkit (its 4,096-byte parameter limit); above this the wrapper reads
-# the source's own cap to size scratch and count the launches
-ORDER_ENTRIES_MIN = 256
+# the entries one serve_order or serve_counts launch passes by value
+# under the oldest toolkit (the 4,096-byte parameter limit of params.cuh's
+# LaneEntries); above this the wrapper reads the source's own cap to size
+# scratch and count the launches
+LANE_ENTRIES_MIN = 256
 
 
 class ServeDeviceError(RuntimeError):
@@ -148,8 +149,8 @@ def lane_pointers(devs) -> np.ndarray:
 
 
 def dispatch_args(devs, *queries: np.ndarray) -> torch.Tensor:
-    """The one int64 tensor serve_lookup and serve_counts read: the B lane
-    pointers, then each [B] query vector, on the lanes' device."""
+    """The one int64 tensor serve_lookup reads: the B lane pointers, then
+    each [B] query vector, on the lanes' device."""
     host = np.concatenate(
         [lane_pointers(devs)] + [np.asarray(q, np.int64) for q in queries]
     )
@@ -163,12 +164,13 @@ def _launch(stem: str, name: str, dev, *args) -> None:
     ck._launched(name, rc)
 
 
-class _OrderBuffers(threading.local):
-    """Each calling thread's serve_order result buffers, by device: the
-    device output and the pinned host copy the C entry writes it into.
-    Reused while they are large enough, replaced by ones twice the
-    size otherwise. Every dispatch syncs before it returns, so no copy
-    is in flight when the next dispatch of the thread reuses them."""
+class _ResultBuffers(threading.local):
+    """Each calling thread's result buffers, by device: the device output
+    and the pinned host copy the C entry writes it into, shared by
+    serve_order and serve_counts. Reused while they are large enough,
+    replaced by ones twice the size otherwise. Every dispatch syncs before
+    it returns, so no copy is in flight when the next dispatch of the
+    thread, of either kind, reuses them."""
 
     def __init__(self) -> None:
         self.by_dev = {}
@@ -185,7 +187,7 @@ class _OrderBuffers(threading.local):
         return bufs
 
 
-_order_buffers = _OrderBuffers()
+_result_buffers = _ResultBuffers()
 
 
 def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
@@ -206,10 +208,10 @@ def seq_order_cuda(devs, qobj: np.ndarray):
     B, N, dev = len(devs), devs[0].shape[1], devs[0].device
     ptrs = lane_pointers(devs)
     qobj = np.ascontiguousarray(qobj, dtype=np.int32)
-    per_launch = (B if B <= ORDER_ENTRIES_MIN
+    per_launch = (B if B <= LANE_ENTRIES_MIN
                   else ck.launch_cap("serve_order", 0))
     n_out = B * N + B
-    out, host = _order_buffers.get(dev, n_out)
+    out, host = _result_buffers.get(dev, n_out)
     # the keys of a bucket above ORDER_SHARED_KEYS live in global scratch,
     # one launch's entries at a time, then their head sizes
     scratch, scratch_len = None, 0
@@ -228,13 +230,23 @@ def seq_order_cuda(devs, qobj: np.ndarray):
 
 
 def counts_cuda(devs, qobj: np.ndarray):
+    """serve_counts.cu over the batch: the lane pointers and qobj pass by
+    value in the launch parameters; the entry copies [2 * B] results into
+    this thread's pinned buffer and waits for the stream. Returns copies,
+    so the next dispatch may reuse the buffer."""
     B, N, dev = len(devs), devs[0].shape[1], devs[0].device
-    args = dispatch_args(devs, qobj)
-    out = torch.empty(2 * B, dtype=torch.int32, device=dev)
-    _launch("serve_counts", "serve_counts", dev, args.data_ptr(), B, N,
-            out.data_ptr())
-    host = out.cpu().numpy()
-    return host[:B], host[B:]
+    ptrs = lane_pointers(devs)
+    qobj = np.ascontiguousarray(qobj, dtype=np.int32)
+    per_launch = (B if B <= LANE_ENTRIES_MIN
+                  else ck.launch_cap("serve_counts", 0))
+    out, host = _result_buffers.get(dev, 2 * B)
+    fn = ck.kernel_fn("serve_counts")
+    with ck.launch_scope(dev):
+        rc = fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, 0, out.data_ptr(),
+                host.data_ptr(), ck.launch_stream(dev))
+    ck._launched("serve_counts", rc, -(-B // per_launch))
+    res = host[: 2 * B].numpy()
+    return res[:B].copy(), res[B:].copy()
 
 
 # ---------------------------------------------------------------------------

@@ -338,6 +338,108 @@ def test_serve_order_threads_keep_their_own_buffers(cuda):
     assert not bad
 
 
+def _counts_dispatch(scenario, B, N, seed):
+    """(lane tensors on the card with a pad slot when B > 1, qobj) of a
+    serve_counts dispatch over synth_serve_lanes."""
+    lanes, qobj, _qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    devs = list(torch.from_numpy(lanes).cuda().unbind(0))
+    if B > 1:
+        devs[-1], qobj[-1] = devs[0], sk.NO_OBJ
+    return devs, qobj.astype(np.int32)
+
+
+def _counts_plain(devs, qobj):
+    return tuple(x.cpu().numpy() for x in sk.counts_plain(
+        torch.stack(devs), torch.from_numpy(qobj).cuda()))
+
+
+@pytest.mark.parametrize("B,N", [(1, 2), (1, 1024), (1, 65536), (8, 2),
+                                 (8, 1024), (8, 65536), (512, 2), (512, 1024),
+                                 (2050, 64), (2050, 1024)])
+def test_serve_counts_equal_plain(cuda, B, N):
+    """serve_counts.cu (arguments by value, the result through the
+    thread's pinned buffer) against the plain version; 2,050 entries take
+    two launches into one output."""
+    assert ck.launch_cap("serve_counts", 0) == 2048
+    for i, scenario in enumerate(synth.SERVE_SCENARIOS):
+        devs, qobj = _counts_dispatch(scenario, B, N, seed=B + N + i)
+        before = ck.launches["serve_counts"]
+        got = sk.counts_cuda(devs, qobj)
+        assert ck.launches["serve_counts"] == before + -(-B // 2048)
+        for g, w in zip(got, _counts_plain(devs, qobj)):
+            assert g.dtype == w.dtype and np.array_equal(g, w), scenario
+
+
+def test_serve_counts_threads_keep_their_own_buffers(cuda):
+    """Two threads dispatching counts at once, each on its own inputs,
+    each through its own pinned buffer: every answer its own."""
+    import threading
+
+    work = [_counts_dispatch(synth.SERVE_SCENARIOS[i], 8 << (2 * i), 1024,
+                             seed=i) for i in range(2)]
+    want = [_counts_plain(*w) for w in work]
+    bad = []
+
+    def run(i):
+        for _ in range(50):
+            got = sk.counts_cuda(*work[i])
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[i])):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+
+
+def test_serve_order_and_counts_share_a_thread_buffer(cuda):
+    """seq_order and counts dispatches of different sizes in turn on one
+    thread, through its one pinned buffer: each equal to its plain
+    version, and no answer a view of the buffer."""
+    order_work = [_order_dispatch(synth.ORDER_CASES[i % 4], B, N, seed=i)
+                  for i, (B, N) in enumerate([(1, 1024), (8, 4096), (2, 64)])]
+    counts_work = [_counts_dispatch(synth.SERVE_SCENARIOS[i], B, N, seed=i)
+                   for i, (B, N) in enumerate([(512, 1024), (1, 2), (8, 1024)])]
+    order_want = [tuple(x.cpu().numpy() for x in sk.seq_order_plain(
+        torch.stack(d), torch.from_numpy(q).cuda())) for d, q in order_work]
+    counts_want = [_counts_plain(*w) for w in counts_work]
+    kept = []
+    for _ in range(3):
+        for i in range(3):
+            got = sk.seq_order_cuda(*order_work[i])
+            kept.append((got, order_want[i]))
+            got = sk.counts_cuda(*counts_work[i])
+            kept.append((got, counts_want[i]))
+    for got, want in kept:
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def test_serve_counts_dispatch_copies_once(cuda):
+    """One counts dispatch under torch.profiler: no host-to-device copy,
+    one device-to-host copy, into pinned memory, beside the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    devs, qobj = _counts_dispatch("random", 8, 1024, seed=4)
+    sk.counts_cuda(devs, qobj)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sk.counts_cuda(devs, qobj)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("counts_kernel" in n for n in names):
+            break
+    else:
+        pytest.fail("the profiler delivered no record of counts_kernel")
+    copies = [n for n in names if "Memcpy" in n or "memcpy" in n]
+    assert not [n for n in copies if "HtoD" in n], copies
+    dtoh = [n for n in copies if "DtoH" in n]
+    assert len(dtoh) == 1 and "Pinned" in dtoh[0], copies
+
+
 SERVE_CALLS = {
     "lookup": (sk.map_lookup_cuda,
                lambda st, qo, qk: sk.map_lookup_plain(st, qo, qk)),
@@ -500,6 +602,69 @@ def test_min_reduce_equals_plain(cuda):
     for shape in ((5, 3), (8, 131072), (300, 40)):
         m = torch.from_numpy(rng.integers(-50, 1000, shape).astype(np.int32)).cuda()
         assert torch.equal(ckk.min_reduce_cuda(m), ckk.min_reduce_plain(m))
+
+
+def _offset_view(m):
+    """m copied into a flat card buffer one int in: a contiguous matrix
+    whose base sits 4 bytes past an aligned address."""
+    flat = torch.empty(m.numel() + 1, dtype=m.dtype, device=m.device)
+    flat[1:] = m.flatten()
+    return flat[1:].view(m.shape)
+
+
+def _kernel_names(fn):
+    """The device kernels one call of fn launched, by torch.profiler;
+    None when the profiler delivered no kernel record in three windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return None
+
+
+# (D, A, base 4 bytes off alignment): the pmin's fold, a short matrix,
+# both sides of the route boundary (D = 64 and 65), an A that is not a
+# multiple of 4, an offset base
+UNION_SHAPES = [(2, 50000, False), (4, 64, False), (64, 1000, False),
+                (65, 1000, False), (2, 4099, False), (3, 4096, True)]
+
+
+@pytest.mark.parametrize("D,A,offset", UNION_SHAPES)
+@pytest.mark.parametrize("mode", ["max", "min"])
+def test_column_reduce_routes_equal_plain(cuda, mode, D, A, offset):
+    """Both modes of clock_union.cu against their plain versions on
+    clocks, negative values and the int32 ends; a matrix of at most 64
+    rows runs the columns route, one launch of one kernel (no fill)."""
+    kernel, plain, name = ((ckk.union_reduce_cuda, ckk.union_reduce_plain,
+                            "clock_union") if mode == "max" else
+                           (ckk.min_reduce_cuda, ckk.min_reduce_plain,
+                            "clock_union_min"))
+    rng = np.random.default_rng(D * A)
+    i32 = np.iinfo(np.int32)
+    ends = rng.choice([i32.min, i32.min + 1, -1, 0, 1, i32.max - 1, i32.max],
+                      (D, A)).astype(np.int32)
+    for m in (_clocks(D + A, D, A), -1 - _clocks(D, D, A).abs(),
+              torch.from_numpy(ends).cuda()):
+        if offset:
+            m = _offset_view(m)
+            assert m.data_ptr() % 16 == 4
+        before = ck.launches[name]
+        assert torch.equal(kernel(m), plain(m))
+        assert ck.launches[name] == before + 1
+    names = _kernel_names(lambda: kernel(m))
+    if names is not None:
+        if D <= 64:
+            assert len(names) == 1 and "columns_kernel" in names[0], names
+        else:
+            assert any("fill_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("lean", [False, True])

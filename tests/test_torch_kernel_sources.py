@@ -13,10 +13,14 @@ the value range with pack_prefix_plain (on the pack inputs of the cases
 of test_torch_pack.py and on its crafted parity traps), and the four
 clock kernels with the plain versions in ops/clock_kernels.py (seeded
 clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
-scatter cells; top-k at small tiles on both of its routes: mass ties,
+scatter cells; the column reduce on both of its routes, with D = 64 and
+65 on the two sides of their boundary, an A that is not a multiple of 4,
+a base 4 bytes past an aligned address and the int32 ends; top-k at
+small tiles on both of its routes: mass ties,
 ties straddling tiles, ragged tiles, k = tile + 1 and k = D, A = 3 and
 wide rows, wrapped and INT32_MIN scores), and the three read-serving
-kernels with the plain versions in serve/kernels.py (synthetic lanes
+kernels with the plain versions in serve/kernels.py (serve_order and
+serve_counts also with the JAX package's jitted programs; synthetic lanes
 with pad rows, pad batch slots, misses, all-matching rows, mass rank ties
 and ranks at the int32 ends; a bucket above serve_order's shared-memory
 limit sorts in global scratch), and the ring gather against the blocks
@@ -26,9 +30,11 @@ one launch per rank from concurrent threads: a second call whose flags a
 rank already advanced, a rank that never raises its flag, a rank that
 pushes late). Mutants of the clock kernels (top-k ties broken by the
 higher index, a tile keeping k - 1 candidates, a key packing that loses
-the sign order, a scatter by plain store, a union or a min started at
-0), of the serve kernels (a lookup that answers -1 when nothing matches,
-an order that breaks ties by the higher row, counts that ignore INSERT)
+the sign order, a scatter by plain store, a union or a min started at 0
+on each route, a columns route that drops the A % 4 tail), of the serve
+kernels (a lookup that answers -1 when nothing matches, an order that
+breaks ties by the higher row, counts that ignore INSERT, a split counts
+launch that drops its last chunk, a warp sum that skips one shuffle)
 and of the ring (a wrong source block, a wait over n - 1 ranks, a wait
 for == epoch, a push that skips the last vector, a raise before the
 pushes) must fail. The ring runs in a subprocess with a time limit of
@@ -350,16 +356,41 @@ def test_clock_pair_source_equals_plain(host_kernels, name):
 
 def _run_host_union(fn, m, op=ckk._MAX):
     D, A = m.shape
+    assert m.is_contiguous()
     out = torch.full((A,), 12345, dtype=torch.int32)
-    assert fn(m.contiguous().data_ptr(), D, A, op, out.data_ptr(), None) == 0
+    assert fn(m.data_ptr(), D, A, op, out.data_ptr(), None) == 0
     return out
 
 
+def _offset_view(m):
+    """m copied into a flat buffer one int in and viewed there: a
+    contiguous matrix whose base sits 4 bytes past an aligned address."""
+    flat = torch.empty(m.numel() + 1, dtype=m.dtype)
+    flat[1:] = m.flatten()
+    return flat[1:].view(m.shape)
+
+
+def _extremes(seed, D, A):
+    """[D, A] int32 of the int32 ends and the values beside them."""
+    i32 = np.iinfo(np.int32)
+    vals = [i32.min, i32.min + 1, -7, -1, 0, 1, i32.max - 1, i32.max]
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(vals, (D, A)).astype(np.int32))
+
+
+# tall (D > 64: fill and column reduce) and columns (D <= 64: one launch;
+# int4 loads when A % 4 == 0 and the base is 16-byte aligned, else scalar)
 UNION_CASES = {
     "clocks": lambda: _clock_matrix(0, 300, 40),  # 5 blocks, 2 tiles
     "negative": lambda: -1 - _clock_matrix(1, 70, 3, hi=100).abs(),
-    "one_row": lambda: _clock_matrix(2, 1, 5),
-    "wide": lambda: _clock_matrix(6, 2, 2000),  # 63 column groups
+    "one_row": lambda: _clock_matrix(2, 1, 5),  # columns, scalar
+    "wide": lambda: _clock_matrix(6, 2, 2000),  # columns, int4
+    "rows_64": lambda: _clock_matrix(7, 64, 36),  # columns, int4
+    "rows_65": lambda: _clock_matrix(8, 65, 36),  # tall, 2 row blocks
+    "odd_width": lambda: _clock_matrix(9, 3, 4099),  # columns, scalar
+    "offset_base": lambda: _offset_view(_clock_matrix(10, 4, 40)),  # scalar
+    "extremes": lambda: _extremes(11, 5, 64),  # columns, int4
+    "extremes_tall": lambda: _extremes(12, 80, 5),
 }
 
 
@@ -691,6 +722,30 @@ MUTANTS = {
         ("constexpr int kMinNoValue = INT32_MAX;",
          "constexpr int kMinNoValue = 0;"),
     ]),
+    # int4 loads without the A % 4 check: the columns past A / 4 * 4 are
+    # never written and every row after the first is read off its start
+    "union_columns_drop_the_tail": ("clock_union", [
+        ("A % 4 == 0 && reinterpret_cast<std::uintptr_t>(m) % 16 == 0 &&",
+         "reinterpret_cast<std::uintptr_t>(m) % 16 == 0 &&"),
+    ]),
+}
+
+# the cases each clock_union mutant must fail: one on every route it
+# reaches (tall, columns with int4 loads, columns with scalar loads)
+UNION_MUTANT_CASES = {
+    "union_starts_at_zero": (ckk._MAX, [
+        lambda: -1 - _clock_matrix(1, 70, 3, hi=100).abs(),
+        lambda: -1 - _clock_matrix(13, 4, 64, hi=100).abs(),
+        lambda: -1 - _clock_matrix(14, 4, 7, hi=100).abs(),
+    ]),
+    "min_starts_at_zero": (ckk._MIN, [
+        lambda: 1 + _clock_matrix(3, 90, 7).clamp(max=10**6),
+        lambda: 1 + _clock_matrix(15, 2, 64).clamp(max=10**6),
+        lambda: _offset_view(1 + _clock_matrix(16, 2, 64).clamp(max=10**6)),
+    ]),
+    "union_columns_drop_the_tail": (ckk._MAX, [
+        UNION_CASES["odd_width"],
+    ]),
 }
 
 
@@ -733,13 +788,13 @@ def test_clock_mutants_fail(tmp_path, name):
         assert not torch.equal(_run_host_scatter(fn, m, *trip), want)
         got = _run_host_params(fns["clock_scatter_params"], m, *trip)
         assert not torch.equal(got, want)
-    elif name == "min_starts_at_zero":
-        m = MIN_CASES["positive"]()
-        assert not torch.equal(_run_host_union(fn, m, op=ckk._MIN),
-                               ckk.min_reduce_plain(m))
     else:
-        m = UNION_CASES["negative"]()
-        assert not torch.equal(_run_host_union(fn, m), ckk.union_reduce_plain(m))
+        op, makes = UNION_MUTANT_CASES[name]
+        plain = ckk.min_reduce_plain if op == ckk._MIN else ckk.union_reduce_plain
+        for make in makes:
+            m = make()
+            assert not torch.equal(_run_host_union(fn, m, op=op), plain(m)), (
+                tuple(m.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -784,28 +839,44 @@ def _run_host_order(fn, ptrs, qobj, N, per_launch=0, shared_keys=0):
     return host[: B * N].reshape(B, N), host[B * N :]
 
 
-def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True, **order_kw):
+def _run_host_counts(fn, ptrs, qobj, N, per_launch=0):
+    """serve_counts' entry as counts_cuda calls it: the lane pointers and
+    qobj as host arrays, a device output and a host copy (standing in for
+    the pinned buffer) that start as garbage; returns what the copy
+    holds."""
+    B = len(ptrs)
+    ptrs = np.asarray(ptrs, np.int64)
+    qobj = np.ascontiguousarray(qobj, np.int32)
+    out = torch.full((2 * B,), 77, dtype=torch.int32)
+    host = torch.full((2 * B,), 78, dtype=torch.int32)
+    rc = fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, per_launch,
+            out.data_ptr(), host.data_ptr(), None)
+    assert rc == 0
+    return host[:B], host[B:]
+
+
+def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True, **kw):
     """A serve kernel compiled for the host, called as its wrapper calls
-    it: serve_order with its arguments in host memory, the others with one
-    int64 argument array of lane pointers and queries (the pad slot points
-    at entry 0's lanes); outputs start as garbage."""
+    it: serve_order and serve_counts with their arguments in host memory,
+    serve_lookup with one int64 argument array of lane pointers and
+    queries (the pad slot points at entry 0's lanes); outputs start as
+    garbage."""
     B, _, N = lanes.shape
     stride = lanes[0].numel() * lanes.element_size()
     ptrs = [lanes.data_ptr() + b * stride for b in range(B)]
     if pad_ptr:
         ptrs[-1] = ptrs[0]
     if stem == "serve_order":
-        return _run_host_order(fn, ptrs, qobj, N, **order_kw)
-    queries = [qobj] if stem != "serve_lookup" else [qobj, qkey]
+        return _run_host_order(fn, ptrs, qobj, N, **kw)
+    if stem == "serve_counts":
+        return _run_host_counts(fn, ptrs, qobj, N, **kw)
     args = torch.from_numpy(
         np.concatenate([np.asarray(ptrs, np.int64)]
-                       + [q.astype(np.int64) for q in queries])
+                       + [q.astype(np.int64) for q in (qobj, qkey)])
     )
     out = torch.full((2 * B,), 77, dtype=torch.int32)
     assert fn(args.data_ptr(), B, N, out.data_ptr(), None) == 0
-    if stem == "serve_lookup":
-        return out[:B], out[B:] == 1
-    return out[:B], out[B:]
+    return out[:B], out[B:] == 1
 
 
 def _serve_equal(got, want):
@@ -914,6 +985,83 @@ def test_serve_order_source_rejects_bad_arguments(host_kernels):
                   shared_keys, None, 0, out.data_ptr(), None, None) == -1
 
 
+def _counts_lanes(scenario, B, N, seed, offset=False):
+    """(lanes [B + 1, 6, N] with a pad slot (entry 0 again, query NO_OBJ),
+    the B + 1 lane pointers, qobj) of synth_serve_lanes; with `offset`
+    the lanes sit 4 bytes past an aligned address."""
+    lanes, qobj, _qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    t = torch.from_numpy(np.concatenate([lanes, lanes[:1]]))
+    if offset:
+        t = _offset_view(t)
+    ptrs = [t[b].data_ptr() for b in range(B + 1)]
+    ptrs[-1] = ptrs[0]
+    return t, ptrs, np.append(qobj, sk.NO_OBJ).astype(np.int32)
+
+
+# (real entries, N, per_launch, lanes 4 bytes off alignment); per_launch
+# 0 takes the source's cap. "split": 17 slots in launches of 16 + 1;
+# N = 1 and 2 and the offset lanes read with scalar loads
+COUNTS_SHAPES = {
+    "int4": (5, 64, 0, False), "split": (16, 64, 16, False),
+    "n1": (3, 1, 0, False), "n2": (3, 2, 0, False), "n4": (4, 4, 0, False),
+    "offset": (5, 64, 0, True), "wide": (2, 4096, 0, False),
+}
+
+
+@pytest.mark.parametrize("shape", list(COUNTS_SHAPES))
+@pytest.mark.parametrize("scenario", synth.SERVE_SCENARIOS)
+def test_serve_counts_source_equals_plain_and_reference(host_kernels,
+                                                        scenario, shape):
+    """serve_counts' by-value entry (int4 or scalar loads, the shuffle
+    sum) against counts_plain on every slot, and the real slots against
+    the JAX package's jitted _build_counts (which pads the batch
+    itself)."""
+    import jax.numpy as jnp
+    from hypermerge_tpu.serve import kernels as ref_sk
+
+    B, N, per_launch, offset = COUNTS_SHAPES[shape]
+    t, ptrs, qobj = _counts_lanes(scenario, B, N, seed=B * N + per_launch,
+                                  offset=offset)
+    got = _run_host_counts(host_kernels["serve_counts"], ptrs, qobj, N,
+                           per_launch)
+    want = sk.counts_plain(t, torch.from_numpy(qobj))
+    assert _serve_equal(got, want)
+
+    class _Entry:
+        def __init__(self, dev):
+            self.dev = dev
+
+    ref = ref_sk.counts([_Entry(jnp.asarray(t[b].numpy())) for b in range(B)],
+                        list(qobj[:B]))
+    np.testing.assert_array_equal(got[0][:B].numpy(), ref[0][:B])
+    np.testing.assert_array_equal(got[1][:B].numpy(), ref[1][:B])
+
+
+def test_serve_counts_source_under_an_old_toolkit(tmp_path):
+    """Built as under CUDA 11.8: 256 entries a launch, so 300 take two,
+    the second through the small struct."""
+    fns = _compile_host({"serve_counts": (CSRC / "serve_counts.cu").read_text()},
+                        tmp_path, defines=("CUDART_VERSION=11080",))
+    assert fns["serve_counts_cap"](0) == 256
+    t, ptrs, qobj = _counts_lanes("random", 299, 16, seed=9)
+    got = _run_host_counts(fns["serve_counts"], ptrs, qobj, 16)
+    assert _serve_equal(got, sk.counts_plain(t, torch.from_numpy(qobj)))
+
+
+def test_serve_counts_source_rejects_bad_arguments(host_kernels):
+    fn = host_kernels["serve_counts"]
+    assert host_kernels["serve_counts_cap"](0) == 2048
+    _t, ptrs, qobj = _counts_lanes("random", 1, 64, seed=1)
+    ptrs = np.asarray(ptrs, np.int64)
+    out = torch.zeros(4, dtype=torch.int32)
+    for B, N, per_launch in ((2, 48, 0), (2, 0, 0), (0, 64, 0), (2, 64, 2049),
+                             (2, 64, -1)):
+        # N not a power of two, or 0; no entry; a launch above the cap or
+        # below 0
+        assert fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, per_launch,
+                  out.data_ptr(), None, None) == -1
+
+
 SERVE_MUTANTS = {
     "lookup_minus_one_when_none": ("serve_lookup", "misses", [
         ("out[b] = best < N ? best : 0;", "out[b] = best < N ? best : -1;"),
@@ -933,8 +1081,16 @@ SERVE_MUTANTS = {
          "for (int b0 = 0; rc == 0 && b0 + chunk < B; b0 += chunk) {"),
     ], {"per_launch": 4}),
     "counts_ignore_insert": ("serve_counts", "random", [
-        ("elems += lanes[kLive * N + i] != 0 && lanes[kInsert * N + i] == 1;",
-         "elems += lanes[kLive * N + i] != 0;"),
+        ("return (static_cast<Word>(live != 0 && ins == 1) << 32) |",
+         "return (static_cast<Word>(live != 0) << 32) |"),
+    ], {}),
+    "counts_split_drops_last_chunk": ("serve_counts", "random", [
+        ("for (int b0 = 0; rc == 0 && b0 < B; b0 += chunk) {",
+         "for (int b0 = 0; rc == 0 && b0 + chunk < B; b0 += chunk) {"),
+    ], {"per_launch": 4}),
+    "counts_shuffle_skips_a_step": ("serve_counts", "random", [
+        ("for (int lane_mask = 16; lane_mask > 0; lane_mask >>= 1)",
+         "for (int lane_mask = 16; lane_mask > 1; lane_mask >>= 1)"),
     ], {}),
 }
 
