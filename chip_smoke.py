@@ -49,10 +49,18 @@ prints a result):
      512} x N in {2, 1024, 65536} and at its launch cap + 2 entries (a
      split launch), from two threads at once, and in turn with
      serve_order on one thread (the one pinned buffer they share);
+     serve_lookup at B in {1, 8, 64, 512} x N in {64, 1024, 65536} and
+     at its launch cap + 2 entries, from two threads at once, and in
+     turn with serve_order and serve_counts on one thread;
      the live tick's entry `materialize_live_device` against its plain
      version on the CPU, on the padded tick batches of seeded live
      columns (INC ops, text) at (D, N) = (1, 262144) with A and K at
-     their bucket floors and (8, 32768) with A = 8, K = 64;
+     their bucket floors and (8, 32768) with A = 8, K = 64, at [3, 16384]
+     (an odd D) with doc_kernel.cu's two routes forced and byte-equal,
+     and on both sides of the entry's route rule at N = 4096: the
+     many-block route's smallest shape [1, 4096], its largest D there,
+     [SMs // 2, 4096], and [SMs // 2 + 1, 4096], each case's route held
+     to the rule;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
@@ -148,8 +156,19 @@ prints a result):
      raw per-read latencies (and the `serve.read_s` histogram's bucket
      bounds), the host twin's QPS, p50 and p99 on the same 4,000 reads,
      and the profiled window's device busy time and idle share; time the
-     live tick's kernel at [1, 262144] and [8, 32768] beside its plain
-     version, the engine's numpy twin on the same docs and its bound;
+     live tick's kernel at [1, 262144] and [8, 32768] (its kernels alone
+     summed over every launch of the many-block route, their count, the
+     entry alone cold, its host work, and the one-block route forced on
+     the same inputs) beside its plain version, the engine's numpy twin
+     on the same docs and its bound; serve_lookup's host work, copy
+     back, cold kernel and like-for-like library dispatch (stack, three
+     compares, argmax, any, one copy to the host); doc_kernel.cu's two
+     routes forced, byte-equal, then timed in turn (wrapper and kernels
+     alone) at the bulk shapes (the slab, a rank's share of it and of
+     the product route's slab, the multi-actor batch and a rank's share,
+     2,048 short docs), over a grid of D in 1 .. 512 x N in 1,024 ..
+     65,536 and at phase 2's live ticks, beside the route the entry
+     picks;
      print the bytes bound of each phase-3e mesh program; print the
      kernels as one JSON line; profile one slab dispatch of each
      slice for its device time by kernel and the device's idle share (a
@@ -226,7 +245,16 @@ LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
 # contract's keys, where phase 4 took them
 EXTRA_READINGS = ("host_ms", "kernel_ms", "cold_kernel_ms", "device_route_ms",
                   "device_route_kernel_ms", "flush_ms", "flush_library_ms",
-                  "copy_back_ms", "library_dispatch_ms")
+                  "copy_back_ms", "library_dispatch_ms", "kernels_per_call",
+                  "one_block_ms")
+# every kernel of doc_kernel.cu: the one-block route's, then the many-block
+# route's (one dispatch launches either the first or all the others)
+DOC_KERNELS = ("materialize_kernel", "mb_init_kernel", "mb_supersede_kernel",
+               "mb_rows_kernel", "mb_winners_kernel", "mb_tile_kernel",
+               "mb_stage_kernel", "mb_map_ends_kernel",
+               "mb_sibling_keys_kernel", "mb_sibling_ends_kernel",
+               "mb_climb_init_kernel", "mb_climb_kernel",
+               "mb_rank_init_kernel", "mb_rank_kernel")
 # torch.profiler now and then delivers no device record for a window; a
 # kernel-alone window is tried again, and every window is padded with idle
 # host time so that device records near its edges fall inside it
@@ -672,12 +700,21 @@ def kernel_device_ms(fn, name: str, runs=20) -> float | None:
     A window in which the profiler delivered no record of it is tried
     again; after PROFILE_TRIES such windows the time is not measured
     (None). It is a reading beside the CUDA-event times, not a check."""
+    return kernels_device_ms(fn, (name,), runs)[0]
+
+
+def kernels_device_ms(fn, names, runs=20):
+    """(mean device time per call of fn summed over every kernel whose
+    identifier is one of `names`, the kernels of those names per call),
+    from torch.profiler, as kernel_device_ms reads one; (None, None) when
+    not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     # demangled: the bare identifier; mangled: its length, then the name
-    n = re.escape(name)
-    pat = re.compile(rf"(?<!\w){n}(?!\w)|{len(name)}{n}")
+    pat = re.compile("|".join(
+        rf"(?<!\w){re.escape(n)}(?!\w)|{len(n)}{re.escape(n)}" for n in names))
+    label = names[0] if len(names) == 1 else f"{len(names)} kernels"
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_TRIES + 1):
@@ -687,15 +724,14 @@ def kernel_device_ms(fn, name: str, runs=20) -> float | None:
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
-        total = sum(
-            dev_us(e) for e in prof.key_averages() if pat.search(e.key)
-        )
+        hits = [e for e in prof.key_averages() if pat.search(e.key)]
+        total = sum(dev_us(e) for e in hits)
         if total > 0:
-            return total / runs / 1e3
-        log(f"profiler: no device record of {name} (window {attempt} of "
+            return total / runs / 1e3, sum(e.count for e in hits) / runs
+        log(f"profiler: no device record of {label} (window {attempt} of "
             f"{PROFILE_TRIES})")
-    log(f"profiler: {name} alone not measured")
-    return None
+    log(f"profiler: {label} alone not measured")
+    return None, None
 
 
 def dev_us(e):
@@ -1349,7 +1385,92 @@ def compare_serve_kernels(synth, sk):
         f"{list(synth.ORDER_CASES)}: kernel == plain (exact)")
     errs["serve_counts"] = max(errs["serve_counts"],
                                compare_counts_kernel(synth, sk))
+    errs["serve_lookup"] = max(errs["serve_lookup"],
+                               compare_lookup_kernel(synth, sk))
     return errs
+
+
+def compare_lookup_kernel(synth, sk):
+    """serve_lookup's phase-2 holds beyond the shared serve shapes: B in
+    {1, 8, 64, 512} x N in {64, 1024, 65536} and a batch above one
+    launch's entries (the launch splits), every scenario (misses and
+    all-matching rows among them), two threads dispatching at once, and
+    one thread alternating lookup, seq_order and counts dispatches of
+    different sizes through its one pinned buffer. Returns the max abs
+    err."""
+    import threading
+
+    import numpy as np
+
+    from hypermerge_tpu_torch.ops.crdt_kernels import launch_cap
+
+    def inputs(B, N, scenario, seed):
+        devs, qobj, qkey = serve_inputs(synth, sk, B, N, scenario, seed)
+        return devs, qobj, qkey, serve_plain(sk, "serve_lookup", devs, qobj,
+                                             qkey)
+
+    err = 0
+
+    def check(label, got, want):
+        nonlocal err
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not np.array_equal(g, w):
+                raise AssertionError(f"serve_lookup {label}: kernel != plain")
+            err = max(err, int(np.abs(g.astype(np.int64)
+                                      - w.astype(np.int64)).max()))
+
+    cap = launch_cap("serve_lookup", 0)
+    shapes = [(B, N) for B in (1, 8, 64, 512) for N in (64, 1024, 65536)
+              if B * N <= 2**24] + [(cap + 2, 64)]
+    for B, N in shapes:
+        for i, scenario in enumerate(synth.SERVE_SCENARIOS):
+            devs, qobj, qkey, want = inputs(B, N, scenario, seed=3 * B + N + i)
+            check(f"B={B} N={N} {scenario}",
+                  sk.map_lookup_cuda(devs, qobj, qkey), want)
+    # two threads at once, each through its own pinned buffer
+    work = [inputs(8 << (3 * i), 1024, "random", seed=70 + i) for i in range(2)]
+    bad = []
+
+    def run(i):
+        devs, qobj, qkey, want = work[i]
+        for _ in range(50):
+            got = sk.map_lookup_cuda(devs, qobj, qkey)
+            if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if bad:
+        raise AssertionError(f"serve_lookup from two threads: threads {bad} "
+                             "read another dispatch's answer")
+    # one thread: lookup, seq_order and counts in turn, sizes that grow
+    # and shrink; every answer kept and checked after the last dispatch
+    kept = []
+    for B, N in ((1, 1024), (64, 4096), (2, 64), (512, 1024), (1, 2)):
+        devs, qobj, qkey, want = inputs(B, N, "random", seed=B * N + 1)
+        kept.append(("serve_lookup", sk.map_lookup_cuda(devs, qobj, qkey),
+                     want))
+        none = np.full(B, -1, np.int32)
+        kept.append(("serve_order", sk.seq_order_cuda(devs, qobj),
+                     serve_plain(sk, "serve_order", devs, qobj, none)))
+        kept.append(("serve_counts", sk.counts_cuda(devs, qobj),
+                     serve_plain(sk, "serve_counts", devs, qobj, none)))
+    for name, got, want in kept:
+        if name == "serve_lookup":
+            check("alternating", got, want)
+        elif not all(g.dtype == w.dtype and np.array_equal(g, w)
+                     for g, w in zip(got, want)):
+            raise AssertionError(f"{name} alternating with serve_lookup: "
+                                 "kernel != plain")
+    log(f"phase 2 serve_lookup at (B, N) in {shapes} (above {cap} entries "
+        "the launch splits), scenarios "
+        f"{list(synth.SERVE_SCENARIOS)}, from two threads at once, and in "
+        "turn with serve_order and serve_counts on one thread: kernel == "
+        "plain (exact)")
+    return err
 
 
 def compare_counts_kernel(synth, sk):
@@ -1789,6 +1910,53 @@ def time_counts_dispatch(sk, devs, qobj, B, N):
     )
 
 
+def time_lookup_dispatch(sk, devs, qobj, qkey, B, N):
+    """serve_lookup's extra readings at one dispatch's inputs: the
+    wrapper's host work (it ends in the dispatch's sync, so this is its
+    wall), the copy back alone (device output into the thread's pinned
+    buffer), the kernel alone cold, and the like-for-like library
+    dispatch (stack, three compares, argmax, any, one copy to the host).
+    No one PyTorch call computes the function: library_ms stays None."""
+    import torch
+
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    dev = devs[0].device
+    qo = torch.from_numpy(qobj).cuda()
+    qk = torch.from_numpy(qkey).cuda()
+
+    def library_dispatch():
+        st = torch.stack(devs)
+        mask = (st[:, 5] != 0) & (st[:, 4] == qk[:, None]) & (
+            st[:, 2] == qo[:, None])
+        row = torch.argmax(mask.to(torch.uint8), dim=1).to(torch.int32)
+        return torch.cat([row, mask.any(dim=1).to(torch.int32)]).cpu()
+
+    out, host = sk._result_buffers.get(dev, 2 * B)
+    fn = ck.kernel_fn("serve_lookup")
+    stream = ck.launch_stream(dev)
+
+    def cold_lookup(_i):
+        lanes = [d.clone() for d in devs]
+        ptrs, qo_i, qk_i = sk.lane_pointers(lanes), qobj.copy(), qkey.copy()
+        out_i = torch.empty(2 * B, dtype=torch.int32, device=dev)
+
+        def call():  # the entry alone: no copy back, no sync
+            if fn(ptrs.ctypes.data, qo_i.ctypes.data, qk_i.ctypes.data, B, N,
+                  0, out_i.data_ptr(), None, stream):
+                raise AssertionError("serve_lookup alone failed to launch")
+            return lanes, out_i
+        return call
+
+    return dict(
+        host_ms=host_call_ms(lambda: sk.map_lookup_cuda(devs, qobj, qkey)),
+        copy_back_ms=median_ms(
+            lambda: host[: 2 * B].copy_(out[: 2 * B], non_blocking=True)),
+        library_dispatch_ms=median_ms(library_dispatch),
+        cold_kernel_ms=cold_calls_ms(cold_lookup),
+    )
+
+
 def time_serve_kernels(sk, seen, last):
     """Phase 4 for the serve kernels, each at the (B, N) that the read
     slice dispatched most, on the lanes of one of those dispatches."""
@@ -1824,6 +1992,8 @@ def time_serve_kernels(sk, seen, last):
             r.update(time_order_dispatch(sk, devs, qobj, B, N))
         if name == "serve_counts":
             r.update(time_counts_dispatch(sk, devs, qobj, B, N))
+        if name == "serve_lookup":
+            r.update(time_lookup_dispatch(sk, devs, qobj, qkey, B, N))
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
@@ -2105,13 +2275,14 @@ def cold_kernel_ms(make_call, footprint: int) -> float:
     return statistics.median(stream() for _ in range(3))
 
 
-def cold_calls_ms(make_call, count=256) -> float:
+def cold_calls_ms(make_call, count=256, slack=COLD_SLACK_CYCLES) -> float:
     """Device time per call of `count` calls each on memory of its own
     (make_call(i)), for calls too small for cold_kernel_ms's stream of 40
     x the L2: a 4 x L2 buffer is zeroed first (which evicts every line
     the calls' inputs held), the calls queue behind a spin of the card
-    and run back to back between two CUDA events, so each reads its
-    inputs from HBM once. Median of 3 streams after one to warm."""
+    (`slack` cycles a call) and run back to back between two CUDA events,
+    so each reads its inputs from HBM once. Median of 3 streams after one
+    to warm."""
     import torch
 
     calls = [make_call(i) for i in range(count)]
@@ -2119,7 +2290,7 @@ def cold_calls_ms(make_call, count=256) -> float:
 
     def stream():
         flush.zero_()
-        torch.cuda._sleep(count * COLD_SLACK_CYCLES)
+        torch.cuda._sleep(count * slack)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2306,14 +2477,28 @@ def live_columns(columnar, synth, n_ops, n_edits, seed, **kw):
     return lv
 
 
-def live_args(ck, live, lvs, device):
+def live_args(ck, live, lvs, device, docs=None):
     """The padded tick batch `_kernel_device` builds for `lvs`, as tensors
-    on `device`, with (A, K)."""
+    on `device`, with (A, K); `docs` cuts it to its first docs (the batch
+    pads D to a power of two)."""
     import torch
 
     n = ck.live_bucket(max(lv.n for lv in lvs), ck.LIVE_MIN_ROWS)
     planes, A, K = live.tick_batch(lvs, n)
-    return tuple(torch.from_numpy(a).to(device) for a in planes), A, K
+    return tuple(torch.from_numpy(a[:docs]).to(device) for a in planes), A, K
+
+
+def doc_route_call(ck, args, A, K, route):
+    """A call of the live tick's wrapper with doc_kernel.cu's route forced
+    (ck.DOC_ROUTE_*): materialize_live_device's arguments, seq absent and
+    a zero actor map."""
+    import torch
+
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt = args
+    da = torch.zeros(flags.shape[0], A, dtype=torch.int32, device=flags.device)
+    return lambda: ck.materialize_cuda(
+        flags, slot, ctr, None, obj, key, ref, value, psrc, ptgt, da, A, K,
+        counter="materialize_live", route=route)
 
 
 def live_plain(ck, args, A, K):
@@ -2332,21 +2517,46 @@ def compare_live_kernel(ck, live, columnar, synth):
     """Phase 2 for the live slice: materialize_live_device on the card
     against its plain version on the CPU, exact, on padded tick batches
     of seeded LiveColumns with INC ops and text, at (D, N) = (1, 262144)
-    (A and K at their bucket floors) and (8, 32768) (A = 8, K = 64).
-    Returns (max abs err, {label: (LiveColumns, args, A, K)})."""
+    (A and K at their bucket floors) and (8, 32768) (A = 8, K = 64); at
+    [3, 16384] (an odd D, cut from the padded batch) on both routes
+    forced, byte-equal; and on both sides of the entry's route rule at
+    N = 4096 (8 distinct docs, repeated): [1, 4096], the many-block
+    route's smallest shape, [SMs // 2, 4096], its largest D there, and
+    one doc more, the one-block route's. Each case's route is held to the
+    rule (`hm_doc_route`). Returns (max abs err, {label: (LiveColumns,
+    args, A, K)} of the first two, {label: (args, A, K)} of every case)."""
     import torch
 
+    half = torch.cuda.get_device_properties(0).multi_processor_count // 2
+    pick = ck.kernel_fn("doc_route")
+    group = [live_columns(columnar, synth, 3500, 300, 60 + d, n_actors=2,
+                          n_keys=40, text_frac=0.6) for d in range(8)]
+    many = {"1x262144", "8x32768", "3x16384", "1x4096", f"{half}x4096"}
     cases = {
-        "1x262144": [live_columns(columnar, synth, LIVE_TRACE["n_ops"], 300,
-                                  3, n_actors=1, ops_per_change=1,
-                                  text_frac=1.0)],
-        "8x32768": [live_columns(columnar, synth, 30000, 300, 40 + d,
-                                 n_actors=5, n_keys=40, text_frac=0.5)
-                    for d in range(8)],
+        "1x262144": ([live_columns(columnar, synth, LIVE_TRACE["n_ops"], 300,
+                                   3, n_actors=1, ops_per_change=1,
+                                   text_frac=1.0)], None),
+        "8x32768": ([live_columns(columnar, synth, 30000, 300, 40 + d,
+                                  n_actors=5, n_keys=40, text_frac=0.5)
+                     for d in range(8)], None),
+        "3x16384": ([live_columns(columnar, synth, 15000, 300, 50 + d,
+                                  n_actors=3, n_keys=40, text_frac=0.6)
+                     for d in range(3)], 3),
+        "1x4096": (group[:1], None),
+        f"{half}x4096": ((group * half)[:half], half),
+        f"{half + 1}x4096": ((group * half)[:half + 1], half + 1),
     }
-    err, inputs = 0, {}
-    for label, lvs in cases.items():
-        args, A, K = live_args(ck, live, lvs, "cuda")
+    err, inputs, every = 0, {}, {}
+    for label, (lvs, docs) in cases.items():
+        args, A, K = live_args(ck, live, lvs, "cuda", docs)
+        every[label] = (args, A, K)
+        if f"{args[0].shape[0]}x{args[0].shape[1]}" != label:
+            raise AssertionError(f"live batch {label}: {list(args[0].shape)}")
+        want_route = (ck.DOC_ROUTE_MANY_BLOCK if label in many
+                      else ck.DOC_ROUTE_ONE_BLOCK)
+        if pick(*args[0].shape) != want_route:
+            raise AssertionError(f"live batch {label}: doc_kernel picks "
+                                 f"route {pick(*args[0].shape)}")
         got = ck.materialize_live_device(*args, A=A, K=K)
         cpu = tuple(a.cpu() for a in args)
         want = ck.materialize_live_device(*cpu, A=A, K=K)
@@ -2360,10 +2570,25 @@ def compare_live_kernel(ck, live, columnar, synth):
         if got.clock.any():
             raise AssertionError(f"materialize_live {label}: clock not zero")
         err = max(err, e)
-        inputs[label] = (lvs, args, A, K)
+        if label == "3x16384":  # both routes forced: the same bytes
+            routes = [doc_route_call(ck, args, A, K, route)()
+                      for route in (ck.DOC_ROUTE_ONE_BLOCK,
+                                    ck.DOC_ROUTE_MANY_BLOCK)]
+            for f in routes[0]._fields:
+                if not torch.equal(getattr(routes[0], f),
+                                   getattr(routes[1], f)):
+                    raise AssertionError(f"doc_kernel routes differ at "
+                                         f"{label} in {f}")
+            err = max(err, hold(f"materialize_live {label} one-block route",
+                                tuple(getattr(routes[0], f) for f in LANES),
+                                tuple(getattr(want, f).cuda() for f in LANES)))
+            log(f"phase 2 materialize_live {label}: one-block and many-block "
+                "routes forced, byte-equal in every lane")
+        if label in ("1x262144", "8x32768"):
+            inputs[label] = (lvs, args, A, K)
         log(f"phase 2 materialize_live {list(flags.shape)} A={A} K={K} "
-            f"(rows {[lv.n for lv in lvs]}): kernel == plain (exact)")
-    return err, inputs
+            f"(rows {sorted({lv.n for lv in lvs})}): kernel == plain (exact)")
+    return err, inputs, every
 
 
 def plain_value(v):
@@ -2602,12 +2827,50 @@ def live_path(ck, root, device=None):
     return launches, numbers, runs["trace"]["captured"]
 
 
+def doc_entry_call(ck, args, A, K):
+    """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
+    wrapper, no allocation) on copies of the live tick's arguments and
+    outputs and scratch of its own, for cold_calls_ms."""
+    import torch
+
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt = args
+    D, N = flags.shape
+    dev = flags.device
+    fl = flags.clone()
+    wide = [t.to(torch.int32).clone()
+            for t in (slot, ctr, obj, key, ref, value, ptgt)]
+    b, i32 = torch.bool, torch.int32
+    out = ([torch.empty(D, N, dtype=b, device=dev) for _ in range(5)]
+           + [torch.empty(D, N, dtype=i32, device=dev) for _ in range(2)]
+           + [torch.empty(D, A, dtype=i32, device=dev)])
+    scratch = torch.empty(D, ck._DOC_SCRATCH_LANES, N + 2, dtype=i32,
+                          device=dev)
+    keys = torch.empty(D, N, dtype=torch.int64, device=dev)
+    fn = ck.kernel_fn("doc_kernel")
+    stream = ck.launch_stream(dev)
+    ptrs = [w.data_ptr() for w in wide]
+    lanes = ptrs[:2] + [None] + ptrs[2:]  # slot, ctr, seq, obj .. ptgt
+
+    def call():
+        if fn(fl.data_ptr(), *lanes, D, N, ptgt.shape[1], A, K,
+              ck.DOC_ROUTE_AUTO, *(t.data_ptr() for t in out),
+              scratch.data_ptr(), keys.data_ptr(), stream):
+            raise AssertionError("doc_kernel alone failed to launch")
+        return fl, wide, out, scratch, keys
+    return call
+
+
 def time_live_kernel(ck, live, inputs):
     """Phase 4 for the live slice: materialize_live_device at [1, 262144]
-    and [8, 32768] — the wrapper (CUDA events), the kernel alone (the
-    profiler), the plain version on the card, the engine's numpy twin
-    (`_host_lanes`, one doc at a time, host clock) on the same docs, and
-    the bound."""
+    and [8, 32768] — the wrapper (CUDA events) and its host work, the
+    kernels alone (the profiler, summed over every kernel the dispatch
+    launches: doc_kernel.cu's many-block route, with their count), the
+    entry alone cold (CUDA events over calls on memory of their own), the
+    one-block route forced on the same inputs (CUDA events around the
+    wrapper: its one launch of 5-60 ms is nearly the whole of it, and a
+    profiler window of a few such calls can lose their records), the
+    plain version on the card, the engine's numpy twin (`_host_lanes`,
+    one doc at a time, host clock) on the same docs, and the bound."""
     import torch
 
     res = {}
@@ -2623,12 +2886,19 @@ def time_live_kernel(ck, live, inputs):
             for lv in lvs:
                 live.LiveApplyEngine._host_lanes(lv)
             times.append((time.perf_counter() - t0) * 1e3)
+        kernel_ms, per_call = kernels_device_ms(
+            lambda: ck.materialize_live_device(*args, A=A, K=K), DOC_KERNELS)
+        one_block = doc_route_call(ck, args, A, K, ck.DOC_ROUTE_ONE_BLOCK)
         r = dict(
             D=D, N=N, A=A, K=K,
             ms=median_ms(lambda: ck.materialize_live_device(*args, A=A, K=K)),
-            kernel_ms=kernel_device_ms(
-                lambda: ck.materialize_live_device(*args, A=A, K=K),
-                "materialize_kernel"),
+            host_ms=host_call_ms(
+                lambda: ck.materialize_live_device(*args, A=A, K=K), runs=20),
+            kernel_ms=kernel_ms, kernels_per_call=per_call,
+            cold_kernel_ms=cold_calls_ms(
+                lambda _i: doc_entry_call(ck, args, A, K), count=8,
+                slack=20 * COLD_SLACK_CYCLES),
+            one_block_ms=median_ms(one_block, runs=3, warmup=1),
             plain_ms=median_ms(lambda: live_plain(ck, args, A, K)),
             numpy_twin_ms=statistics.median(times),
             library_ms=None,
@@ -2644,6 +2914,83 @@ def time_live_kernel(ck, live, inputs):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         log(f"timing materialize_live [{D}, {N}]: " + " ".join(
+            f"{k}={v!r}" for k, v in r.items()))
+        res[label] = r
+    return res
+
+
+# (label, synth_batch config) of the bulk shapes doc_kernel.cu serves:
+# the slab, a rank's share of it and of the product route's slab over
+# MESH_RANKS, the multi-actor batch and a rank's share of it, and a batch
+# of short docs at the live tick's device threshold (D x N = 131,072)
+DOC_ROUTE_SHAPES = (
+    ("slab", SLAB),
+    ("slab rank", dict(SLAB, n_docs=SLAB["n_docs"] // MESH_RANKS)),
+    ("product rank", dict(SLAB, n_docs=MESH_SLAB // MESH_RANKS)),
+    ("multi", MULTI),
+    ("multi rank", dict(MULTI, n_docs=MULTI["n_docs"] // MESH_RANKS)),
+    ("short docs", dict(n_docs=2048, n_ops=64, n_actors=2, text_frac=0.5)),
+)
+# (D, N) of the grid on which the entry's route rule is read: D docs of N
+# rows, up to 2^22 rows a batch
+DOC_ROUTE_GRID = tuple(
+    (D, N) for N in (1024, 2048, 4096, 8192, 16384, 65536)
+    for D in (1, 8, 32, 64, 128, 256, 512) if D * N <= 1 << 22)
+
+
+def time_doc_routes(ck, synth, live_cases):
+    """Phase 4: doc_kernel.cu's two routes forced on the same inputs, at
+    every bulk shape of DOC_ROUTE_SHAPES and at the live ticks of
+    `live_cases` ({label: (args, A, K)} in materialize_live_device's
+    form): per route the wrapper (CUDA events, the routes taking turns)
+    and the kernels alone (the profiler, summed), and the route the entry
+    picks (`auto`) beside the one that read faster. Both routes are held
+    byte-equal first."""
+    import torch
+
+    pick = ck.kernel_fn("doc_route")
+    cases = {}
+    for label, cfg in DOC_ROUTE_SHAPES:
+        batch = make_batch(synth, cfg)
+        args, A, K = cuda_args(ck, batch)
+        cases[f"{label} {list(batch.shape)}"] = (
+            lambda route, args=args, A=A, K=K: ck.materialize_cuda(
+                *args, A=A, K=K, route=route))
+    for D, N in DOC_ROUTE_GRID:
+        batch = make_batch(synth, dict(n_docs=D, n_ops=N, n_actors=2,
+                                       text_frac=0.7, seed=D + N))
+        args, A, K = cuda_args(ck, batch)
+        cases[f"grid {list(batch.shape)}"] = (
+            lambda route, args=args, A=A, K=K: ck.materialize_cuda(
+                *args, A=A, K=K, route=route))
+    for label, (args, A, K) in live_cases.items():
+        cases[f"live {label}"] = lambda route, args=args, A=A, K=K: (
+            doc_route_call(ck, args, A, K, route)())
+    routes = {"one_block": ck.DOC_ROUTE_ONE_BLOCK,
+              "many_block": ck.DOC_ROUTE_MANY_BLOCK}
+    res = {}
+    for label, call in cases.items():
+        outs = [call(route) for route in routes.values()]
+        D, N = outs[0].rank.shape
+        for f in outs[0]._fields:
+            if not torch.equal(getattr(outs[0], f), getattr(outs[1], f)):
+                raise AssertionError(f"doc_kernel routes differ at {label} "
+                                     f"in {f}")
+        r = {}
+        for _ in range(2):  # the routes take turns
+            for name, route in routes.items():
+                r.setdefault(f"{name}_ms", []).append(median_ms(
+                    lambda: call(route), runs=5, warmup=1))
+        for name, route in routes.items():
+            r[f"{name}_ms"] = min(r[f"{name}_ms"])
+            r[f"{name}_kernel_ms"], r[f"{name}_kernels"] = kernels_device_ms(
+                lambda: call(route), DOC_KERNELS, runs=5)
+        r["auto"] = {v: k for k, v in routes.items()}.get(pick(D, N))
+        r["faster"] = min(routes, key=lambda name: r[f"{name}_ms"])
+        if r["auto"] is None:
+            raise AssertionError(f"doc_kernel picked no route at {label}")
+        torch.cuda.synchronize()
+        log(f"timing doc_kernel routes {label}: " + " ".join(
             f"{k}={v!r}" for k, v in r.items()))
         res[label] = r
     return res
@@ -2773,8 +3120,8 @@ def main() -> int:
         errs.update(compare_clock_kernels(ckk))
         errs.update(compare_serve_kernels(synth, sk))
         errs.update(compare_mesh_kernels(ringmod, meshmod, ckk))
-        errs["materialize_live"], live_inputs = compare_live_kernel(
-            ck, live, columnar, synth)
+        errs["materialize_live"], live_inputs, live_cases = (
+            compare_live_kernel(ck, live, columnar, synth))
 
         # -- 3. the main paths -------------------------------------------------
         main_path(ck, mat, synth, columnar, slab)
@@ -2816,7 +3163,8 @@ def main() -> int:
         mesh_bounds(ck, ckk, slab, multi)
         live_timing = time_live_kernel(ck, live, live_inputs)
         timing["materialize_live"] = live_timing["1x262144"]
-        del live_inputs
+        time_doc_routes(ck, synth, live_cases)
+        del live_inputs, live_cases
         if torch.cuda.device_count() >= 2:
             time_peer_ring(ringmod, meshmod, [
                 torch.device("cuda", i)

@@ -13,6 +13,21 @@ __device__ __forceinline__ bool pair_greater(Key ka, int va, Key kb, int vb) {
   return ka > kb || (ka == kb && va > vb);
 }
 
+// compare-exchange of the pairs (*ka, *va) and (*kb, *vb): the smaller
+// pair first when ascending
+template <class Key>
+__device__ __forceinline__ void exchange_pairs(Key* ka, int* va, Key* kb,
+                                               int* vb, bool ascending) {
+  const Key a = *ka, b = *kb;
+  const int x = *va, y = *vb;
+  if (pair_greater(a, x, b, y) == ascending) {
+    *ka = b;
+    *kb = a;
+    *va = y;
+    *vb = x;
+  }
+}
+
 template <class Key>
 __device__ void block_bitonic_sort(Key* key, int* val, int n) {
   for (int k = 2; k <= n; k <<= 1) {
@@ -20,16 +35,8 @@ __device__ void block_bitonic_sort(Key* key, int* val, int n) {
       for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
         // the t-th pair of this stage: i has bit j clear, l = i | j
         const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int l = i + j;
-        const bool ascending = (i & k) == 0;
-        const Key ki = key[i], kl = key[l];
-        const int vi = val[i], vl = val[l];
-        if (pair_greater(ki, vi, kl, vl) == ascending) {
-          key[i] = kl;
-          key[l] = ki;
-          val[i] = vl;
-          val[l] = vi;
-        }
+        exchange_pairs(key + i, val + i, key + i + j, val + i + j,
+                       (i & k) == 0);
       }
       __syncthreads();
     }
@@ -96,6 +103,58 @@ __device__ void shared_bitonic(Key* s, int n, long long base, long long k_first,
       const Key key = e < n ? s[e] : Key(0);
       const Key out = warp_bitonic(key, base + e, ((base + e) & k) == 0, j);
       if (e < n) s[e] = out;
+    }
+    __syncthreads();
+  }
+}
+
+// The same network over (key, val) pairs, ascending by key and then by
+// val, for keys that leave no bits for a tie-break (doc_kernel.cu's
+// many-block route: its sort keys use all 64 bits, and val is the row).
+// The warp stages shuffle the key and the val apart.
+
+// warp_bitonic over the pair (key, val) this lane holds at position e
+template <class Key>
+__device__ __forceinline__ void warp_bitonic_pairs(Key& key, int& val,
+                                                   long long e, bool ascending,
+                                                   int j_first) {
+  for (int j = j_first; j > 0; j >>= 1) {
+    const Key ok = __shfl_xor_sync(0xffffffffu, key, j);
+    const int ov = __shfl_xor_sync(0xffffffffu, val, j);
+    const bool take_min = ((e & j) == 0) == ascending;
+    if (pair_greater(key, val, ok, ov) == take_min) {
+      key = ok;
+      val = ov;
+    }
+  }
+}
+
+// shared_bitonic over the n pairs (s[i], v[i]) of network positions
+// base .. base + n - 1; every thread of the block must call this, and
+// the block's threads must be a multiple of 32
+template <class Key>
+__device__ void shared_bitonic_pairs(Key* s, int* v, int n, long long base,
+                                     long long k_first, long long k_last) {
+  for (long long k = k_first; k <= k_last; k <<= 1) {
+    int j = static_cast<int>((k < n ? k : n) >> 1);
+    for (; j >= 32; j >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
+        exchange_pairs(s + i, v + i, s + i + j, v + i + j,
+                       ((base + i) & k) == 0);
+      }
+      __syncthreads();
+    }
+    if (j == 0) continue;
+    for (int e0 = 0; e0 < n; e0 += blockDim.x) {  // whole warps
+      const int e = e0 + static_cast<int>(threadIdx.x);
+      Key key = e < n ? s[e] : Key(0);
+      int val = e < n ? v[e] : 0;
+      warp_bitonic_pairs(key, val, base + e, ((base + e) & k) == 0, j);
+      if (e < n) {
+        s[e] = key;
+        v[e] = val;
+      }
     }
     __syncthreads();
   }

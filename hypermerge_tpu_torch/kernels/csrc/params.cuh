@@ -51,3 +51,27 @@ struct LaneEntries {
 static_assert(sizeof(LaneEntries<kLaneEntries>) + kLaneOtherParamBytes <=
                   kMaxParamBytes,
               "the entries exceed one launch's parameters");
+
+// The batch entries serve_lookup.cu takes by value: each entry's [6, N]
+// lane pointer, query container and query key, 16 bytes an entry.
+// kLookupEntries is the most one launch takes (the largest power of two
+// whose struct fits beside kLaneOtherParamBytes of other parameters:
+// 1,024 under CUDA 12.1 and later, 128 under the old 4,096-byte limit);
+// kMidLookupEntries (512) and kSmallLookupEntries (64) size the two
+// smaller structs.
+constexpr int kLookupEntries =
+    pow2_floor((kMaxParamBytes - kLaneOtherParamBytes) / 16);
+constexpr int kMidLookupEntries =
+    pow2_floor((kMidParamBytes - kLaneOtherParamBytes) / 16);
+constexpr int kSmallLookupEntries =
+    64 < kMidLookupEntries ? 64 : kMidLookupEntries;
+
+template <int K>
+struct LookupEntries {
+  const int* lanes[K];
+  int qobj[K];
+  int qkey[K];
+};
+static_assert(sizeof(LookupEntries<kLookupEntries>) + kLaneOtherParamBytes <=
+                  kMaxParamBytes,
+              "the lookup entries exceed one launch's parameters");

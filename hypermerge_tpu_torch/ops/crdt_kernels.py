@@ -339,7 +339,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # source stem -> (C symbol, argtypes)
-    "doc_kernel": ("hm_materialize", [_P] * 9 + [_I] * 5 + [_P] * 11),
+    "doc_kernel": ("hm_materialize", [_P] * 9 + [_I] * 6 + [_P] * 11),
+    "doc_route": ("hm_doc_route", [_I] * 2),
     "summary_wire": ("hm_summary_wire", [_P] * 4 + [_I] * 9 + [_P] * 3),
     # wrapper in ops/pack_kernels.py
     "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
@@ -358,7 +359,7 @@ _SIGNATURES = {
         [_P] + [_I] * 2 + [_P] + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
     ),
     # wrappers in serve/kernels.py
-    "serve_lookup": ("hm_serve_lookup", [_P] + [_I] * 2 + [_P] * 2),
+    "serve_lookup": ("hm_serve_lookup", [_P] * 3 + [_I] * 3 + [_P] * 3),
     "serve_order": (
         "hm_serve_order",
         [_P] * 2 + [_I] * 4 + [_P, ctypes.c_longlong] + [_P] * 3,
@@ -372,10 +373,11 @@ _SIGNATURES = {
     ),
 }
 # entries of a source besides its main one: name -> source stem
-_STEMS = {"clock_scatter_params": "clock_scatter"}
+_STEMS = {"clock_scatter_params": "clock_scatter", "doc_route": "doc_kernel"}
 # per-launch caps each source reports (its C entry hm_<stem>_cap)
 _CAP_SYMBOLS = {
     "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
+    "serve_lookup": ("hm_serve_lookup_cap", [_I]),
     "serve_order": ("hm_serve_order_cap", [_I]),
     "serve_counts": ("hm_serve_counts_cap", [_I]),
 }
@@ -383,6 +385,9 @@ _fns: Dict[str, ctypes._CFuncPtr] = {}
 _caps: Dict[tuple, int] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)
 _DOC_SCRATCH_LANES = 8
+# doc_kernel.cu's routes: picked by the source (hm_doc_route), one block
+# per doc, or the many-block route's grid-wide launches
+DOC_ROUTE_AUTO, DOC_ROUTE_ONE_BLOCK, DOC_ROUTE_MANY_BLOCK = 0, 1, 2
 _WIRE_INT_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 
@@ -459,12 +464,16 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def materialize_cuda(
     flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
-    A: int, K: int, counter: str = "materialize",
+    A: int, K: int, counter: str = "materialize", route: int = DOC_ROUTE_AUTO,
 ) -> MaterializeOut:
     """Kernel 1 (doc_kernel.cu) over narrow wire args on one GPU. `seq`
     and `value` may be None (lean runs): the kernel reads them as zeros.
-    The launch counts under `counter` (the live tick's entry counts its
-    own)."""
+    The source picks its route from (D, N) and the card's SM count: one
+    block per doc, or, for docs longer than one sort tile that leave half
+    the SMs idle or make a batch of 2^22 rows or more, a sequence of
+    grid-wide launches; `route` (DOC_ROUTE_*) forces one, for tests and
+    timings. Either way the dispatch counts one launch under `counter`
+    (the live tick's entry counts its own)."""
     D, N = flags.shape
     P = ptgt.shape[1]
     dev = flags.device
@@ -511,7 +520,7 @@ def materialize_cuda(
     with torch.cuda.device(dev):  # launch on the tensors' device
         rc = fn(
             flags.data_ptr(), *(_ptr(t) for t in wide),
-            D, N, P, A, K,
+            D, N, P, A, K, route,
             *(t.data_ptr() for t in out),
             scratch.data_ptr(), keys.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,

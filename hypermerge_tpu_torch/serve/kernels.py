@@ -11,13 +11,11 @@ serve_order.cu, serve_counts.cu) with its plain PyTorch version beside
 it; a wrapper launches the kernel for entries on a GPU and runs the plain
 version for entries on the CPU. The kernels read the entries' lanes in
 place, where the reference stacks the entries inside its jitted program.
-serve_lookup reads the batch's lane pointers and query vectors from ONE
-small int64 tensor the wrapper uploads per dispatch; serve_order and
-serve_counts take them by value in their launch parameters (no upload)
-and copy their result into a pinned host buffer that each calling thread
-keeps per device and reuses. The batch axis pads to a power of two with
-copies of entry 0 and the query NO_OBJ, which no row matches
-(`stack_entries`). Results come back to the host as numpy in one copy
+All three take the batch's lane pointers and query vectors by value in
+their launch parameters (no upload) and copy their result into a pinned
+host buffer that each calling thread keeps per device and reuses. The
+batch axis pads to a power of two with copies of entry 0 and the query
+NO_OBJ, which no row matches (`stack_entries`). Results come back to the host as numpy in one copy
 per dispatch, which is also the dispatch's only sync point.
 
 Lane layout (serve/resident.py installs one [LANES, N] int32 tensor per
@@ -57,6 +55,8 @@ ORDER_SHARED_KEYS = 16384
 # LaneEntries); above this the wrapper reads the source's own cap to size
 # scratch and count the launches
 LANE_ENTRIES_MIN = 256
+# the same for serve_lookup's 16-byte entries (params.cuh LookupEntries)
+LOOKUP_ENTRIES_MIN = 128
 
 
 class ServeDeviceError(RuntimeError):
@@ -148,29 +148,13 @@ def lane_pointers(devs) -> np.ndarray:
     return np.asarray([t.data_ptr() for t in devs], np.int64)
 
 
-def dispatch_args(devs, *queries: np.ndarray) -> torch.Tensor:
-    """The one int64 tensor serve_lookup reads: the B lane pointers, then
-    each [B] query vector, on the lanes' device."""
-    host = np.concatenate(
-        [lane_pointers(devs)] + [np.asarray(q, np.int64) for q in queries]
-    )
-    return torch.from_numpy(host).to(devs[0].device)
-
-
-def _launch(stem: str, name: str, dev, *args) -> None:
-    fn = ck.kernel_fn(stem)
-    with ck.launch_scope(dev):  # the batcher thread launches here
-        rc = fn(*args, ck.launch_stream(dev))
-    ck._launched(name, rc)
-
-
 class _ResultBuffers(threading.local):
     """Each calling thread's result buffers, by device: the device output
     and the pinned host copy the C entry writes it into, shared by
-    serve_order and serve_counts. Reused while they are large enough,
-    replaced by ones twice the size otherwise. Every dispatch syncs before
-    it returns, so no copy is in flight when the next dispatch of the
-    thread, of either kind, reuses them."""
+    serve_lookup, serve_order and serve_counts. Reused while they are
+    large enough, replaced by ones twice the size otherwise. Every
+    dispatch syncs before it returns, so no copy is in flight when the
+    next dispatch of the thread, of any kind, reuses them."""
 
     def __init__(self) -> None:
         self.by_dev = {}
@@ -191,13 +175,24 @@ _result_buffers = _ResultBuffers()
 
 
 def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
+    """serve_lookup.cu over the batch: the lane pointers, qobj and qkey
+    pass by value in the launch parameters; the entry copies [2 * B]
+    results into this thread's pinned buffer and waits for the stream.
+    Returns copies, so the next dispatch may reuse the buffer."""
     B, N, dev = len(devs), devs[0].shape[1], devs[0].device
-    args = dispatch_args(devs, qobj, qkey)
-    out = torch.empty(2 * B, dtype=torch.int32, device=dev)
-    _launch("serve_lookup", "serve_lookup", dev, args.data_ptr(), B, N,
-            out.data_ptr())
-    host = out.cpu().numpy()  # the dispatch's one copy back
-    return host[:B], host[B:] != 0
+    ptrs = lane_pointers(devs)
+    qobj = np.ascontiguousarray(qobj, dtype=np.int32)
+    qkey = np.ascontiguousarray(qkey, dtype=np.int32)
+    per_launch = (B if B <= LOOKUP_ENTRIES_MIN
+                  else ck.launch_cap("serve_lookup", 0))
+    out, host = _result_buffers.get(dev, 2 * B)
+    fn = ck.kernel_fn("serve_lookup")
+    with ck.launch_scope(dev):  # the batcher thread launches here
+        rc = fn(ptrs.ctypes.data, qobj.ctypes.data, qkey.ctypes.data, B, N,
+                0, out.data_ptr(), host.data_ptr(), ck.launch_stream(dev))
+    ck._launched("serve_lookup", rc, -(-B // per_launch))
+    res = host[: 2 * B].numpy()
+    return res[:B].copy(), res[B:] != 0
 
 
 def seq_order_cuda(devs, qobj: np.ndarray):

@@ -13,7 +13,8 @@
 // (`const __grid_constant__`, a struct of up to the 32,764 bytes CUDA
 // 12.1 allows) is copied to each thread that runs the kernel: a 24 KB
 // struct costs 24 KB of every std::thread's stack. CUDART_VERSION is
-// that of a CUDA 12.4 toolkit unless the build defines another. A
+// that of a CUDA 12.4 toolkit unless the build defines another, and the
+// one device has HM_SHIM_SMS SMs (132 unless defined). A
 // cudaMemcpyAsync is a memcpy, done when it returns. What this checks is
 // the kernel's logic (phases, barriers, indexing, sort keys, flag
 // protocols), not its speed or the GPU compiler's view of it.
@@ -54,6 +55,21 @@ inline int cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int,
 }
 inline int cudaStreamSynchronize(cudaStream_t) { return 0; }
 inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
+// one device, with the SM count of an H100 SXM unless the build defines
+// another
+#ifndef HM_SHIM_SMS
+#define HM_SHIM_SMS 132
+#endif
+constexpr int cudaDevAttrMultiProcessorCount = 16;
+inline int cudaGetDevice(int* device) {
+  *device = 0;
+  return 0;
+}
+inline int cudaDeviceGetAttribute(int* value, int attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *value = HM_SHIM_SMS;
+  return 0;
+}
 template <class F>
 inline int cudaFuncSetAttribute(F, int, int) {
   return 0;

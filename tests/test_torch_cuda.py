@@ -440,6 +440,85 @@ def test_serve_counts_dispatch_copies_once(cuda):
     assert len(dtoh) == 1 and "Pinned" in dtoh[0], copies
 
 
+def _lookup_dispatch(scenario, B, N, seed):
+    """(lane tensors on the card with a pad slot when B > 1, qobj, qkey)
+    of a serve_lookup dispatch over synth_serve_lanes."""
+    lanes, qobj, qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    devs = list(torch.from_numpy(lanes).cuda().unbind(0))
+    if B > 1:
+        devs[-1], qobj[-1], qkey[-1] = devs[0], sk.NO_OBJ, -1
+    return devs, qobj.astype(np.int32), qkey.astype(np.int32)
+
+
+def _lookup_plain(devs, qobj, qkey):
+    return tuple(x.cpu().numpy() for x in sk.map_lookup_plain(
+        torch.stack(devs), torch.from_numpy(qobj).cuda(),
+        torch.from_numpy(qkey).cuda()))
+
+
+@pytest.mark.parametrize("B,N", [(1, 64), (1, 1024), (8, 65536), (64, 1024),
+                                 (512, 1024), (1026, 64)])
+def test_serve_lookup_equal_plain(cuda, B, N):
+    """serve_lookup.cu (arguments by value, the result through the
+    thread's pinned buffer) against the plain version; 1,026 entries take
+    two launches into one output."""
+    assert ck.launch_cap("serve_lookup", 0) == 1024
+    for i, scenario in enumerate(synth.SERVE_SCENARIOS):
+        devs, qobj, qkey = _lookup_dispatch(scenario, B, N, seed=B + N + i)
+        before = ck.launches["serve_lookup"]
+        got = sk.map_lookup_cuda(devs, qobj, qkey)
+        assert ck.launches["serve_lookup"] == before + -(-B // 1024)
+        for g, w in zip(got, _lookup_plain(devs, qobj, qkey)):
+            assert g.dtype == w.dtype and np.array_equal(g, w), scenario
+
+
+def test_serve_lookup_threads_keep_their_own_buffers(cuda):
+    """Two threads dispatching lookups at once, each on its own inputs,
+    each through its own pinned buffer: every answer its own."""
+    import threading
+
+    work = [_lookup_dispatch(synth.SERVE_SCENARIOS[i], 8 << (2 * i), 1024,
+                             seed=i) for i in range(2)]
+    want = [_lookup_plain(*w) for w in work]
+    bad = []
+
+    def run(i):
+        for _ in range(50):
+            got = sk.map_lookup_cuda(*work[i])
+            if not all(np.array_equal(g, w) for g, w in zip(got, want[i])):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+
+
+def test_serve_lookup_dispatch_copies_once(cuda):
+    """One lookup dispatch under torch.profiler: no host-to-device copy,
+    one device-to-host copy, into pinned memory, beside the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    devs, qobj, qkey = _lookup_dispatch("random", 1, 1024, seed=4)
+    sk.map_lookup_cuda(devs, qobj, qkey)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sk.map_lookup_cuda(devs, qobj, qkey)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if any("lookup_kernel" in n for n in names):
+            break
+    else:
+        pytest.fail("the profiler delivered no record of lookup_kernel")
+    copies = [n for n in names if "Memcpy" in n or "memcpy" in n]
+    assert not [n for n in copies if "HtoD" in n], copies
+    dtoh = [n for n in copies if "DtoH" in n]
+    assert len(dtoh) == 1 and "Pinned" in dtoh[0], copies
+
+
 SERVE_CALLS = {
     "lookup": (sk.map_lookup_cuda,
                lambda st, qo, qk: sk.map_lookup_plain(st, qo, qk)),
@@ -807,7 +886,9 @@ LIVE_CASES = {
 def test_live_kernel_equals_plain(cuda, name):
     """materialize_live_device on the card equals its plain version on
     the CPU on the padded tick batch of seeded live columns (a packed
-    history plus a peer's INC ops, deletes, inserts and sets)."""
+    history plus a peer's INC ops, deletes, inserts and sets). Both
+    shapes take doc_kernel.cu's many-block route, and each dispatch
+    counts exactly one launch."""
     from hypermerge_tpu_torch.backend import live
 
     D, n_ops, kw = LIVE_CASES[name]
@@ -829,6 +910,63 @@ def test_live_kernel_equals_plain(cuda, name):
     for f in want._fields:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     assert not got.clock.any()
+
+
+# (docs, ops per doc, synth kwargs) of live ticks that take
+# doc_kernel.cu's many-block route by default; [3, 16384] cuts the padded
+# batch (D bucketed to 4) to an odd D
+ROUTE_CASES = {
+    "1x65536": (1, 60_000, dict(n_actors=1, ops_per_change=1, text_frac=1.0)),
+    "3x16384": (3, 15_000, dict(n_actors=3, n_keys=40, text_frac=0.6)),
+    "8x32768": (8, 30_000, dict(n_actors=5, n_keys=40, text_frac=0.5)),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_doc_kernel_routes_equal_plain(cuda, name):
+    """doc_kernel.cu's one-block and many-block routes, each forced, on
+    the padded tick batch of seeded live columns: both equal to the plain
+    version on the CPU, so the two are byte-equal; one counted launch a
+    dispatch whatever the route launches."""
+    from hypermerge_tpu_torch.backend import live
+
+    D, n_ops, kw = ROUTE_CASES[name]
+    lvs = []
+    for d in range(D):
+        hist = synth.synth_changes(n_ops, seed=11 + d, **kw)
+        lv = columnar.LiveColumns.from_batch(columnar.pack_docs([hist]), 0)
+        lv.append_changes(synth.synth_live_edits(hist, 300, seed=d))
+        lvs.append(lv)
+    N = ck.live_bucket(max(lv.n for lv in lvs), ck.LIVE_MIN_ROWS)
+    planes, A, K = live.tick_batch(lvs, N)
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt = (
+        torch.from_numpy(a[:D]) for a in planes)
+    assert name == f"{D}x{N}"
+    da = torch.zeros(D, A, dtype=torch.int32)
+    args = (flags, slot, ctr, None, obj, key, ref, value, psrc, ptgt, da)
+    want = ck.materialize_device(*args, A=A, K=K)
+    dev = tuple(None if a is None else a.cuda() for a in args)
+    for route in (ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK):
+        before = ck.launches["materialize_live"]
+        got = ck.materialize_cuda(*dev, A=A, K=K, counter="materialize_live",
+                                  route=route)
+        torch.cuda.synchronize()
+        assert ck.launches["materialize_live"] == before + 1
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (
+                route, f)
+
+
+def test_doc_route_follows_the_card(cuda):
+    """doc_kernel.cu's route rule reads this card's SM count: docs above
+    one tile take the many-block route while they leave half the SMs idle
+    or more, and batches of 2^22 rows or more take it too."""
+    half = torch.cuda.get_device_properties(0).multi_processor_count // 2
+    route = ck.kernel_fn("doc_route")
+    one, many = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK
+    assert route(1, 262144) == route(half, 4096) == many
+    assert route(half + 1, 4096) == route(4096, 1024) == one
+    assert route(1024, 4096) == many
 
 
 def test_live_tick_launches_on_the_card(cuda, tmp_path, monkeypatch):

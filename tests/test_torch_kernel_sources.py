@@ -28,11 +28,19 @@ concatenated in rank order (n in {1, 2, 3, 5} ranks, odd widths,
 one-row blocks; the push route, and the flagged route as one grid and as
 one launch per rank from concurrent threads: a second call whose flags a
 rank already advanced, a rank that never raises its flag, a rank that
-pushes late). Mutants of the clock kernels (top-k ties broken by the
+pushes late). doc_kernel.cu's many-block route runs forced in builds
+whose sort tile is 32 or 64 rows (HM_DOC_TILE), equal to the plain
+version and to the one-block route, and its route rule is held on shims
+of two SM counts (HM_SHIM_SMS); its mutants (the sort direction from the
+batch position, doubling rounds short of N, a skipped global stage, run
+ends at tile seams, the map's run ends launched before the global
+stages) must fail. Mutants of the clock kernels (top-k ties broken by the
 higher index, a tile keeping k - 1 candidates, a key packing that loses
 the sign order, a scatter by plain store, a union or a min started at 0
 on each route, a columns route that drops the A % 4 tail), of the serve
-kernels (a lookup that answers -1 when nothing matches, an order that
+kernels (a lookup that answers -1 when nothing matches, a lookup that
+keeps the highest match, a split lookup launch that drops its last
+chunk, an order that
 breaks ties by the higher row, counts that ignore INSERT, a split counts
 launch that drops its last chunk, a warp sum that skips one shuffle)
 and of the ring (a wrong source block, a wait over n - 1 ranks, a wait
@@ -58,6 +66,7 @@ import torch
 from helpers import Site, random_mutation, sync
 from hypermerge_tpu.ops import columnar as ref_columnar
 from hypermerge_tpu_torch import convert
+from hypermerge_tpu_torch.crdt.change import Action
 from hypermerge_tpu_torch.ops import clock_kernels as ckk
 from hypermerge_tpu_torch.ops import crdt_kernels as ck
 from hypermerge_tpu_torch.ops import pack_kernels as pk
@@ -167,7 +176,7 @@ def host_kernels(tmp_path_factory):
     )
 
 
-def _run_host_materialize(fn, args, A, K):
+def _run_host_materialize(fn, args, A, K, route=ck.DOC_ROUTE_AUTO):
     flags, slot, ctr, seq, obj, key, ref, value, _psrc, ptgt, _da = args
     D, N = flags.shape
     wide = [
@@ -185,7 +194,7 @@ def _run_host_materialize(fn, args, A, K):
     keys = torch.full((D, N), 3, dtype=torch.int64)
     rc = fn(
         flags.data_ptr(), *(None if t is None else t.data_ptr() for t in wide),
-        D, N, ptgt.shape[1], A, K, *(t.data_ptr() for t in out),
+        D, N, ptgt.shape[1], A, K, route, *(t.data_ptr() for t in out),
         scratch.data_ptr(), keys.data_ptr(), None,
     )
     assert rc == 0
@@ -246,6 +255,236 @@ def test_kernel_sources_equal_plain(host_kernels, name, lean):
         _run_host_wire(host_kernels["summary_wire"], want, N, A, lean),
         ck.summarize_wire_plain(want, N, A, lean),
     )
+
+
+# doc_kernel.cu's many-block route at host sizes: builds with tiles of 32
+# or 64 rows (HM_DOC_TILE), so that a few hundred rows take the sorts'
+# global stages (j >= tile) and their shared stages per tile
+
+
+def _doc_source(out, *defines):
+    """doc_kernel.cu's entries ({"doc_kernel", "doc_route"}) built for the
+    host with `defines`, into `out`."""
+    out.mkdir(parents=True, exist_ok=True)
+    return _compile_host({"doc_kernel": (CSRC / "doc_kernel.cu").read_text()},
+                         out, defines=defines)
+
+
+@pytest.fixture(scope="module")
+def doc_tiles(tmp_path_factory):
+    """{tile: doc_kernel.cu's entry built with HM_DOC_TILE = tile}."""
+    return {tile: _doc_source(tmp_path_factory.mktemp(f"doc_tile{tile}"),
+                              f"HM_DOC_TILE={tile}")["doc_kernel"]
+            for tile in (32, 64)}
+
+
+def _live_tick_args(D, n_ops, seed):
+    """The padded tick batch `live.tick_batch` builds for D docs of seeded
+    live columns (a packed history plus a peer's INC ops, deletes, inserts
+    and sets), cut to D docs (the batch pads D to a power of two), as the
+    11 arguments of materialize_device with seq absent and a zero actor
+    map; with (A, K)."""
+    from hypermerge_tpu_torch.backend import live
+    from hypermerge_tpu_torch.ops import columnar as port_columnar
+
+    lvs = []
+    for d in range(D):
+        hist = synth.synth_changes(n_ops, n_actors=1 + d % 2, ops_per_change=1,
+                                   text_frac=0.9, seed=seed + d)
+        lv = port_columnar.LiveColumns.from_batch(
+            port_columnar.pack_docs([hist]), 0)
+        lv.append_changes(synth.synth_live_edits(hist, 40, seed=seed + d))
+        lvs.append(lv)
+    N = ck.live_bucket(max(lv.n for lv in lvs), ck.LIVE_MIN_ROWS)
+    planes, A, K = live.tick_batch(lvs, N)
+    flags, slot, ctr, obj, key, ref, value, psrc, ptgt = (
+        torch.from_numpy(a[:D]) for a in planes)
+    assert ((flags & 7) == int(Action.INC)).any(), "no INC op"
+    da = torch.zeros(D, A, dtype=torch.int32)
+    return (flags, slot, ctr, None, obj, key, ref, value, psrc, ptgt, da), A, K
+
+
+def _synth_args(D, n_ops, lean=False, **kw):
+    np_args, A, K = ck.host_args(synth.synth_batch(D, n_ops, **kw), lean=lean)
+    return tuple(None if a is None else torch.from_numpy(a) for a in np_args), A, K
+
+
+def _conflict_args(D=2, N=128, A=4, K=4):
+    """Concurrent root-key sets (no preds, every one visible) in runs of
+    40 rows a key, then pad rows: each key's group of the sorted map
+    pairs straddles tile seams, and its one winner is the group's last."""
+    i = torch.arange(N, dtype=torch.int32).expand(D, N)
+    d = torch.arange(D, dtype=torch.int32)[:, None]
+    pad = i >= N - 9
+    flags = torch.where(pad, int(Action.PAD), int(Action.SET)).to(torch.uint8)
+    slot = ((i + d) % A).to(torch.int8)
+    ctr = (N - i + 3 * d).to(torch.int32)  # comp descends with the row
+    seq = torch.ones(D, N, dtype=torch.int32)
+    obj = torch.full((D, N), -1, dtype=torch.int32)
+    key = torch.where(pad, -1, (i // 40 + d) % 3).to(torch.int32)
+    ref = torch.full((D, N), -3, dtype=torch.int32)
+    value = (i % 7).to(torch.int32)
+    preds = torch.full((D, 16), -1, dtype=torch.int32)
+    da = torch.zeros(D, A, dtype=torch.int32)
+    return (flags, slot, ctr, seq, obj, key, ref, value, preds, preds, da), A, K
+
+
+# (D, rows, tile, kwargs): D in {1, 2, 3}, N in {128, 512}; one actor with
+# one op a change makes the long text chains the doubling must climb
+MANY_BLOCK_SHAPES = {
+    "d1_n128": (1, 120, 32, dict(n_actors=1, ops_per_change=1, text_frac=1.0)),
+    "d2_n128": (2, 100, 32, dict(n_actors=3, text_frac=0.5)),
+    "d3_n128": (3, 128, 32, dict(n_actors=2, text_frac=0.7, seed=4)),
+    "d1_n512": (1, 500, 64, dict(n_actors=3, text_frac=0.5)),
+    "d2_n512": (2, 512, 32, dict(n_actors=1, ops_per_change=1, text_frac=1.0)),
+    "d3_n512": (3, 400, 64, dict(n_actors=2, text_frac=0.85, seed=7)),
+}
+
+
+def _routes_equal_plain(fn, args, A, K):
+    """doc_kernel.cu (a build of one tile) on the many-block route and on
+    the one-block route, each lane equal to the plain version's."""
+    want = ck.materialize_device(*args, A=A, K=K)  # CPU: the plain version
+    many = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_MANY_BLOCK)
+    one = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_ONE_BLOCK)
+    for f in want._fields:
+        assert torch.equal(getattr(many, f), getattr(want, f)), f
+        assert torch.equal(getattr(many, f), getattr(one, f)), f
+
+
+@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("lean", [False, True])
+def test_doc_kernel_many_block_source_equals_plain(doc_tiles, name, lean):
+    batch = CASES[name]()
+    np_args, A, K = ck.host_args(batch, lean=lean)
+    args = tuple(None if a is None else torch.from_numpy(a) for a in np_args)
+    _routes_equal_plain(doc_tiles[32], args, A, K)
+
+
+@pytest.mark.parametrize("shape", list(MANY_BLOCK_SHAPES))
+def test_doc_kernel_many_block_shapes_equal_plain(doc_tiles, shape):
+    D, n_ops, tile, kw = MANY_BLOCK_SHAPES[shape]
+    args, A, K = _synth_args(D, n_ops, **kw)
+    assert args[0].shape[0] == D and args[0].shape[1] in (128, 512)
+    _routes_equal_plain(doc_tiles[tile], args, A, K)
+
+
+def test_doc_kernel_many_block_conflicts_equal_plain(doc_tiles):
+    """Map groups that straddle tile seams: one winner each, the last."""
+    args, A, K = _conflict_args()
+    _routes_equal_plain(doc_tiles[32], args, A, K)
+
+
+@pytest.mark.parametrize("D", [1, 3])
+def test_doc_kernel_many_block_live_tick_equals_plain(doc_tiles, D):
+    """The live tick's entry as materialize_live_device calls it (seq
+    absent, INC ops), on an odd D at N = 512."""
+    args, A, K = _live_tick_args(D, 430, seed=20)
+    assert args[0].shape == (D, 512)
+    _routes_equal_plain(doc_tiles[32], args, A, K)
+
+
+def test_doc_kernel_source_rejects_bad_routes(host_kernels):
+    args, A, K = _synth_args(1, 100)
+    for route in (3, -1, 7):
+        with pytest.raises(AssertionError):
+            _run_host_materialize(host_kernels["doc_kernel"], args, A, K,
+                                  route)
+    route = host_kernels["doc_route"]
+    assert route(0, 4096) == route(1, 0) == -1
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_doc_kernel_source_route_rule(tmp_path, sms):
+    """The route the entry picks, on a card of `sms` SMs: one block a doc
+    for docs of one tile (2,048 rows) or less; above that the many-block
+    route while 2 D <= sms or D x N >= 2^22, else one block a doc."""
+    route = _doc_source(tmp_path, f"HM_SHIM_SMS={sms}")["doc_route"]
+    one, many = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK
+    half = sms // 2
+    for D, N, want in ((1, 2048, one), (4096, 1024, one), (1, 4096, many),
+                       (half, 4096, many), (half + 1, 4096, one),
+                       (half + 1, 262144, many), (255, 16384, one),
+                       (256, 16384, many), (1024, 4096, many),
+                       (1, 1 << 20, many)):
+        assert route(D, N) == want, (D, N)
+    # the rule on the card's own count: the entry forced to each route
+    # agrees with it on the auto pick (the same bytes either way)
+    fn = _doc_source(tmp_path / "tile32", "HM_DOC_TILE=32",
+                     f"HM_SHIM_SMS={sms}")
+    args, A, K = _synth_args(3, 100, n_actors=2, text_frac=0.7)
+    auto = _run_host_materialize(fn["doc_kernel"], args, A, K)
+    forced = _run_host_materialize(fn["doc_kernel"], args, A, K,
+                                   fn["doc_route"](3, 128))
+    assert fn["doc_route"](3, 128) == many
+    for f in auto._fields:
+        assert torch.equal(getattr(auto, f), getattr(forced, f)), f
+
+
+# mutants of the many-block route: each edit must change some lane on
+# the case beside it (a build of tile 32)
+DOC_MUTANTS = {
+    # the direction from the row's place in the batch: at k = N every odd
+    # doc would merge descending
+    "direction_from_batch_position": (
+        [("const bool ascending = (i & k) == 0;",
+          "const bool ascending = ((base + i) & k) == 0;")], "d2_n128"),
+    # ceil_log2(N) rounds already climb a chain of N rows (the + 1 is the
+    # reference's margin, kept), so one round fewer cannot show; a round
+    # short of covering N must
+    "doubling_rounds_short_of_n": (
+        [("const int rounds = ceil_log2(b.N) + 1;",
+          "const int rounds = ceil_log2(b.N) - 1;")], "d1_n128"),
+    "skips_last_global_stage": (
+        [("for (long long j = k >> 1; rc == 0 && j >= T; j >>= 1) {",
+          "for (long long j = k >> 1; rc == 0 && j > T; j >>= 1) {")],
+        "d3_n128"),
+    # the run ends read within each tile of 32, as if they ran after the
+    # tile sort: a gid run across a seam gets two winners (the run-end
+    # pass is shared, so the one-block route breaks too)
+    "run_end_at_tile_seam": (
+        [("const bool last = j == b.N - 1;",
+          "const bool last = ((j + 1) & 31) == 0;")], "conflicts"),
+    # the many-block route's launch order: the map's run ends launched
+    # after the tile sort and before the global stages, reading each run
+    # as the tiles left it (the one-block route is untouched)
+    "map_ends_before_merge": (
+        [("""  if (rc == 0) rc = merge_tiles(b, T, s);
+  if (rc == 0) {
+    mb_map_ends_kernel<<<grid_for(rows), kRowThreads, 0, s>>>(b);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+""", """  if (rc == 0) {
+    mb_map_ends_kernel<<<grid_for(rows), kRowThreads, 0, s>>>(b);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  if (rc == 0) rc = merge_tiles(b, T, s);
+""")], "conflicts"),
+}
+
+
+@pytest.mark.parametrize("name", list(DOC_MUTANTS))
+def test_doc_kernel_many_block_mutants_fail(tmp_path, name):
+    edits, shape = DOC_MUTANTS[name]
+    text = (CSRC / "doc_kernel.cu").read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    fn = _compile_host({"doc_kernel": text}, tmp_path,
+                       defines=("HM_DOC_TILE=32",))["doc_kernel"]
+    if shape == "conflicts":
+        args, A, K = _conflict_args()
+    else:
+        D, n_ops, _tile, kw = MANY_BLOCK_SHAPES[shape]
+        args, A, K = _synth_args(D, n_ops, **kw)
+    want = ck.materialize_device(*args, A=A, K=K)
+    got = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_MANY_BLOCK)
+    assert not all(torch.equal(getattr(got, f), getattr(want, f))
+                   for f in want._fields)
+    if name != "run_end_at_tile_seam":  # the one-block route is untouched
+        one = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_ONE_BLOCK)
+        assert all(torch.equal(getattr(one, f), getattr(want, f))
+                   for f in want._fields)
 
 
 def _run_host_pack(fn, kw):
@@ -855,12 +1094,30 @@ def _run_host_counts(fn, ptrs, qobj, N, per_launch=0):
     return host[:B], host[B:]
 
 
+def _run_host_lookup(fn, ptrs, qobj, qkey, N, per_launch=0):
+    """serve_lookup's entry as map_lookup_cuda calls it: the lane
+    pointers, qobj and qkey as host arrays, a device output and a host
+    copy (standing in for the pinned buffer) that start as garbage;
+    returns what the copy holds: found as a bool lane when every value
+    came back 0 or 1, else as the raw int32 lane, which no bool lane
+    equals."""
+    B = len(ptrs)
+    ptrs = np.asarray(ptrs, np.int64)
+    qobj = np.ascontiguousarray(qobj, np.int32)
+    qkey = np.ascontiguousarray(qkey, np.int32)
+    out = torch.full((2 * B,), 77, dtype=torch.int32)
+    host = torch.full((2 * B,), 78, dtype=torch.int32)
+    rc = fn(ptrs.ctypes.data, qobj.ctypes.data, qkey.ctypes.data, B, N,
+            per_launch, out.data_ptr(), host.data_ptr(), None)
+    assert rc == 0
+    found = host[B:]
+    return host[:B], (found == 1 if set(found.tolist()) <= {0, 1} else found)
+
+
 def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True, **kw):
     """A serve kernel compiled for the host, called as its wrapper calls
-    it: serve_order and serve_counts with their arguments in host memory,
-    serve_lookup with one int64 argument array of lane pointers and
-    queries (the pad slot points at entry 0's lanes); outputs start as
-    garbage."""
+    it, with its arguments in host memory (the pad slot points at entry
+    0's lanes); outputs start as garbage."""
     B, _, N = lanes.shape
     stride = lanes[0].numel() * lanes.element_size()
     ptrs = [lanes.data_ptr() + b * stride for b in range(B)]
@@ -870,13 +1127,7 @@ def _run_host_serve(fn, stem, lanes, qobj, qkey, pad_ptr=True, **kw):
         return _run_host_order(fn, ptrs, qobj, N, **kw)
     if stem == "serve_counts":
         return _run_host_counts(fn, ptrs, qobj, N, **kw)
-    args = torch.from_numpy(
-        np.concatenate([np.asarray(ptrs, np.int64)]
-                       + [q.astype(np.int64) for q in (qobj, qkey)])
-    )
-    out = torch.full((2 * B,), 77, dtype=torch.int32)
-    assert fn(args.data_ptr(), B, N, out.data_ptr(), None) == 0
-    return out[:B], out[B:] == 1
+    return _run_host_lookup(fn, ptrs, qobj, qkey, N, **kw)
 
 
 def _serve_equal(got, want):
@@ -1062,10 +1313,102 @@ def test_serve_counts_source_rejects_bad_arguments(host_kernels):
                   out.data_ptr(), None, None) == -1
 
 
+def _lookup_lanes(scenario, B, N, seed, offset=False):
+    """(lanes [B + 1, 6, N] with a pad slot (entry 0 again, query NO_OBJ
+    and key -1), the B + 1 lane pointers, qobj, qkey) of
+    synth_serve_lanes; with `offset` the lanes sit 4 bytes past an
+    aligned address."""
+    t, ptrs, qobj = _counts_lanes(scenario, B, N, seed, offset=offset)
+    _lanes, _qobj, qkey = synth.synth_serve_lanes(B, N, scenario, seed=seed)
+    return t, ptrs, qobj, np.append(qkey, -1).astype(np.int32)
+
+
+# (real entries, N, per_launch, lanes 4 bytes off alignment); per_launch
+# 0 takes the source's cap. "split": 17 slots in launches of 16 + 1;
+# N = 1 and 2 and the offset lanes read with scalar loads
+LOOKUP_SHAPES = {
+    "int4": (5, 64, 0, False), "split": (16, 64, 16, False),
+    "split_three_ways": (20, 32, 7, False),
+    "n1": (3, 1, 0, False), "n2": (3, 2, 0, False), "n4": (4, 4, 0, False),
+    "offset": (5, 64, 0, True), "wide": (2, 4096, 0, False),
+}
+
+
+@pytest.mark.parametrize("shape", list(LOOKUP_SHAPES))
+@pytest.mark.parametrize("scenario", synth.SERVE_SCENARIOS)
+def test_serve_lookup_source_equals_plain_and_reference(host_kernels,
+                                                        scenario, shape):
+    """serve_lookup's by-value entry (int4 or scalar loads, the shuffle
+    min, launches split over the batch) against map_lookup_plain on every
+    slot, and the real slots against the JAX package's jitted
+    _build_map_lookup (which pads the batch itself)."""
+    import jax.numpy as jnp
+    from hypermerge_tpu.serve import kernels as ref_sk
+
+    B, N, per_launch, offset = LOOKUP_SHAPES[shape]
+    t, ptrs, qobj, qkey = _lookup_lanes(scenario, B, N,
+                                        seed=B * N + per_launch, offset=offset)
+    got = _run_host_lookup(host_kernels["serve_lookup"], ptrs, qobj, qkey, N,
+                           per_launch)
+    want = sk.map_lookup_plain(t, torch.from_numpy(qobj),
+                               torch.from_numpy(qkey))
+    assert _serve_equal(got, want)
+
+    class _Entry:
+        def __init__(self, dev):
+            self.dev = dev
+
+    ref = ref_sk.map_lookup(
+        [_Entry(jnp.asarray(t[b].numpy())) for b in range(B)],
+        list(qobj[:B]), list(qkey[:B]))
+    np.testing.assert_array_equal(got[0][:B].numpy(), ref[0][:B])
+    np.testing.assert_array_equal(got[1][:B].numpy(), ref[1][:B])
+
+
+def test_serve_lookup_source_under_an_old_toolkit(tmp_path):
+    """Built as under CUDA 11.8: 128 entries a launch, so 300 take three,
+    the last through the small struct."""
+    fns = _compile_host({"serve_lookup": (CSRC / "serve_lookup.cu").read_text()},
+                        tmp_path, defines=("CUDART_VERSION=11080",))
+    assert fns["serve_lookup_cap"](0) == sk.LOOKUP_ENTRIES_MIN == 128
+    t, ptrs, qobj, qkey = _lookup_lanes("random", 299, 16, seed=9)
+    got = _run_host_lookup(fns["serve_lookup"], ptrs, qobj, qkey, 16)
+    assert _serve_equal(got, sk.map_lookup_plain(
+        t, torch.from_numpy(qobj), torch.from_numpy(qkey)))
+
+
+def test_serve_lookup_source_rejects_bad_arguments(host_kernels):
+    fn = host_kernels["serve_lookup"]
+    assert host_kernels["serve_lookup_cap"](0) == 1024
+    _t, ptrs, qobj, qkey = _lookup_lanes("random", 1, 64, seed=1)
+    ptrs = np.asarray(ptrs, np.int64)
+    out = torch.zeros(4, dtype=torch.int32)
+    for B, N, per_launch in ((2, 48, 0), (2, 0, 0), (0, 64, 0), (2, 64, 1025),
+                             (2, 64, -1)):
+        # N not a power of two, or 0; no entry; a launch above the cap or
+        # below 0
+        assert fn(ptrs.ctypes.data, qobj.ctypes.data, qkey.ctypes.data, B, N,
+                  per_launch, out.data_ptr(), None, None) == -1
+
+
 SERVE_MUTANTS = {
     "lookup_minus_one_when_none": ("serve_lookup", "misses", [
-        ("out[b] = best < N ? best : 0;", "out[b] = best < N ? best : -1;"),
+        ("out[b0 + e] = best < N ? best : 0;",
+         "out[b0 + e] = best < N ? best : -1;"),
     ], {}),
+    # each warp and the block keep the highest of their threads' first
+    # matches: every row matches, so the lowest is 0 and the highest not
+    "lookup_keeps_highest_match": ("serve_lookup", "all_masked", [
+        ("row = other < row ? other : row;",
+         "row = other != N && (row == N || other > row) ? other : row;"),
+        ("best = warp_rows[w] < best ? warp_rows[w] : best;",
+         "best = warp_rows[w] != N && (best == N || warp_rows[w] > best)"
+         " ? warp_rows[w] : best;"),
+    ], {}),
+    "lookup_split_drops_last_chunk": ("serve_lookup", "random", [
+        ("for (int b0 = 0; rc == 0 && b0 < B; b0 += chunk) {",
+         "for (int b0 = 0; rc == 0 && b0 + chunk < B; b0 += chunk) {"),
+    ], {"per_launch": 4}),
     "order_ties_by_higher_row": ("serve_order", "all_masked", [
         ("= pack_key(key, i);", "= pack_key(key, 0x7ffffffe - i);"),
         ("return static_cast<int>(key & 0xffffffffu);",
