@@ -11,9 +11,13 @@ prints a result):
      and with which capabilities;
   2. hold each kernel against its plain PyTorch version on the card, on
      the same inputs, exactly (integer and bool outputs, tolerance 0):
-     materialize and summary_wire at the bulk slab (4096 docs x 1024
-     rows, 1 actor) and at a multi-actor batch (1024 x 512, 3 actors,
-     half text); pack_prefix on the inputs the sidecar pack hands it at
+     kernel 1 alone (materialize), the slab's one launch (kernel 1 with
+     the summary wire as its epilogue: materialize_wire) with the doc's
+     scratch in shared memory and in global lanes, and summary_wire alone
+     with its sort keys in shared memory and in global scratch, full and
+     lean, at the bulk slab (4096 docs x 1024 rows, 1 actor), a mesh
+     rank's share of it (1024 x 1024), a multi-actor batch (1024 x 512, 3
+     actors, half text) and one long doc (1 x 65536); pack_prefix on the inputs the sidecar pack hands it at
      the slab, at a ragged slab (partial windows, an empty doc, a shared
      feed, values outside int16) and at one doc of 65,536 rows (int32
      row planes); the four clock kernels at the mirror's capacity of
@@ -57,23 +61,24 @@ prints a result):
      columns (INC ops, text) at (D, N) = (1, 262144) with A and K at
      their bucket floors and (8, 32768) with A = 8, K = 64, at [3, 16384]
      (an odd D) with doc_kernel.cu's two routes forced and byte-equal,
-     and on both sides of the entry's route rule at N = 4096: the
-     many-block route's smallest shape [1, 4096], its largest D there,
-     [SMs // 2, 4096], and [SMs // 2 + 1, 4096], each case's route held
-     to the rule;
+     and on both sides of each boundary of the entry's route rule: [1,
+     8192] and [1, 16384]; [SMs // 2, 16384] and [SMs // 2 + 1, 16384],
+     each case's route held to the rule;
   3. drive each main path through the user entry points, its launch
      counts set to 0 just before it and read just after:
      a. the first slice: the slab dispatch `run_batch_full` (full and
-        lean) with its host decode, and `materialize_batch` /
-        `summarize_columnar` over 64 distinct histories, checked against
-        the same entries run on the CPU;
+        lean: one launch each) and a slab of one long doc (the many-block
+        route, then summary_wire alone) with their host decode, and
+        `materialize_batch` / `summarize_columnar` over 64 distinct
+        histories, checked against the same entries run on the CPU;
      b. the sidecar slice: 8 template feeds written to column sidecars on
         disk and compacted, 4096 docs packed from them on the card by
         `pack_docs_columns`, `run_batch_full` and `fetch_summary`; live
         counts of every doc and decoded patches of 64 docs are held
         against the first slice's path (`pack_docs` over the same
-        histories); pack_prefix, materialize and summary_wire must each
-        have launched once;
+        histories); pack_prefix and materialize_wire must each have
+        launched once, materialize and summary_wire never (one launch
+        for kernels 1-2 a slab);
      c. the clock slice: BASELINE config 5 (`bench.py` `_config5_union`)
         on the card — a DeviceClockMirror seeded with 100,000 docs x 64
         actors, then 1,000 `update`s, `union()`, `dominated(q)` and
@@ -104,7 +109,8 @@ prints a result):
      e. the multi-device slice (parallel/), on 4 virtual ranks of this
         card, meshes (4, 1) and (2, 2), each answer equal to the
         single-device answer on the card: `sharded_full` of the bulk slab
-        (full and lean) byte-equal to `run_batch_full`; `step` over the
+        (full and lean, one materialize_wire launch a rank) byte-equal to
+        `run_batch_full`; `step` over the
         multi-actor batch (lanes, and the union equal to the host twin of
         the scatter union); `sharded_clock_union` and `sharded_dominated`
         at BASELINE config 5 equal to `union_reduce` and `gte`; the
@@ -133,7 +139,10 @@ prints a result):
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
-     summary wire; torch.amax, scatter_reduce_ and torch.topk for the
+     summary wire, also at the long doc; for the slab's one launch also
+     its lean wire, its kernel alone and cold, its host work, kernels 1
+     and 2 launched apart, and the device memory one call allocates;
+     torch.amax, scatter_reduce_ and torch.topk for the
      clock kernels, whose device time alone torch.profiler also
      reads, top-k's two kernels apart; torch.sort for serve_order;
      torch.amin for the min mode at the pmin's [2, 50000];
@@ -162,9 +171,10 @@ prints a result):
      the same inputs) beside its plain version, the engine's numpy twin
      on the same docs and its bound; serve_lookup's host work, copy
      back, cold kernel and like-for-like library dispatch (stack, three
-     compares, argmax, any, one copy to the host); doc_kernel.cu's two
-     routes forced, byte-equal, then timed in turn (wrapper and kernels
-     alone) at the bulk shapes (the slab, a rank's share of it and of
+     compares, argmax, any, one copy to the host); doc_kernel.cu's routes
+     forced (one block a doc with its scratch in shared memory, the same
+     in global lanes, the many-block route), byte-equal, then timed in
+     turn (wrapper and kernels alone) at the bulk shapes (the slab, a rank's share of it and of
      the product route's slab, the multi-actor batch and a rank's share,
      2,048 short docs), over a grid of D in 1 .. 512 x N in 1,024 ..
      65,536 and at phase 2's live ticks, beside the route the entry
@@ -178,6 +188,15 @@ prints a result):
 
 It exits non-zero with no result when no GPU is present, and when the
 port's package is not beside it.
+
+    python3 chip_smoke.py --ab OTHER [ROUNDS]
+
+holds the slab's device program of this tree against another tree of the
+port (OTHER, e.g. its parent unpacked by `git archive`) on the same card:
+ROUNDS (default 1) times OTHER, this tree, this tree, OTHER, each a
+process of its own that builds its tree's kernels and prints one JSON
+line (`slab_numbers`, through entries every tree of the port has), then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -204,8 +223,14 @@ SLAB = dict(n_docs=4096, n_ops=1024, n_actors=1)
 MULTI = dict(n_docs=1024, n_ops=512, n_actors=3, text_frac=0.5)
 TEMPLATES = 8  # distinct template feeds behind the sidecar slab
 INF = float("inf")
-SLICE1 = ("materialize", "summary_wire")
-SLICE2 = ("pack_prefix", "materialize", "summary_wire")
+# the slab's one launch (doc_kernel.cu's one-block route with the summary
+# wire as its epilogue); kernel 1 alone (run_batch); kernel 1's many-block
+# route and the standalone wire (a long doc's slab)
+SLICE1 = ("materialize_wire", "materialize", "summary_wire")
+SLICE2 = ("pack_prefix", "materialize_wire")
+# a bulk slab of one long doc, which takes the many-block route: kernel 1
+# and then summary_wire.cu (its sort keys in global scratch)
+LONG_DOC = dict(n_docs=1, n_ops=60_000, n_actors=1, text_frac=0.99)
 # BASELINE config 5 (bench.py _config5_union): the mirror's size
 CONFIG5 = dict(n_docs=100_000, n_actors=64, dirty=1000)
 CLOCKS = ("clock_scatter", "clock_union", "clock_pair", "clock_topk")
@@ -214,7 +239,7 @@ STORE = dict(n_docs=2000, n_actors=16, steps=600, seed=5)
 READ = dict(n_docs=2048, n_ops=1024, hot=32, readers=8, reads=4000,
             seed=0xEAD5)
 SERVE = ("serve_lookup", "serve_order", "serve_counts")
-BULK = ("pack_prefix", "materialize", "summary_wire")
+BULK = ("pack_prefix", "materialize_wire")
 # the multi-device slice: ring shapes of phase 2 (n ranks, rows, W bytes;
 # 708 and 1540 are the lean wires at N = 512 and N = 1024), the mesh of
 # phase 3e and the product route's slab (four slabs of phase 3d's corpus)
@@ -246,15 +271,15 @@ LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
 EXTRA_READINGS = ("host_ms", "kernel_ms", "cold_kernel_ms", "device_route_ms",
                   "device_route_kernel_ms", "flush_ms", "flush_library_ms",
                   "copy_back_ms", "library_dispatch_ms", "kernels_per_call",
-                  "one_block_ms")
+                  "one_block_ms", "lean_ms", "two_launch_ms", "peak_mb",
+                  "long_doc_ms", "long_doc_library_ms")
 # every kernel of doc_kernel.cu: the one-block route's, then the many-block
 # route's (one dispatch launches either the first or all the others)
 DOC_KERNELS = ("materialize_kernel", "mb_init_kernel", "mb_supersede_kernel",
                "mb_rows_kernel", "mb_winners_kernel", "mb_tile_kernel",
                "mb_stage_kernel", "mb_map_ends_kernel",
                "mb_sibling_keys_kernel", "mb_sibling_ends_kernel",
-               "mb_climb_init_kernel", "mb_climb_kernel",
-               "mb_rank_init_kernel", "mb_rank_kernel")
+               "mb_climb_kernel", "mb_rank_init_kernel", "mb_rank_kernel")
 # torch.profiler now and then delivers no device record for a window; a
 # kernel-alone window is tried again, and every window is padded with idle
 # host time so that device records near its edges fall inside it
@@ -313,33 +338,48 @@ def max_abs_err(a, b) -> int:
 
 
 def compare_kernels(ck, batch, name):
-    """Kernel vs plain on the card, same inputs; returns the max abs err
-    per kernel and raises on any difference."""
+    """Kernel vs plain on the card, same inputs: kernel 1 alone, the
+    slab's one launch (kernel 1 with the wire as its epilogue) with the
+    doc's scratch in shared memory and in global lanes, and the standalone
+    wire (its sort keys in shared memory up to the source's cap of rows,
+    in global scratch above: the long doc's); full and lean. Returns the
+    max abs err per kernel and raises on any difference."""
     import torch
 
-    errs = {"materialize": 0, "summary_wire": 0}
+    errs = {"materialize": 0, "summary_wire": 0, "materialize_wire": 0}
     N = batch.n_rows
+    one_block = (ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_ONE_BLOCK_GLOBAL)
+
+    def held(kernel, label, got, want):
+        torch.cuda.synchronize()
+        errs[kernel] = max(errs[kernel], max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} {label} differs")
+
     for lean in (False, True):
         args, A, K = cuda_args(ck, batch, lean=lean)
-        got = ck.materialize_cuda(*args, A=A, K=K)
         want = ck.doc_kernel_plain(
             *ck.widen_plain(*args[:10]), args[10], A=A, K=K
         )
-        torch.cuda.synchronize()
-        for f in want._fields:
-            e = max_abs_err(getattr(got, f), getattr(want, f))
-            errs["materialize"] = max(errs["materialize"], e)
-            if not torch.equal(getattr(got, f), getattr(want, f)):
-                raise AssertionError(f"{name} lean={lean}: lane {f} differs")
-        wire = ck.summary_wire_cuda(want, N, A, lean)
         wire_plain = ck.summarize_wire_plain(want, N, A, lean)
-        torch.cuda.synchronize()
-        errs["summary_wire"] = max(
-            errs["summary_wire"], max_abs_err(wire, wire_plain)
-        )
-        if not torch.equal(wire, wire_plain):
-            raise AssertionError(f"{name} lean={lean}: summary wire differs")
-    log(f"phase 2 {name} {batch.shape}: kernels == plain (exact)")
+        got = ck.materialize_cuda(*args, A=A, K=K)
+        for f in want._fields:
+            held("materialize", f"lean={lean}: lane {f}", getattr(got, f),
+                 getattr(want, f))
+        for route in one_block:
+            got, wire = ck.materialize_wire_cuda(*args, A=A, K=K, lean=lean,
+                                                 route=route)
+            for f in want._fields:
+                held("materialize_wire", f"route {route} lean={lean}: lane "
+                     f"{f}", getattr(got, f), getattr(want, f))
+            held("materialize_wire", f"route {route} lean={lean}: wire",
+                 wire, wire_plain)
+        held("summary_wire", f"lean={lean}: wire",
+             ck.summary_wire_cuda(want, N, A, lean), wire_plain)
+    keys = "shared" if N <= ck.launch_cap("summary_wire") else "global"
+    log(f"phase 2 {name} {batch.shape}: kernels == plain (exact): kernel 1, "
+        f"the one launch with its wire on routes {one_block}, the wire "
+        f"alone with its keys in {keys} memory")
     return errs
 
 
@@ -354,7 +394,7 @@ def check_summary(arrays, dec, decode_columnar, lean):
             raise AssertionError(f"summary {k} differs from its host decode")
 
 
-def main_path(ck, mat, synth, columnar, slab):
+def main_path(ck, mat, synth, columnar, slab, long_doc):
     """The first slice's entries as a user calls them; returns its launch
     counts."""
     import numpy as np
@@ -363,13 +403,14 @@ def main_path(ck, mat, synth, columnar, slab):
     for k in ck.launches:
         ck.launches[k] = 0
     t0 = time.perf_counter()
-    # the bulk slab dispatch (full and lean) + host decode
-    for lean in (False, True):
-        out, wire = ck.run_batch_full(slab, lean=lean)
-        arrays = mat.fetch_summary(wire, slab, lean=lean)
-        check_summary(arrays, mat.DecodedBatch(slab, out),
+    # the bulk slab dispatch (full and lean) + host decode, then the slab
+    # of one long doc (the many-block route and the standalone wire)
+    for batch, lean in ((slab, False), (slab, True), (long_doc, False)):
+        out, wire = ck.run_batch_full(batch, lean=lean)
+        arrays = mat.fetch_summary(wire, batch, lean=lean)
+        check_summary(arrays, mat.DecodedBatch(batch, out),
                       mat.decode_columnar, lean)
-        if arrays["elem_order"].shape != slab.shape:
+        if arrays["elem_order"].shape != batch.shape:
             raise AssertionError("elem_order shape")
     # a pack of distinct histories, end to end, against the CPU path
     hists = [
@@ -430,12 +471,29 @@ def host_call_ms(fn, runs=50, warmup=5) -> float:
     return statistics.median(times)
 
 
+def peak_mb(fn) -> float:
+    """MiB of device memory one call of fn allocates at its peak, beyond
+    what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kept = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del kept
+    return peak / 2**20
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def time_kernels(ck, batch):
-    """{kernel: numbers} at this batch's shape."""
+def time_kernels(ck, batch, long_doc=None):
+    """{kernel: numbers} at this batch's shape; with `long_doc`, the
+    standalone wire also at that batch's shape (its keys in global
+    scratch)."""
     import torch
 
     args, A, K = cuda_args(ck, batch)
@@ -447,12 +505,12 @@ def time_kernels(ck, batch):
     log2n = max(1, int(math.log2(N)))
     res = {}
 
-    # kernel 1: reads flags..value + ptgt once, writes 5 bool + 2 int32
-    # lanes + the clock; ops: two comparison sorts (N log2 N each) and
-    # the doubling + ranking rounds (1 + 3 int ops per row per round)
-    b1 = nbytes(flags, slot, ctr, seq, obj, key, ref, value, ptgt) + nbytes(
-        *out
-    )
+    # kernel 1: reads flags..value + ptgt once (as the link narrows them),
+    # writes 5 bool + 2 int32 lanes + the clock; ops: two comparison sorts
+    # (N log2 N each) and the doubling + ranking rounds (1 + 3 int ops per
+    # row per round)
+    lanes_in = nbytes(flags, slot, ctr, seq, obj, key, ref, value, ptgt)
+    b1 = lanes_in + nbytes(*out)
     o1 = D * (2 * N * log2n + 4 * (N + 1) * rounds)
     res["materialize"] = dict(
         ms=median_ms(lambda: ck.materialize_cuda(*args, A=A, K=K)),
@@ -460,8 +518,8 @@ def time_kernels(ck, batch):
         library_ms=None, bytes=b1, ops=o1,
     )
 
-    # kernel 2: reads two masks + rank + clock, writes the wire; ops: one
-    # comparison sort (N log2 N)
+    # kernel 2 alone: reads two masks + rank + clock, writes the wire; ops:
+    # one comparison sort (N log2 N)
     wire = ck.summary_wire_cuda(out, N, A, False)
     b2 = nbytes(out.map_winner, out.elem_live, out.rank, out.clock, wire)
     o2 = D * N * log2n
@@ -474,6 +532,52 @@ def time_kernels(ck, batch):
         ),
         bytes=b2, ops=o2,
     )
+    if long_doc is not None:
+        la, lA, lK = cuda_args(ck, long_doc)
+        lN = long_doc.n_rows
+        lout = ck.materialize_cuda(*la, A=lA, K=lK)
+        lkey = torch.where(lout.elem_live, -lout.rank, 2**31 - 1)
+        res["summary_wire"].update(
+            long_doc_ms=median_ms(
+                lambda: ck.summary_wire_cuda(lout, lN, lA, False)),
+            long_doc_library_ms=median_ms(
+                lambda: torch.argsort(lkey, dim=1, stable=True)),
+        )
+        log(f"timing summary_wire long doc {list(long_doc.shape)} (keys in "
+            f"global scratch): ms={res['summary_wire']['long_doc_ms']!r} "
+            f"argsort_ms={res['summary_wire']['long_doc_library_ms']!r}")
+
+    # the slab's one launch: kernel 1 with the wire as its epilogue. Bytes:
+    # the narrow lanes read once, the lanes and the wire written once (no
+    # re-read); ops: kernels 1 and 2's
+    def fused(a=args, lean=False):
+        return ck.materialize_wire_cuda(*a, A=A, K=K, lean=lean)
+
+    lean_args = cuda_args(ck, batch, lean=True)[0]
+    copies = [tuple(None if x is None else x.clone() for x in args)
+              for _ in range(max(2, math.ceil(4 * L2_BYTES / b1)))]
+
+    def two_launch():
+        o = ck.materialize_cuda(*args, A=A, K=K)
+        return o, ck.summary_wire_cuda(o, N, A, False)
+
+    f_out, f_wire = fused()
+    res["materialize_wire"] = dict(
+        ms=median_ms(fused),
+        lean_ms=median_ms(lambda: fused(lean_args, True)),
+        host_ms=host_call_ms(fused),
+        kernel_ms=kernel_device_ms(fused, "materialize_kernel"),
+        cold_kernel_ms=cold_kernel_ms(
+            lambda i: lambda: fused(copies[i % len(copies)]),
+            lanes_in + nbytes(*f_out) + nbytes(f_wire)),
+        two_launch_ms=median_ms(two_launch),
+        peak_mb=peak_mb(fused),
+        plain_ms=median_ms(lambda: ck.summarize_wire_plain(
+            ck.doc_kernel_plain(*plain_args, A=A, K=K), N, A, False)),
+        library_ms=None,
+        bytes=lanes_in + nbytes(*f_out) + nbytes(f_wire), ops=o1 + o2,
+    )
+    del copies
     for r in res.values():
         t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
         t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -643,6 +747,9 @@ def slice_path(ck, columnar, mat, fcs):
                 f"kernel {k} launched {counts[k]} times on the sidecar "
                 f"slice, expected 1"
             )
+    if counts["materialize"] or counts["summary_wire"]:
+        raise AssertionError(f"the sidecar slab took more than one launch "
+                             f"of kernels 1-2: {counts}")
     return batch, out, arrays, lean, counts
 
 
@@ -2126,7 +2233,14 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
 
     def full():
         for lean in (False, True):
+            before = dict(ck.launches)
             _out, wire = sharded.sharded_full(slab, meshes[0], lean=lean)
+            launched = {k: ck.launches[k] - before[k] for k in
+                        ("materialize_wire", "materialize", "summary_wire")}
+            if launched != {"materialize_wire": n, "materialize": 0,
+                            "summary_wire": 0}:
+                raise AssertionError(f"sharded_full lean={lean}: launches "
+                                     f"{launched}, expected one a rank")
             if not torch.equal(wire.cpu()[: slab.n_docs], ref["wire", lean]):
                 raise AssertionError(f"sharded_full lean={lean}: wire != "
                                      "run_batch_full's")
@@ -2228,7 +2342,7 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
         f"{[m.shape for m in meshes]}): walls {walls}; product route stats "
         f"{stats}; launches {counts}")
     for k in ("ring_gather", "clock_union_min", "clock_union", "clock_pair",
-              "clock_scatter", "materialize", "summary_wire"):
+              "clock_scatter", "materialize", "materialize_wire"):
         if counts[k] == 0:
             raise AssertionError(f"kernel {k} never launched in phase 3e")
     log(f"phase 3e check ({label}): sharded_full (full, lean) == "
@@ -2477,6 +2591,20 @@ def live_columns(columnar, synth, n_ops, n_edits, seed, **kw):
     return lv
 
 
+def live_tick_cases(columnar, synth):
+    """{label: [LiveColumns]} of the live tick's two timed buckets: [1,
+    262144] (one doc of LIVE_TRACE's size, one author) and [8, 32768]
+    (8 docs of five authors)."""
+    return {
+        "1x262144": [live_columns(columnar, synth, LIVE_TRACE["n_ops"], 300,
+                                  3, n_actors=1, ops_per_change=1,
+                                  text_frac=1.0)],
+        "8x32768": [live_columns(columnar, synth, 30000, 300, 40 + d,
+                                 n_actors=5, n_keys=40, text_frac=0.5)
+                    for d in range(8)],
+    }
+
+
 def live_args(ck, live, lvs, device, docs=None):
     """The padded tick batch `_kernel_device` builds for `lvs`, as tensors
     on `device`, with (A, K); `docs` cuts it to its first docs (the batch
@@ -2519,32 +2647,40 @@ def compare_live_kernel(ck, live, columnar, synth):
     of seeded LiveColumns with INC ops and text, at (D, N) = (1, 262144)
     (A and K at their bucket floors) and (8, 32768) (A = 8, K = 64); at
     [3, 16384] (an odd D, cut from the padded batch) on both routes
-    forced, byte-equal; and on both sides of the entry's route rule at
-    N = 4096 (8 distinct docs, repeated): [1, 4096], the many-block
-    route's smallest shape, [SMs // 2, 4096], its largest D there, and
-    one doc more, the one-block route's. Each case's route is held to the
+    forced, byte-equal; and on both sides of each boundary of the entry's
+    route rule: [1, 8192] (the longest doc whose scratch fits shared
+    memory: one block a doc, in shared memory) and [1, 16384] (the
+    many-block route); [SMs // 2, 16384] (the many-block route's largest
+    D there; 8 distinct docs, repeated) and one doc more (one block a
+    doc, its scratch in global lanes). Each case's route is held to the
     rule (`hm_doc_route`). Returns (max abs err, {label: (LiveColumns,
     args, A, K)} of the first two, {label: (args, A, K)} of every case)."""
     import torch
 
     half = torch.cuda.get_device_properties(0).multi_processor_count // 2
     pick = ck.kernel_fn("doc_route")
-    group = [live_columns(columnar, synth, 3500, 300, 60 + d, n_actors=2,
-                          n_keys=40, text_frac=0.6) for d in range(8)]
-    many = {"1x262144", "8x32768", "3x16384", "1x4096", f"{half}x4096"}
+
+    def group(n_ops, seed):
+        return [live_columns(columnar, synth, n_ops, 300, seed + d,
+                             n_actors=2, n_keys=40, text_frac=0.6)
+                for d in range(8)]
+
+    g8, g16 = group(6000, 70), group(12000, 80)
+    one, many = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK
+    expect = {"1x262144": many, "8x32768": many, "3x16384": many,
+              "1x8192": one, "1x16384": many, f"{half}x16384": many,
+              f"{half + 1}x16384": ck.DOC_ROUTE_ONE_BLOCK_GLOBAL}
+    ticks = live_tick_cases(columnar, synth)
     cases = {
-        "1x262144": ([live_columns(columnar, synth, LIVE_TRACE["n_ops"], 300,
-                                   3, n_actors=1, ops_per_change=1,
-                                   text_frac=1.0)], None),
-        "8x32768": ([live_columns(columnar, synth, 30000, 300, 40 + d,
-                                  n_actors=5, n_keys=40, text_frac=0.5)
-                     for d in range(8)], None),
+        "1x262144": (ticks["1x262144"], None),
+        "8x32768": (ticks["8x32768"], None),
         "3x16384": ([live_columns(columnar, synth, 15000, 300, 50 + d,
                                   n_actors=3, n_keys=40, text_frac=0.6)
                      for d in range(3)], 3),
-        "1x4096": (group[:1], None),
-        f"{half}x4096": ((group * half)[:half], half),
-        f"{half + 1}x4096": ((group * half)[:half + 1], half + 1),
+        "1x8192": (g8[:1], None),
+        "1x16384": (g16[:1], None),
+        f"{half}x16384": ((g16 * half)[:half], half),
+        f"{half + 1}x16384": ((g16 * half)[:half + 1], half + 1),
     }
     err, inputs, every = 0, {}, {}
     for label, (lvs, docs) in cases.items():
@@ -2552,11 +2688,11 @@ def compare_live_kernel(ck, live, columnar, synth):
         every[label] = (args, A, K)
         if f"{args[0].shape[0]}x{args[0].shape[1]}" != label:
             raise AssertionError(f"live batch {label}: {list(args[0].shape)}")
-        want_route = (ck.DOC_ROUTE_MANY_BLOCK if label in many
-                      else ck.DOC_ROUTE_ONE_BLOCK)
-        if pick(*args[0].shape) != want_route:
+        want_route = expect[label]
+        picked = pick(*args[0].shape, ck.DOC_ROUTE_AUTO)
+        if picked != want_route:
             raise AssertionError(f"live batch {label}: doc_kernel picks "
-                                 f"route {pick(*args[0].shape)}")
+                                 f"route {picked}")
         got = ck.materialize_live_device(*args, A=A, K=K)
         cpu = tuple(a.cpu() for a in args)
         want = ck.materialize_live_device(*cpu, A=A, K=K)
@@ -2837,8 +2973,11 @@ def doc_entry_call(ck, args, A, K):
     D, N = flags.shape
     dev = flags.device
     fl = flags.clone()
-    wide = [t.to(torch.int32).clone()
-            for t in (slot, ctr, obj, key, ref, value, ptgt)]
+    # slot, ctr, seq (absent), obj .. ptgt at the widths the link gives them
+    lanes = [t.clone() for t in (slot, ctr)] + [None] + [
+        t.clone() for t in (obj, key, ref, value, ptgt)]
+    widths = sum((4 if t is None else t.element_size()) << (4 * k)
+                 for k, t in enumerate(lanes))
     b, i32 = torch.bool, torch.int32
     out = ([torch.empty(D, N, dtype=b, device=dev) for _ in range(5)]
            + [torch.empty(D, N, dtype=i32, device=dev) for _ in range(2)]
@@ -2848,15 +2987,15 @@ def doc_entry_call(ck, args, A, K):
     keys = torch.empty(D, N, dtype=torch.int64, device=dev)
     fn = ck.kernel_fn("doc_kernel")
     stream = ck.launch_stream(dev)
-    ptrs = [w.data_ptr() for w in wide]
-    lanes = ptrs[:2] + [None] + ptrs[2:]  # slot, ctr, seq, obj .. ptgt
+    ptrs = [None if t is None else t.data_ptr() for t in lanes]
 
     def call():
-        if fn(fl.data_ptr(), *lanes, D, N, ptgt.shape[1], A, K,
+        if fn(fl.data_ptr(), *ptrs, widths, D, N, ptgt.shape[1], A, K,
               ck.DOC_ROUTE_AUTO, *(t.data_ptr() for t in out),
-              scratch.data_ptr(), keys.data_ptr(), stream):
+              scratch.data_ptr(), keys.data_ptr(), None, 0, 0, 0, 0, 0, 0,
+              stream):
             raise AssertionError("doc_kernel alone failed to launch")
-        return fl, wide, out, scratch, keys
+        return fl, lanes, out, scratch, keys
     return call
 
 
@@ -2939,12 +3078,15 @@ DOC_ROUTE_GRID = tuple(
 
 
 def time_doc_routes(ck, synth, live_cases):
-    """Phase 4: doc_kernel.cu's two routes forced on the same inputs, at
-    every bulk shape of DOC_ROUTE_SHAPES and at the live ticks of
+    """Phase 4: doc_kernel.cu's routes forced on the same inputs (one
+    block a doc with its scratch in shared memory, the same in global
+    lanes, the many-block route; where a doc does not fit shared memory
+    the first two are one and it runs once), at every bulk shape of
+    DOC_ROUTE_SHAPES, over DOC_ROUTE_GRID and at the live ticks of
     `live_cases` ({label: (args, A, K)} in materialize_live_device's
     form): per route the wrapper (CUDA events, the routes taking turns)
     and the kernels alone (the profiler, summed), and the route the entry
-    picks (`auto`) beside the one that read faster. Both routes are held
+    picks (`auto`) beside the one that read faster. The routes are held
     byte-equal first."""
     import torch
 
@@ -2966,16 +3108,23 @@ def time_doc_routes(ck, synth, live_cases):
     for label, (args, A, K) in live_cases.items():
         cases[f"live {label}"] = lambda route, args=args, A=A, K=K: (
             doc_route_call(ck, args, A, K, route)())
-    routes = {"one_block": ck.DOC_ROUTE_ONE_BLOCK,
-              "many_block": ck.DOC_ROUTE_MANY_BLOCK}
+    every = {"one_block": ck.DOC_ROUTE_ONE_BLOCK,
+             "one_block_global": ck.DOC_ROUTE_ONE_BLOCK_GLOBAL,
+             "many_block": ck.DOC_ROUTE_MANY_BLOCK}
     res = {}
     for label, call in cases.items():
-        outs = [call(route) for route in routes.values()]
+        outs = [call(ck.DOC_ROUTE_MANY_BLOCK)]
         D, N = outs[0].rank.shape
-        for f in outs[0]._fields:
-            if not torch.equal(getattr(outs[0], f), getattr(outs[1], f)):
-                raise AssertionError(f"doc_kernel routes differ at {label} "
-                                     f"in {f}")
+        fits = pick(D, N, ck.DOC_ROUTE_ONE_BLOCK) == ck.DOC_ROUTE_ONE_BLOCK
+        routes = {k: v for k, v in every.items()
+                  if fits or k != "one_block"}
+        outs += [call(route) for name, route in routes.items()
+                 if name != "many_block"]
+        for other in outs[1:]:
+            for f in outs[0]._fields:
+                if not torch.equal(getattr(outs[0], f), getattr(other, f)):
+                    raise AssertionError(f"doc_kernel routes differ at "
+                                         f"{label} in {f}")
         r = {}
         for _ in range(2):  # the routes take turns
             for name, route in routes.items():
@@ -2985,7 +3134,8 @@ def time_doc_routes(ck, synth, live_cases):
             r[f"{name}_ms"] = min(r[f"{name}_ms"])
             r[f"{name}_kernel_ms"], r[f"{name}_kernels"] = kernels_device_ms(
                 lambda: call(route), DOC_KERNELS, runs=5)
-        r["auto"] = {v: k for k, v in routes.items()}.get(pick(D, N))
+        r["auto"] = {v: k for k, v in routes.items()}.get(
+            pick(D, N, ck.DOC_ROUTE_AUTO))
         r["faster"] = min(routes, key=lambda name: r[f"{name}_ms"])
         if r["auto"] is None:
             raise AssertionError(f"doc_kernel picked no route at {label}")
@@ -3021,7 +3171,141 @@ def mesh_bounds(ck, ckk, slab, multi):
     return out
 
 
+def host_split_ms(ck, fn, runs=50, warmup=5) -> dict:
+    """A wrapper's host time split around its one call of doc_kernel.cu's
+    C entry (medians, the card idle when each call starts): before it
+    (checks, allocations, marshalling), the C call (the launches it
+    issues), after it; and CUDA events around the C call alone (the
+    device work it enqueues; their records fall inside the C call's
+    time)."""
+    import torch
+
+    real, marks = ck.kernel_fn, []
+
+    def timed(name):
+        c = real(name)
+        if name != "doc_kernel":
+            return c
+
+        def call(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            rc = c(*a)
+            end.record()
+            marks.append((t0, time.perf_counter(), start, end))
+            return rc
+        return call
+
+    ck.kernel_fn = timed
+    try:
+        for _ in range(warmup):
+            fn()
+        split = {"pre_ms": [], "c_ms": [], "post_ms": [], "c_events_ms": []}
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            marks.clear()
+            t = time.perf_counter()
+            fn()
+            t_end = time.perf_counter()
+            torch.cuda.synchronize()
+            if len(marks) != 1:
+                raise AssertionError(f"{len(marks)} doc_kernel calls")
+            t0, t1, start, end = marks[0]
+            split["pre_ms"].append((t0 - t) * 1e3)
+            split["c_ms"].append((t1 - t0) * 1e3)
+            split["post_ms"].append((t_end - t1) * 1e3)
+            split["c_events_ms"].append(start.elapsed_time(end))
+    finally:
+        ck.kernel_fn = real
+    return {k: statistics.median(v) for k, v in split.items()}
+
+
+def slab_numbers(tree: str) -> int:
+    """One JSON line of the port in `tree`, through entries every tree of
+    the port has: `slab_full_ms` / `slab_lean_ms`, materialize_full_device
+    / materialize_full_lean_device at SLAB (kernels 1 and 2, however many
+    launches the tree takes; CUDA events, median of 15 after 3 warm-ups),
+    `slab_peak_mb` (peak_mb of one full dispatch); `wire_ms` /
+    `wire_long_doc_ms`, summary_wire_cuda alone at SLAB and at LONG_DOC;
+    for the live tick's buckets (live_tick_cases) materialize_live_device's
+    events (`_ms`), host time until it returns (`_host_ms`) and
+    host_split_ms (`_pre_ms`, `_c_ms`, `_post_ms`, `_c_events_ms`)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hypermerge_tpu_torch.backend import live
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.ops import columnar, synth
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    if not ck.__file__.startswith(os.path.abspath(tree) + os.sep):
+        raise AssertionError(f"imported {ck.__file__}, not from {tree}")
+    _build.build()
+    slab = make_batch(synth, SLAB)
+    args, A, K = cuda_args(ck, slab)
+    flags, slot, ctr, _seq, obj, key, ref, _value, psrc, ptgt, da = (
+        cuda_args(ck, slab, lean=True)[0])
+    N = slab.n_rows
+
+    def full():
+        return ck.materialize_full_device(*args, A=A, K=K)
+
+    def lean():
+        return ck.materialize_full_lean_device(
+            flags, slot, ctr, obj, key, ref, psrc, ptgt, da, A=A, K=K)
+
+    res = dict(slab_full_ms=median_ms(full, 15, 3),
+               slab_lean_ms=median_ms(lean, 15, 3), slab_peak_mb=peak_mb(full))
+    out = ck.materialize_cuda(*args, A=A, K=K)
+    res["wire_ms"] = median_ms(
+        lambda: ck.summary_wire_cuda(out, N, A, False), 15, 3)
+    long_doc = make_batch(synth, LONG_DOC)
+    la, lA, lK = cuda_args(ck, long_doc)
+    lout = ck.materialize_cuda(*la, A=lA, K=lK)
+    res["wire_long_doc_ms"] = median_ms(
+        lambda: ck.summary_wire_cuda(lout, long_doc.n_rows, lA, False), 15, 3)
+    for label, lvs in live_tick_cases(columnar, synth).items():
+        targs, tA, tK = live_args(ck, live, lvs, "cuda")
+
+        def tick(targs=targs, tA=tA, tK=tK):
+            return ck.materialize_live_device(*targs, A=tA, K=tK)
+
+        res[f"live_{label}_ms"] = median_ms(tick, 15, 3)
+        res[f"live_{label}_host_ms"] = host_call_ms(tick)
+        for k, v in host_split_ms(ck, tick).items():
+            res[f"live_{label}_{k}"] = v
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def ab_main(other: str, rounds: int) -> int:
+    """`--ab OTHER [ROUNDS]`: slab_numbers of OTHER and of this tree in
+    turn, each in a process of its own; exits non-zero if any fails."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = [("other", other), ("this", here), ("this", here),
+             ("other", other)] * rounds
+    for label, tree in order:
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--slab-numbers",
+             tree], capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            print(run.stdout + run.stderr, file=sys.stderr)
+            return run.returncode or 1
+        log(f"ab {label} {run.stdout.strip().splitlines()[-1]}")
+    log(card_line())
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ab"]:
+        return ab_main(sys.argv[2], int(sys.argv[3]) if sys.argv[3:] else 1)
+    if sys.argv[1:2] == ["--slab-numbers"]:
+        return slab_numbers(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3096,9 +3380,15 @@ def main() -> int:
         # -- 2. kernels vs plain, on the card ---------------------------------
         slab = make_batch(synth, SLAB)
         multi = make_batch(synth, MULTI)
+        long_doc = make_batch(synth, LONG_DOC)
         errs = compare_kernels(ck, slab, "slab")
-        for k, e in compare_kernels(ck, multi, "multi").items():
-            errs[k] = max(errs[k], e)
+        rank_slab = make_batch(synth, dict(SLAB, n_docs=SLAB["n_docs"]
+                                           // MESH_RANKS))
+        for b, label in ((multi, "multi"), (rank_slab, "slab rank"),
+                         (long_doc, "long doc")):
+            for k, e in compare_kernels(ck, b, label).items():
+                errs[k] = max(errs[k], e)
+        del rank_slab
         e_slab, k_slab = compare_pack(
             pk, columnar, slab_specs(fcs, SLAB["n_docs"]), "slab",
             n_docs=SLAB["n_docs"], n_rows=SLAB["n_ops"],
@@ -3124,7 +3414,7 @@ def main() -> int:
             compare_live_kernel(ck, live, columnar, synth))
 
         # -- 3. the main paths -------------------------------------------------
-        main_path(ck, mat, synth, columnar, slab)
+        slice1 = main_path(ck, mat, synth, columnar, slab, long_doc)
         batch, out, arrays, lean, counts = slice_path(ck, columnar, mat, fcs)
         check_slice(ck, columnar, mat, hists, batch, out, arrays, lean)
         clock_counts, mirror, actors = clock_path(ck, PM)
@@ -3150,7 +3440,10 @@ def main() -> int:
         del _captured
 
         # -- 4. times ------------------------------------------------------
-        timing = time_kernels(ck, slab)
+        timing = time_kernels(ck, slab, long_doc)
+        for name, r in timing.items():
+            log(f"timing slab {slab.shape} {name}: " + " ".join(
+                f"{k}={v!r}" for k, v in r.items()))
         for name, r in time_kernels(ck, multi).items():
             log(f"timing multi {multi.shape} {name}: ms={r['ms']!r} "
                 f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
@@ -3195,6 +3488,8 @@ def main() -> int:
                         "hypermerge_tpu/ops/crdt_kernels.py:100"),
         "summary_wire": ("hypermerge_tpu_torch/kernels/csrc/summary_wire.cu",
                          "hypermerge_tpu/ops/crdt_kernels.py:380"),
+        "materialize_wire": ("hypermerge_tpu_torch/kernels/csrc/doc_kernel.cu",
+                             "hypermerge_tpu/ops/crdt_kernels.py:506"),
         "clock_pair": ("hypermerge_tpu_torch/kernels/csrc/clock_pair.cu",
                        "hypermerge_tpu/ops/clock_kernels.py:28"),
         "clock_union": ("hypermerge_tpu_torch/kernels/csrc/clock_union.cu",
@@ -3217,7 +3512,9 @@ def main() -> int:
                              "hypermerge_tpu/ops/crdt_kernels.py:553"),
     }
     # launches: each kernel's count on its slice's main path (the sidecar
-    # slice, the config-5 clock slice, the read slice)
+    # slice; kernels 1 and 2 apart: the first slice, whose long doc's slab
+    # takes them; the config-5 clock slice, the read slice)
+    counts.update({k: slice1[k] for k in ("materialize", "summary_wire")})
     counts.update({k: clock_counts[k] for k in CLOCKS})
     counts.update({k: read_counts[k] for k in SERVE})
     counts.update({k: mesh_counts[k] for k in MESH})

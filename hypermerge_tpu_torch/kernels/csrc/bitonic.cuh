@@ -1,11 +1,10 @@
-// Block-wide bitonic sort shared by the port's kernels.
+// Block-wide bitonic sorts shared by the port's kernels.
 //
-// Sorts n (a power of two) (key, val) pairs held in global scratch,
-// ascending by key and then by val. The kernels store the row index in
-// val, so no two pairs compare equal: the order is total, the result is
-// unique, and it equals what a stable sort by key gives (jnp.lexsort and
-// jnp.argsort are stable). Each compare-exchange stage is followed by a
-// __syncthreads(), so every thread of the block must call this.
+// A sort orders n (a power of two) keys, or (key, val) pairs ascending by
+// key and then by val. The kernels store the row index in val (or in a
+// key's low bits), so no two items compare equal: the order is total, the
+// result is unique, and it equals what a stable sort by key gives
+// (jnp.lexsort and jnp.argsort are stable).
 #pragma once
 
 template <class Key>
@@ -25,21 +24,6 @@ __device__ __forceinline__ void exchange_pairs(Key* ka, int* va, Key* kb,
     *kb = a;
     *va = y;
     *vb = x;
-  }
-}
-
-template <class Key>
-__device__ void block_bitonic_sort(Key* key, int* val, int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
-        // the t-th pair of this stage: i has bit j clear, l = i | j
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        exchange_pairs(key + i, val + i, key + i + j, val + i + j,
-                       (i & k) == 0);
-      }
-      __syncthreads();
-    }
   }
 }
 
@@ -158,6 +142,138 @@ __device__ void shared_bitonic_pairs(Key* s, int* v, int n, long long base,
     }
     __syncthreads();
   }
+}
+
+// A block-wide sort with each thread's items in registers. Thread t holds
+// the four network positions 4t .. 4t + 3: the stages j = 2, 1 compare
+// within the thread, the stages 4 <= j < 128 exchange with lane t ^ (j / 4)
+// by __shfl_xor_sync, and only the stages j >= 128 (across warps) go
+// through memory, one barrier each. So a sort of 1,024 items takes 9
+// barriers, and every k <= 128 none. It sorts n items where the block has
+// n / 4 threads (n >= 256), or 32 threads and n <= 128 (the positions from
+// n up hold the largest item, never stored). Mem gives the items' memory:
+// load(p), store(p, item), exchange(i, l, ascending), and inf(), an item
+// above every real one. Ends with a barrier; every thread of the block
+// must call it.
+
+template <class Key>
+struct PairItem {
+  Key key;
+  int val;
+};
+
+template <class Key>
+__device__ __forceinline__ bool item_greater(const PairItem<Key>& a,
+                                             const PairItem<Key>& b) {
+  return pair_greater(a.key, a.val, b.key, b.val);
+}
+
+__device__ __forceinline__ bool item_greater(unsigned long long a,
+                                             unsigned long long b) {
+  return a > b;
+}
+
+template <class Key>
+__device__ __forceinline__ PairItem<Key> shfl_item(const PairItem<Key>& a,
+                                                   int mask) {
+  return PairItem<Key>{__shfl_xor_sync(0xffffffffu, a.key, mask),
+                       __shfl_xor_sync(0xffffffffu, a.val, mask)};
+}
+
+__device__ __forceinline__ unsigned long long shfl_item(unsigned long long a,
+                                                        int mask) {
+  return __shfl_xor_sync(0xffffffffu, a, mask);
+}
+
+// (key, val) pairs in two arrays, ascending by key and then by val
+template <class Key>
+struct PairMem {
+  Key* key;
+  int* val;
+  __device__ PairItem<Key> load(int p) const { return PairItem<Key>{key[p], val[p]}; }
+  __device__ void store(int p, const PairItem<Key>& x) const {
+    key[p] = x.key;
+    val[p] = x.val;
+  }
+  __device__ void exchange(int i, int l, bool ascending) const {
+    exchange_pairs(key + i, val + i, key + l, val + l, ascending);
+  }
+  __device__ PairItem<Key> inf() const {
+    return PairItem<Key>{static_cast<Key>(~0ull >> 1), 0x7fffffff};
+  }
+};
+
+// unique 64-bit keys
+struct KeyMem {
+  unsigned long long* key;
+  __device__ unsigned long long load(int p) const { return key[p]; }
+  __device__ void store(int p, unsigned long long x) const { key[p] = x; }
+  __device__ void exchange(int i, int l, bool ascending) const {
+    compare_exchange(key, i, l, ascending);
+  }
+  __device__ unsigned long long inf() const { return ~0ull; }
+};
+
+// whether the block's threads hold n items four a thread (see above)
+__device__ __forceinline__ bool blocked_fits(int n) {
+  const int m = 4 * static_cast<int>(blockDim.x);
+  return m == n ? n >= 256 : (blockDim.x == 32 && n <= 128);
+}
+
+// stage (k, J) for J < 4: positions 4t + q and 4t + q + J of this thread
+// (J a template argument, so that x stays in registers)
+template <int J, class Item>
+__device__ __forceinline__ void thread_stage(Item (&x)[4], int t, int k) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q & J) continue;
+    const bool ascending = ((4 * t + q) & k) == 0;
+    if (item_greater(x[q], x[q + J]) == ascending) {
+      const Item y = x[q];
+      x[q] = x[q + J];
+      x[q + J] = y;
+    }
+  }
+}
+
+template <class Mem>
+__device__ void blocked_bitonic(const Mem& mem, int n) {
+  const int t = threadIdx.x, nt = blockDim.x, m = 4 * nt;
+  decltype(mem.inf()) x[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) x[q] = 4 * t + q < n ? mem.load(4 * t + q) : mem.inf();
+  for (int k = 2; k <= m; k <<= 1) {
+    int j = k >> 1;
+    if (j >= 128) {  // the stages across warps, through memory
+#pragma unroll
+      for (int q = 0; q < 4; ++q) mem.store(4 * t + q, x[q]);
+      __syncthreads();
+      for (; j >= 128; j >>= 1) {
+        for (int u = t; u < (m >> 1); u += nt) {
+          const int i = ((u & ~(j - 1)) << 1) | (u & (j - 1));
+          mem.exchange(i, i + j, (i & k) == 0);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = mem.load(4 * t + q);
+    }
+    for (; j >= 4; j >>= 1) {  // lane t ^ (j / 4) holds the partners
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const auto o = shfl_item(x[q], j >> 2);
+        const int p = 4 * t + q;
+        const bool take_min = ((p & j) == 0) == ((p & k) == 0);
+        if (item_greater(x[q], o) == take_min) x[q] = o;
+      }
+    }
+    if (j == 2) thread_stage<2>(x, t, k);  // within the thread
+    thread_stage<1>(x, t, k);
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (4 * t + q < n) mem.store(4 * t + q, x[q]);
+  __syncthreads();
 }
 
 // pair t of stage (k, j) over the keys in global memory

@@ -25,6 +25,11 @@ Two functions carry the work, each in two versions:
 - `summarize_wire` (the reference's `_summarize_wire`): CUDA kernel
   `kernels/csrc/summary_wire.cu`, or `summarize_wire_plain`.
 
+The slab dispatch, `materialize_with_wire`, runs both: on the card in one
+launch of doc_kernel.cu whenever it takes a one-block route (the wire is
+that launch's epilogue, `kernels/csrc/summary_wire.cuh`), else as the
+two kernels in turn.
+
 Which one runs follows only from where the tensors lie. A GPU tensor
 never reaches the plain version: the kernel launches, or the wrapper
 raises. The plain versions mirror the reference op for op (stable sorts
@@ -328,7 +333,8 @@ def summarize_wire_plain(
 # that splits a batch over several launches counts each).
 
 launches: Dict[str, int] = {
-    "materialize": 0, "materialize_live": 0, "summary_wire": 0,
+    "materialize": 0, "materialize_wire": 0, "materialize_live": 0,
+    "summary_wire": 0,
     "pack_prefix": 0,
     "clock_pair": 0, "clock_union": 0, "clock_scatter": 0, "clock_topk": 0,
     "serve_lookup": 0, "serve_order": 0, "serve_counts": 0,
@@ -339,8 +345,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # source stem -> (C symbol, argtypes)
-    "doc_kernel": ("hm_materialize", [_P] * 9 + [_I] * 6 + [_P] * 11),
-    "doc_route": ("hm_doc_route", [_I] * 2),
+    "doc_kernel": (
+        "hm_materialize", [_P] * 9 + [_I] * 7 + [_P] * 11 + [_I] * 6 + [_P]
+    ),
+    "doc_route": ("hm_doc_route", [_I] * 3),
     "summary_wire": ("hm_summary_wire", [_P] * 4 + [_I] * 9 + [_P] * 3),
     # wrapper in ops/pack_kernels.py
     "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
@@ -376,6 +384,7 @@ _SIGNATURES = {
 _STEMS = {"clock_scatter_params": "clock_scatter", "doc_route": "doc_kernel"}
 # per-launch caps each source reports (its C entry hm_<stem>_cap)
 _CAP_SYMBOLS = {
+    "summary_wire": ("hm_summary_wire_cap", [_I]),
     "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
     "serve_lookup": ("hm_serve_lookup_cap", [_I]),
     "serve_order": ("hm_serve_order_cap", [_I]),
@@ -385,10 +394,15 @@ _fns: Dict[str, ctypes._CFuncPtr] = {}
 _caps: Dict[tuple, int] = {}
 # int32 scratch lanes of [N + 2] per doc used by doc_kernel.cu (kLanes)
 _DOC_SCRATCH_LANES = 8
-# doc_kernel.cu's routes: picked by the source (hm_doc_route), one block
-# per doc, or the many-block route's grid-wide launches
-DOC_ROUTE_AUTO, DOC_ROUTE_ONE_BLOCK, DOC_ROUTE_MANY_BLOCK = 0, 1, 2
+# doc_kernel.cu's routes: picked by the source (hm_doc_route); one block
+# per doc (its scratch in shared memory where the doc fits, else global);
+# the many-block route's grid-wide launches; one block per doc with its
+# scratch in global memory
+(DOC_ROUTE_AUTO, DOC_ROUTE_ONE_BLOCK, DOC_ROUTE_MANY_BLOCK,
+ DOC_ROUTE_ONE_BLOCK_GLOBAL) = 0, 1, 2, 3
 _WIRE_INT_DTYPES = (torch.int8, torch.int16, torch.int32)
+# the routes hm_doc_route resolved, by (device index, D, N, route asked)
+_doc_routes: Dict[tuple, int] = {}
 
 
 def kernel_fn(name: str):
@@ -410,8 +424,9 @@ def launch_cap(stem: str, which: int = 0) -> int:
     """A cap the source `stem` was compiled with, read once from its C
     entry hm_<stem>..._cap(which). which = 0: the most triples or entries
     one launch passes by value (they follow the toolkit's parameter
-    limit); clock_scatter's 1: the triples of its middle struct;
-    serve_order's 1: the keys it sorts in shared memory."""
+    limit), summary_wire's: the keys a doc sorts in shared memory;
+    clock_scatter's 1: the triples of its middle struct; serve_order's 1:
+    the keys it sorts in shared memory."""
     cap = _caps.get((stem, which))
     if cap is None:
         from ..kernels._build import load
@@ -462,18 +477,31 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def materialize_cuda(
+def doc_route(D: int, N: int, dev: torch.device,
+              route: int = DOC_ROUTE_AUTO) -> int:
+    """The route (DOC_ROUTE_*) doc_kernel.cu takes for D docs of N rows on
+    CUDA device `dev` when asked for `route`, read once per shape from the
+    source (hm_doc_route); -1 for a shape it does not take."""
+    k = (dev.index, D, N, route)
+    got = _doc_routes.get(k)
+    if got is None:
+        with launch_scope(dev):
+            got = _doc_routes[k] = int(kernel_fn("doc_route")(D, N, route))
+    return got
+
+
+# the eight lanes doc_kernel.cu reads, in its order
+_DOC_LANES = ("slot", "ctr", "seq", "obj", "key", "ref", "value", "ptgt")
+
+
+def _doc_launch(
     flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
-    A: int, K: int, counter: str = "materialize", route: int = DOC_ROUTE_AUTO,
-) -> MaterializeOut:
-    """Kernel 1 (doc_kernel.cu) over narrow wire args on one GPU. `seq`
-    and `value` may be None (lean runs): the kernel reads them as zeros.
-    The source picks its route from (D, N) and the card's SM count: one
-    block per doc, or, for docs longer than one sort tile that leave half
-    the SMs idle or make a batch of 2^22 rows or more, a sequence of
-    grid-wide launches; `route` (DOC_ROUTE_*) forces one, for tests and
-    timings. Either way the dispatch counts one launch under `counter`
-    (the live tick's entry counts its own)."""
+    A: int, K: int, counter: str, route: int, lean: Optional[bool],
+):
+    """One dispatch of doc_kernel.cu on the tensors' GPU: (MaterializeOut,
+    the [D, W] summary wire or None). The lanes go to the kernel as the
+    host narrowed them (int8, int16 or int32 each, contiguous), with no
+    copy; `lean` None asks for no wire."""
     D, N = flags.shape
     P = ptgt.shape[1]
     dev = flags.device
@@ -496,14 +524,19 @@ def materialize_cuda(
             raise ValueError(f"{name}: expected {list(shape)} on {dev}")
         if t.dtype not in _WIRE_INT_DTYPES:
             raise ValueError(f"{name}: expected a signed int dtype, got {t.dtype}")
-    i32 = torch.int32
-    # widen to the kernel's int32 lanes (reading the narrow dtypes in the
-    # kernel is later work); `seq`/`value` stay None on lean runs
-    wide = [
-        None if t is None else t.to(i32).contiguous()
-        for t in (slot, ctr, seq, obj, key, ref, value, ptgt)
-    ]
-    b = torch.bool
+        if name in _DOC_LANES and not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    lanes = (slot, ctr, seq, obj, key, ref, value, ptgt)
+    widths = 0
+    for k, t in enumerate(lanes):
+        widths |= (4 if t is None else t.element_size()) << (4 * k)
+    resolved = doc_route(D, N, dev, route)
+    if resolved < 0:
+        raise ValueError(f"doc_kernel takes no route {route} at [{D}, {N}]")
+    if lean is not None and resolved == DOC_ROUTE_MANY_BLOCK:
+        raise ValueError(f"the wire rides only a one-block route, not the "
+                         f"many-block route at [{D}, {N}]")
+    b, i32 = torch.bool, torch.int32
     out = MaterializeOut(
         dead=torch.empty(D, N, dtype=b, device=dev),
         visible=torch.empty(D, N, dtype=b, device=dev),
@@ -514,25 +547,71 @@ def materialize_cuda(
         inc_total=torch.empty(D, N, dtype=i32, device=dev),
         clock=torch.empty(D, A, dtype=i32, device=dev),
     )
-    scratch = torch.empty(D, _DOC_SCRATCH_LANES, N + 2, dtype=i32, device=dev)
-    keys = torch.empty(D, N, dtype=torch.int64, device=dev)
+    # the global scratch only where the route keeps its lanes there
+    scratch = keys = None
+    if resolved != DOC_ROUTE_ONE_BLOCK:
+        scratch = torch.empty(D, _DOC_SCRATCH_LANES, N + 2, dtype=i32, device=dev)
+        keys = torch.empty(D, N, dtype=torch.int64, device=dev)
+    wire = None
+    spec = dict(mask_bytes=0, order_bits=0, order_bytes=0, count_bytes=0,
+                total=0)
+    if lean is not None:
+        spec = summary_wire_spec(N, A, lean)
+        wire = torch.empty(D, spec["total"], dtype=torch.uint8, device=dev)
     fn = kernel_fn("doc_kernel")
-    with torch.cuda.device(dev):  # launch on the tensors' device
+    with launch_scope(dev):
         rc = fn(
-            flags.data_ptr(), *(_ptr(t) for t in wide),
-            D, N, P, A, K, route,
-            *(t.data_ptr() for t in out),
-            scratch.data_ptr(), keys.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            flags.data_ptr(), *(_ptr(t) for t in lanes), widths,
+            D, N, P, A, K, resolved,
+            *(t.data_ptr() for t in out), _ptr(scratch), _ptr(keys),
+            _ptr(wire), spec["mask_bytes"], spec["order_bits"],
+            spec["order_bytes"], spec["count_bytes"], spec["total"],
+            int(bool(lean)), launch_stream(dev),
         )
     _launched(counter, rc)
-    return out
+    return out, wire
+
+
+def materialize_cuda(
+    flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
+    A: int, K: int, counter: str = "materialize", route: int = DOC_ROUTE_AUTO,
+) -> MaterializeOut:
+    """Kernel 1 (doc_kernel.cu) over narrow wire args on one GPU. `seq`
+    and `value` may be None (lean runs): the kernel reads them as zeros.
+    The source picks its route from (D, N) and the card (doc_route): one
+    block per doc with its scratch in shared memory where a doc fits
+    there; for longer docs, a sequence of grid-wide launches while they
+    leave half the SMs idle or more, else one block per doc with its
+    scratch in global memory; `route` (DOC_ROUTE_*) forces one, for tests
+    and timings. Either way the dispatch counts one launch under `counter`
+    (the live tick's entry counts its own)."""
+    return _doc_launch(
+        flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
+        A, K, counter, route, None,
+    )[0]
+
+
+def materialize_wire_cuda(
+    flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
+    A: int, K: int, lean: bool, route: int = DOC_ROUTE_AUTO,
+):
+    """Kernels 1 and 2 in one launch: (MaterializeOut, the [D, W] uint8
+    summary wire), the wire written by the epilogue of doc_kernel.cu's
+    one-block route from the lanes it still holds. Counts one launch under
+    `materialize_wire`; raises ValueError where the shape (or `route`)
+    takes the many-block route."""
+    return _doc_launch(
+        flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, doc_actors,
+        A, K, "materialize_wire", route, lean,
+    )
 
 
 def summary_wire_cuda(
     out: MaterializeOut, N: int, A: int, lean: bool
 ) -> torch.Tensor:
-    """Kernel 2 (summary_wire.cu): the [D, W] uint8 summary wire."""
+    """Kernel 2 alone (summary_wire.cu): the [D, W] uint8 summary wire of
+    lanes in device memory. A doc's sort keys live in shared memory up to
+    the source's cap of rows, in global scratch above."""
     D = out.rank.shape[0]
     if N < 1 or N & (N - 1):
         raise ValueError(f"row bucket N={N} must be a power of two")
@@ -544,17 +623,16 @@ def summary_wire_cuda(
         _check(out.clock, "clock", torch.int32, (D, A))
     dev = out.rank.device
     wire = torch.empty(D, spec["total"], dtype=torch.uint8, device=dev)
-    scratch = torch.empty(D, N, dtype=torch.int64, device=dev)
+    scratch = (torch.empty(D, N, dtype=torch.int64, device=dev)
+               if N > launch_cap("summary_wire") else None)
     fn = kernel_fn("summary_wire")
-    with torch.cuda.device(dev):
+    with launch_scope(dev):
         rc = fn(
             out.map_winner.data_ptr(), out.elem_live.data_ptr(),
             out.rank.data_ptr(), None if lean else out.clock.data_ptr(),
             D, N, A, spec["mask_bytes"], spec["order_bits"],
             spec["order_bytes"], spec["count_bytes"], spec["total"],
-            int(lean),
-            wire.data_ptr(), scratch.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            int(lean), wire.data_ptr(), _ptr(scratch), launch_stream(dev),
         )
     _launched("summary_wire", rc)
     return wire
@@ -594,16 +672,29 @@ def summarize_wire(
     return summarize_wire_plain(out, N, A, lean)
 
 
+def materialize_with_wire(*args, A: int, K: int, lean: bool):
+    """The slab dispatch: materialize_device's args -> (MaterializeOut,
+    summary wire). On the card one launch wherever doc_kernel.cu takes a
+    one-block route, the wire written by its epilogue
+    (materialize_wire_cuda), else kernel 1's many-block route and then
+    summary_wire.cu; the plain versions for tensors on the CPU."""
+    flags = args[0]
+    D, N = flags.shape
+    if (flags.device.type == "cuda"
+            and doc_route(D, N, flags.device) != DOC_ROUTE_MANY_BLOCK):
+        return materialize_wire_cuda(*args, A=A, K=K, lean=lean)
+    out = materialize_device(*args, A=A, K=K)
+    return out, summarize_wire(out, N, A, lean)
+
+
 def materialize_summary_device(*args, A: int, K: int) -> torch.Tensor:
     """Kernel + summary: the fused summary wire buffer."""
-    out = materialize_device(*args, A=A, K=K)
-    return summarize_wire(out, args[0].shape[1], A, lean=False)
+    return materialize_with_wire(*args, A=A, K=K, lean=False)[1]
 
 
 def materialize_full_device(*args, A: int, K: int):
     """-> (MaterializeOut, summary wire)."""
-    out = materialize_device(*args, A=A, K=K)
-    return out, summarize_wire(out, args[0].shape[1], A, lean=False)
+    return materialize_with_wire(*args, A=A, K=K, lean=False)
 
 
 def materialize_full_lean_device(
@@ -613,11 +704,10 @@ def materialize_full_lean_device(
     summary's clock section. Correct ONLY when the batch has no INC ops
     and the caller supplies clocks host-side. inc_total and clock lanes
     come back as zeros."""
-    out = materialize_device(
+    return materialize_with_wire(
         flags, slot, ctr, None, obj, key, ref, None, psrc, ptgt,
-        doc_actors, A=A, K=K,
+        doc_actors, A=A, K=K, lean=True,
     )
-    return out, summarize_wire(out, flags.shape[1], A, lean=True)
 
 
 LIVE_MIN_ROWS = 64

@@ -57,8 +57,8 @@ from ..ops.crdt_kernels import (
     bucket_doc_actors,
     host_args,
     materialize_device,
+    materialize_with_wire,
     run_batch_full,
-    summarize_wire,
 )
 from .mesh import Mesh, pad_to_multiple, visible_devices
 from .ring import ring_gather
@@ -182,12 +182,11 @@ def sharded_full(batch: ColumnarBatch, mesh: Mesh, lean: bool = False):
     _M_DISPATCHES.add(1)
     with telemetry.span("mesh.sharded_full", "mesh"):
         shards, A, K, _ = shard_batch(batch, mesh, lean=lean)
-        N = batch.n_rows
         outs, wires = [], []
         for args in shards:
-            out = materialize_device(*args, A=A, K=K)
+            out, wire = materialize_with_wire(*args, A=A, K=K, lean=lean)
             outs.append(out)
-            wires.append(summarize_wire(out, N, A, lean))
+            wires.append(wire)
         return _lanes(outs), ShardedTensor(wires)
 
 

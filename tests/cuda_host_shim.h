@@ -14,7 +14,8 @@
 // 12.1 allows) is copied to each thread that runs the kernel: a 24 KB
 // struct costs 24 KB of every std::thread's stack. CUDART_VERSION is
 // that of a CUDA 12.4 toolkit unless the build defines another, and the
-// one device has HM_SHIM_SMS SMs (132 unless defined). A
+// one device has HM_SHIM_SMS SMs (132 unless defined) and lets a block
+// opt into HM_SHIM_SHARED_OPTIN bytes of shared memory (232,448). A
 // cudaMemcpyAsync is a memcpy, done when it returns. What this checks is
 // the kernel's logic (phases, barriers, indexing, sort keys, flag
 // protocols), not its speed or the GPU compiler's view of it.
@@ -55,19 +56,28 @@ inline int cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int,
 }
 inline int cudaStreamSynchronize(cudaStream_t) { return 0; }
 inline int cudaDeviceEnablePeerAccess(int, unsigned) { return 0; }
-// one device, with the SM count of an H100 SXM unless the build defines
-// another
+// one device, with the SM count and the shared memory a block may opt
+// into of an H100 SXM unless the build defines others
 #ifndef HM_SHIM_SMS
 #define HM_SHIM_SMS 132
 #endif
+#ifndef HM_SHIM_SHARED_OPTIN
+#define HM_SHIM_SHARED_OPTIN 232448
+#endif
 constexpr int cudaDevAttrMultiProcessorCount = 16;
+constexpr int cudaDevAttrMaxSharedMemoryPerBlockOptin = 97;
 inline int cudaGetDevice(int* device) {
   *device = 0;
   return 0;
 }
 inline int cudaDeviceGetAttribute(int* value, int attr, int) {
-  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
-  *value = HM_SHIM_SMS;
+  if (attr == cudaDevAttrMultiProcessorCount) {
+    *value = HM_SHIM_SMS;
+  } else if (attr == cudaDevAttrMaxSharedMemoryPerBlockOptin) {
+    *value = HM_SHIM_SHARED_OPTIN;
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return 0;
 }
 template <class F>

@@ -69,13 +69,65 @@ def test_kernels_equal_plain(cuda, name, lean):
 
 
 def test_dispatch_launches_kernels(cuda):
+    """The slab dispatch is one launch: doc_kernel.cu's one-block route
+    with the summary wire as its epilogue."""
     batch = synth.synth_batch(4, 100)
     before = dict(ck.launches)
     out, wire = ck.run_batch_full(batch)
     torch.cuda.synchronize()
     assert wire.is_cuda and out.rank.is_cuda
-    assert ck.launches["materialize"] == before["materialize"] + 1
-    assert ck.launches["summary_wire"] == before["summary_wire"] + 1
+    assert ck.launches["materialize_wire"] == before["materialize_wire"] + 1
+    assert ck.launches["materialize"] == before["materialize"]
+    assert ck.launches["summary_wire"] == before["summary_wire"]
+
+
+# (docs, ops per doc, synth kwargs) of the slab dispatch's shapes: the bulk
+# slab, the multi-actor batch, a mesh rank's share of the slab
+FUSED_SHAPES = {
+    "slab": (4096, 1024, dict(n_actors=1)),
+    "multi_actor": (1024, 512, dict(n_actors=3, text_frac=0.5)),
+    "rank_slab": (1024, 1024, dict(n_actors=1)),
+}
+
+
+@pytest.mark.parametrize("name", list(FUSED_SHAPES))
+@pytest.mark.parametrize("lean", [False, True])
+def test_fused_dispatch_equals_plain(cuda, name, lean):
+    """run_batch_full on the card: one launch (materialize_wire, nothing
+    else), every lane and wire byte equal to the plain versions."""
+    D, n_ops, kw = FUSED_SHAPES[name]
+    batch = synth.synth_batch(D, n_ops, **kw)
+    args, A, K = _args(batch, lean=lean)
+    before = dict(ck.launches)
+    out, wire = ck.run_batch_full(batch, lean=lean)
+    torch.cuda.synchronize()
+    launched = {k: ck.launches[k] - before[k] for k in ck.launches}
+    assert launched == dict({k: 0 for k in ck.launches}, materialize_wire=1)
+    want = ck.doc_kernel_plain(*ck.widen_plain(*args[:10]), args[10], A=A, K=K)
+    for f in want._fields:
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+    assert torch.equal(wire, ck.summarize_wire_plain(want, batch.n_rows, A, lean))
+
+
+def test_fused_dispatch_too_large_for_shared_memory(cuda):
+    """Docs of 16,384 rows do not fit a block's shared memory: the one
+    launch keeps their scratch in global lanes, and is still exact; the
+    entry's rule sends such docs there when there are enough of them."""
+    assert ck.kernel_fn("doc_route")(200, 16384, ck.DOC_ROUTE_AUTO) == (
+        ck.DOC_ROUTE_ONE_BLOCK_GLOBAL)
+    batch = synth.synth_batch(2, 15000, n_actors=2, text_frac=0.7)
+    args, A, K = _args(batch)
+    assert ck.doc_route(2, 16384, args[0].device, ck.DOC_ROUTE_ONE_BLOCK) == (
+        ck.DOC_ROUTE_ONE_BLOCK_GLOBAL)
+    before = ck.launches["materialize_wire"]
+    out, wire = ck.materialize_wire_cuda(*args, A=A, K=K, lean=False,
+                                         route=ck.DOC_ROUTE_ONE_BLOCK)
+    torch.cuda.synchronize()
+    assert ck.launches["materialize_wire"] == before + 1
+    want = ck.doc_kernel_plain(*ck.widen_plain(*args[:10]), args[10], A=A, K=K)
+    for f in want._fields:
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+    assert torch.equal(wire, ck.summarize_wire_plain(want, 16384, A, False))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -87,6 +139,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     odd = tuple(None if a is None else a[:, :48].contiguous() for a in args[:8])
     with pytest.raises(ValueError, match="power of two"):
         ck.materialize_cuda(*odd, *args[8:], A=A, K=K)
+    # a narrow lane goes to the kernel as it is: no copy makes it contiguous
+    strided_ref = args[6].t().contiguous().t()
+    with pytest.raises(ValueError, match="ref"):
+        ck.materialize_cuda(*args[:6], strided_ref, *args[7:], A=A, K=K)
+    with pytest.raises(ValueError, match="many-block"):
+        ck.materialize_wire_cuda(*args, A=A, K=K, lean=False,
+                                 route=ck.DOC_ROUTE_MANY_BLOCK)
     out = ck.materialize_cuda(*args, A=A, K=K)
     strided = out._replace(rank=out.rank.t().contiguous().t())
     with pytest.raises(ValueError, match="rank"):
@@ -958,15 +1017,22 @@ def test_doc_kernel_routes_equal_plain(cuda, name):
 
 
 def test_doc_route_follows_the_card(cuda):
-    """doc_kernel.cu's route rule reads this card's SM count: docs above
-    one tile take the many-block route while they leave half the SMs idle
-    or more, and batches of 2^22 rows or more take it too."""
+    """doc_kernel.cu's route rule reads this card's SM count and shared
+    memory: docs whose scratch fits a block's shared memory (8,192 rows on
+    an H100) run one block a doc; longer docs take the many-block route
+    while they leave half the SMs idle or more, and one block a doc with
+    global scratch above."""
     half = torch.cuda.get_device_properties(0).multi_processor_count // 2
-    route = ck.kernel_fn("doc_route")
+    pick = ck.kernel_fn("doc_route")
+
+    def route(D, N):
+        return pick(D, N, ck.DOC_ROUTE_AUTO)
+
     one, many = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK
-    assert route(1, 262144) == route(half, 4096) == many
+    assert route(1, 262144) == route(half, 16384) == route(1, 16384) == many
     assert route(half + 1, 4096) == route(4096, 1024) == one
-    assert route(1024, 4096) == many
+    assert route(1, 4096) == route(1, 8192) == route(8, 8192) == one
+    assert route(half + 1, 16384) == ck.DOC_ROUTE_ONE_BLOCK_GLOBAL
 
 
 def test_live_tick_launches_on_the_card(cuda, tmp_path, monkeypatch):

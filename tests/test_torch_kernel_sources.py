@@ -34,7 +34,16 @@ version and to the one-block route, and its route rule is held on shims
 of two SM counts (HM_SHIM_SMS); its mutants (the sort direction from the
 batch position, doubling rounds short of N, a skipped global stage, run
 ends at tile seams, the map's run ends launched before the global
-stages) must fail. Mutants of the clock kernels (top-k ties broken by the
+stages) must fail. Its one-block route runs with the doc's scratch in
+shared memory and in global lanes, with and without the summary wire as
+its epilogue (the slab's one launch), on lanes of int8 / int16 / int32
+mixes carrying every negative sentinel; summary_wire.cu alone runs with
+its keys in shared memory and in global scratch; the shared / global split
+is held on a shim that lets a block opt into 16 KB; and the one-block
+mutants (a zero-extending int8 load, an epilogue reading the Wyllie buffer
+the last round did not write, a word packer dropping the last partial
+word, the climb's first buffer over the keys) must fail, each in a
+subprocess. Mutants of the clock kernels (top-k ties broken by the
 higher index, a tile keeping k - 1 candidates, a key packing that loses
 the sign order, a scatter by plain store, a union or a min started at 0
 on each route, a columns route that drops the A % 4 tail), of the serve
@@ -51,12 +60,14 @@ Tolerance: exact.
 """
 
 import ctypes
+import inspect
 import math
 import os
 import random
 import re
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -176,14 +187,17 @@ def host_kernels(tmp_path_factory):
     )
 
 
-def _run_host_materialize(fn, args, A, K, route=ck.DOC_ROUTE_AUTO):
+def _run_host_doc(fn, args, A, K, route=ck.DOC_ROUTE_AUTO, lean=None):
+    """doc_kernel.cu's entry on the host, as the wrapper calls it: the
+    lanes as they are (int8, int16 or int32, with their widths), outputs
+    that start as garbage (the kernel must write every element); with
+    `lean` not None also the summary wire of its one-block epilogue.
+    Returns (MaterializeOut, wire or None)."""
     flags, slot, ctr, seq, obj, key, ref, value, _psrc, ptgt, _da = args
     D, N = flags.shape
-    wide = [
-        None if t is None else t.to(torch.int32).contiguous()
-        for t in (slot, ctr, seq, obj, key, ref, value, ptgt)
-    ]
-    # outputs start as garbage: the kernel must write every element
+    lanes = (slot, ctr, seq, obj, key, ref, value, ptgt)
+    widths = sum((4 if t is None else t.element_size()) << (4 * k)
+                 for k, t in enumerate(lanes))
     out = ck.MaterializeOut(
         *(torch.ones(D, N, dtype=torch.bool) for _ in range(5)),
         torch.full((D, N), 7, dtype=torch.int32),
@@ -192,13 +206,26 @@ def _run_host_materialize(fn, args, A, K, route=ck.DOC_ROUTE_AUTO):
     )
     scratch = torch.full((D, ck._DOC_SCRATCH_LANES, N + 2), 12345, dtype=torch.int32)
     keys = torch.full((D, N), 3, dtype=torch.int64)
+    spec = dict(mask_bytes=0, order_bits=0, order_bytes=0, count_bytes=0,
+                total=0)
+    wire = None
+    if lean is not None:
+        spec = ck.summary_wire_spec(N, A, lean)
+        wire = torch.full((D, spec["total"]), 0xAB, dtype=torch.uint8)
     rc = fn(
-        flags.data_ptr(), *(None if t is None else t.data_ptr() for t in wide),
-        D, N, ptgt.shape[1], A, K, route, *(t.data_ptr() for t in out),
-        scratch.data_ptr(), keys.data_ptr(), None,
+        flags.data_ptr(), *(None if t is None else t.data_ptr() for t in lanes),
+        widths, D, N, ptgt.shape[1], A, K, route, *(t.data_ptr() for t in out),
+        scratch.data_ptr(), keys.data_ptr(),
+        None if wire is None else wire.data_ptr(), spec["mask_bytes"],
+        spec["order_bits"], spec["order_bytes"], spec["count_bytes"],
+        spec["total"], int(bool(lean)), None,
     )
     assert rc == 0
-    return out
+    return out, wire
+
+
+def _run_host_materialize(fn, args, A, K, route=ck.DOC_ROUTE_AUTO):
+    return _run_host_doc(fn, args, A, K, route)[0]
 
 
 def _run_host_wire(fn, out, N, A, lean):
@@ -210,8 +237,8 @@ def _run_host_wire(fn, out, N, A, lean):
         out.map_winner.data_ptr(), out.elem_live.data_ptr(),
         out.rank.data_ptr(), None if lean else out.clock.data_ptr(),
         D, N, A, spec["mask_bytes"], spec["order_bits"], spec["order_bytes"],
-        spec["count_bytes"], spec["total"], int(lean),
-        wire.data_ptr(), scratch.data_ptr(), None,
+        spec["count_bytes"], spec["total"], int(lean), wire.data_ptr(),
+        scratch.data_ptr(), None,
     )
     assert rc == 0
     return wire
@@ -386,37 +413,46 @@ def test_doc_kernel_many_block_live_tick_equals_plain(doc_tiles, D):
 
 def test_doc_kernel_source_rejects_bad_routes(host_kernels):
     args, A, K = _synth_args(1, 100)
-    for route in (3, -1, 7):
+    for route in (4, -1, 7):
         with pytest.raises(AssertionError):
             _run_host_materialize(host_kernels["doc_kernel"], args, A, K,
                                   route)
     route = host_kernels["doc_route"]
-    assert route(0, 4096) == route(1, 0) == -1
+    assert route(0, 4096, 0) == route(1, 0, 0) == route(1, 1024, 4) == -1
 
 
 @pytest.mark.parametrize("sms", [132, 114])
 def test_doc_kernel_source_route_rule(tmp_path, sms):
-    """The route the entry picks, on a card of `sms` SMs: one block a doc
-    for docs of one tile (2,048 rows) or less; above that the many-block
-    route while 2 D <= sms or D x N >= 2^22, else one block a doc."""
+    """The route the entry picks, on a card of `sms` SMs that lets a block
+    opt into 227 KB of shared memory: where a doc's scratch fits there
+    (N <= 8,192), one block a doc with it there; above 8,192 rows the
+    many-block route while 2 D <= sms, else one block a doc with its
+    scratch in global memory."""
     route = _doc_source(tmp_path, f"HM_SHIM_SMS={sms}")["doc_route"]
     one, many = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_MANY_BLOCK
+    glob = ck.DOC_ROUTE_ONE_BLOCK_GLOBAL
     half = sms // 2
-    for D, N, want in ((1, 2048, one), (4096, 1024, one), (1, 4096, many),
-                       (half, 4096, many), (half + 1, 4096, one),
-                       (half + 1, 262144, many), (255, 16384, one),
-                       (256, 16384, many), (1024, 4096, many),
+    for D, N, want in ((1, 2048, one), (4096, 1024, one), (1, 4096, one),
+                       (half, 4096, one), (1024, 4096, one), (1, 8192, one),
+                       (7, 8192, one), (8, 8192, one), (half + 1, 8192, one),
+                       (1, 16384, many), (half, 16384, many),
+                       (half + 1, 16384, glob), (256, 16384, glob),
+                       (half, 262144, many), (half + 1, 262144, glob),
                        (1, 1 << 20, many)):
-        assert route(D, N) == want, (D, N)
-    # the rule on the card's own count: the entry forced to each route
-    # agrees with it on the auto pick (the same bytes either way)
+        assert route(D, N, ck.DOC_ROUTE_AUTO) == want, (D, N)
+    # a forced one-block route keeps its scratch where the doc fits
+    assert route(1, 8192, one) == one and route(1, 16384, one) == glob
+    assert route(4096, 1024, glob) == glob and route(4096, 1024, many) == many
+    # the rule on the card's own count, on a shim whose 4 KB of shared
+    # memory holds no doc of 128 rows: the entry forced to the route it
+    # picks gives the auto pick's bytes
     fn = _doc_source(tmp_path / "tile32", "HM_DOC_TILE=32",
-                     f"HM_SHIM_SMS={sms}")
+                     f"HM_SHIM_SMS={sms}", "HM_SHIM_SHARED_OPTIN=4096")
     args, A, K = _synth_args(3, 100, n_actors=2, text_frac=0.7)
     auto = _run_host_materialize(fn["doc_kernel"], args, A, K)
     forced = _run_host_materialize(fn["doc_kernel"], args, A, K,
-                                   fn["doc_route"](3, 128))
-    assert fn["doc_route"](3, 128) == many
+                                   fn["doc_route"](3, 128, 0))
+    assert fn["doc_route"](3, 128, 0) == many
     for f in auto._fields:
         assert torch.equal(getattr(auto, f), getattr(forced, f)), f
 
@@ -485,6 +521,272 @@ def test_doc_kernel_many_block_mutants_fail(tmp_path, name):
         one = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_ONE_BLOCK)
         assert all(torch.equal(getattr(one, f), getattr(want, f))
                    for f in want._fields)
+
+
+# doc_kernel.cu's one-block route: its scratch in shared memory (route 1)
+# or in global lanes (route 3), the same body; the summary wire as its
+# epilogue (the slab's one launch), and the lanes read at their narrow
+# widths
+
+
+def _doc_case(name, lean=False):
+    """(args, A, K) of a named batch: the CASES, the seam-straddling map
+    conflicts, and one long text chain (one actor, one op a change, 120
+    rows at N = 128: a chain longer than N / 2, which the ranking's last
+    round must still climb)."""
+    if name == "conflicts":
+        args, A, K = _conflict_args()
+        return (args[:3] + (None,) + args[4:7] + (None,) + args[8:]
+                if lean else args), A, K
+    if name == "long_chain":
+        D, n_ops, _tile, kw = MANY_BLOCK_SHAPES["d1_n128"]
+        return _synth_args(D, n_ops, lean=lean, **kw)
+    np_args, A, K = ck.host_args(CASES[name](), lean=lean)
+    return tuple(None if a is None else torch.from_numpy(a) for a in np_args), A, K
+
+
+def _plain_lanes_and_wire(args, A, K, lean):
+    want = ck.materialize_device(*args, A=A, K=K)  # CPU: the plain version
+    return want, ck.summarize_wire_plain(want, args[0].shape[1], A, lean)
+
+
+def _fused_equals(fn, args, A, K, lean, route):
+    """doc_kernel.cu's one launch (lanes + wire) on `route` == the plain
+    versions; False if any lane or wire byte differs."""
+    want, want_wire = _plain_lanes_and_wire(args, A, K, lean)
+    got, wire = _run_host_doc(fn, args, A, K, route, lean=lean)
+    return torch.equal(wire, want_wire) and all(
+        torch.equal(getattr(got, f), getattr(want, f)) for f in want._fields)
+
+
+FUSED_CASES = list(CASES) + ["conflicts", "long_chain"]
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+@pytest.mark.parametrize("lean", [False, True])
+@pytest.mark.parametrize("route", [ck.DOC_ROUTE_ONE_BLOCK,
+                                   ck.DOC_ROUTE_ONE_BLOCK_GLOBAL])
+def test_doc_kernel_fused_wire_equals_plain(host_kernels, name, lean, route):
+    """The slab's one launch: every lane and every wire byte equal to
+    doc_kernel_plain + summarize_wire_plain, with the doc's scratch in
+    shared memory and in global lanes at the same N."""
+    args, A, K = _doc_case(name, lean)
+    want, want_wire = _plain_lanes_and_wire(args, A, K, lean)
+    got, wire = _run_host_doc(host_kernels["doc_kernel"], args, A, K, route,
+                              lean=lean)
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(wire, want_wire)
+
+
+def test_doc_kernel_fused_wire_refuses_the_many_block_route(host_kernels):
+    args, A, K = _doc_case("synth_1actor")
+    with pytest.raises(AssertionError):
+        _run_host_doc(host_kernels["doc_kernel"], args, A, K,
+                      ck.DOC_ROUTE_MANY_BLOCK, lean=False)
+
+
+def _sentinel_args():
+    """A live tick batch of two docs at N = 128 with every negative
+    sentinel the lanes carry: ref -2 (a head insert) and -3 (no ref), key
+    -1 (a list op), obj -1 (the root), ptgt -1 (a pad edge), and negative
+    INC deltas (the peer's INC ops negated); a seq lane (1 .. 50) and a
+    zero actor map, so that the clock is read too."""
+    (flags, slot, ctr, _seq, obj, key, ref, value, psrc, ptgt, da), A, K = (
+        _live_tick_args(2, 60, seed=31))
+    assert flags.shape == (2, 128)
+    inc = (flags & 7) == int(Action.INC)
+    value = torch.where(inc, -value.to(torch.int32), value.to(torch.int32))
+    seq = (torch.arange(128, dtype=torch.int32) % 50 + 1).expand(2, 128)
+    for lane, v in ((ref, -2), (ref, -3), (key, -1), (obj, -1), (ptgt, -1)):
+        assert (lane == v).any(), v
+    assert (value[inc] < 0).any()
+    return (flags, slot, ctr, seq, obj, key, ref, value, psrc, ptgt, da), A, K
+
+
+def _fit(t, dtype):
+    info = torch.iinfo(dtype)
+    assert info.min <= int(t.min()) and int(t.max()) <= info.max, dtype
+    return t.to(dtype).contiguous()
+
+
+def _narrowest(t):
+    for dtype in (torch.int8, torch.int16):
+        info = torch.iinfo(dtype)
+        if info.min <= int(t.min()) and int(t.max()) <= info.max:
+            return t.to(dtype).contiguous()
+    return t.to(torch.int32).contiguous()
+
+
+# lane dtypes of doc_kernel.cu's eight lanes (slot .. ptgt), a mix each
+NARROW_MIXES = {
+    "narrowest": None,
+    "int16": (torch.int16,) * 8,
+    "int32": (torch.int32,) * 8,
+    "mixed": (torch.int8, torch.int32, torch.int16, torch.int16, torch.int8,
+              torch.int8, torch.int32, torch.int16),
+}
+_LANE_AT = (1, 2, 3, 4, 5, 6, 7, 9)  # slot .. ptgt in the 11 args
+
+
+def _narrow_args(mix):
+    args, A, K = _sentinel_args()
+    args = list(args)
+    for k, at in enumerate(_LANE_AT):
+        dtypes = NARROW_MIXES[mix]
+        args[at] = _narrowest(args[at]) if dtypes is None else _fit(args[at], dtypes[k])
+    if mix == "narrowest":  # the sentinels ride int8 lanes, INC deltas int16
+        assert all(args[at].dtype == torch.int8 for at in (1, 4, 5, 6, 9))
+        assert args[7].dtype == torch.int16
+    return tuple(args), A, K
+
+
+@pytest.mark.parametrize("mix", list(NARROW_MIXES))
+def test_doc_kernel_narrow_lanes_equal_plain(host_kernels, mix):
+    """doc_kernel.cu reads each lane at its own width, sign-extended: the
+    lanes (both routes) and the fused wire equal the plain version's,
+    which widens first, on int8 / int16 / int32 mixes carrying every
+    negative sentinel."""
+    args, A, K = _narrow_args(mix)
+    fn = host_kernels["doc_kernel"]
+    assert _fused_equals(fn, args, A, K, False, ck.DOC_ROUTE_ONE_BLOCK)
+    want = ck.materialize_device(*args, A=A, K=K)
+    many = _run_host_materialize(fn, args, A, K, ck.DOC_ROUTE_MANY_BLOCK)
+    for f in want._fields:
+        assert torch.equal(getattr(many, f), getattr(want, f)), f
+
+
+@pytest.fixture(scope="module")
+def wire_builds(host_kernels, tmp_path_factory):
+    """{placement: (summary_wire.cu's entry, its shared-key cap)}: as the
+    card builds it ("shared": every doc here sorts its keys in shared
+    memory) and with HM_WIRE_SHARED_KEYS=2 ("global": every doc here is
+    longer, so its keys go to global scratch)."""
+    small = _compile_host(
+        {"summary_wire": (CSRC / "summary_wire.cu").read_text()},
+        tmp_path_factory.mktemp("wire_keys2"),
+        defines=("HM_WIRE_SHARED_KEYS=2",))
+    return {
+        "shared": (host_kernels["summary_wire"],
+                   host_kernels["summary_wire_cap"](0)),
+        "global": (small["summary_wire"], small["summary_wire_cap"](0)),
+    }
+
+
+@pytest.mark.parametrize("name", FUSED_CASES)
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_summary_wire_source_both_placements(wire_builds, name, placement):
+    """summary_wire.cu alone, its sort keys in shared memory or in global
+    scratch, full and lean, == summarize_wire_plain."""
+    fn, cap = wire_builds[placement]
+    for lean in (False, True):
+        args, A, K = _doc_case(name, lean)
+        want, want_wire = _plain_lanes_and_wire(args, A, K, lean)
+        N = args[0].shape[1]
+        assert (N <= cap) == (placement == "shared")
+        assert torch.equal(_run_host_wire(fn, want, N, A, lean), want_wire)
+
+
+def test_doc_kernel_source_shared_split(tmp_path):
+    """Where a doc's scratch fits the shared memory a block may opt into
+    (27 bytes a row, a 1 KB clock and 1 KB kept free), the one-block route
+    keeps it there, else in global lanes: on a card that lets a block opt
+    into 16 KB, 512 rows fit and 1,024 do not; either way the bytes are
+    the plain version's."""
+    fns = _doc_source(tmp_path, "HM_SHIM_SHARED_OPTIN=16384")
+    route = fns["doc_route"]
+    one, glob = ck.DOC_ROUTE_ONE_BLOCK, ck.DOC_ROUTE_ONE_BLOCK_GLOBAL
+    assert route(4096, 512, ck.DOC_ROUTE_AUTO) == one
+    assert route(4096, 1024, ck.DOC_ROUTE_AUTO) == glob
+    assert route(4, 1024, one) == glob
+    args, A, K = _synth_args(2, 600, n_actors=2, text_frac=0.7)
+    assert args[0].shape == (2, 1024)
+    assert _fused_equals(fns["doc_kernel"], args, A, K, False, one)
+
+
+# mutants of the one-block route and the wire: (file, edits, cases); each
+# must change some lane or wire byte of the fused launch on one of its cases
+FUSED_MUTANTS = {
+    # a narrow lane read without its sign: -1, -2, -3 and negative INC
+    # deltas become large positives
+    "zero_extends_narrow_lane": (
+        "doc_kernel.cu",
+        [("if (width == 1) return static_cast<const int8_t*>(p)[i];",
+          "if (width == 1) return static_cast<const uint8_t*>(p)[i];")],
+        ("narrow",)),
+    # the epilogue reads the ranks of the round before the last: short of
+    # a chain longer than N / 2
+    "epilogue_rank_from_unwritten_buffer": (
+        "doc_kernel.cu",
+        [("const int* rank = rank_a;  // the last round's",
+          "const int* rank = rank_b;  // the last round's")],
+        ("long_chain",)),
+    # elem_order's last word when order_bytes is not a multiple of 4 (N = 4:
+    # one byte)
+    "word_packer_drops_last_partial_word": (
+        "summary_wire.cuh",
+        [("const int words = (w.order_bytes + 3) / 4;",
+          "const int words = w.order_bytes / 4;")],
+        ("synth_tiny",)),
+    # the climb's first buffer over the keys' upper half: sibling_end
+    # writes it while other rows' keys are still being read
+    "doubling_buffer_over_keys": (
+        "doc_kernel.cu",
+        [("s.buf[0] = w + 5 * N + 3;", "s.buf[0] = w + N;")],
+        ("long_chain", "synth_3actor_text", "fuzz")),
+}
+
+
+# a mutant's launches run in a subprocess of their own: a broken alias can
+# send an index out of its doc, and a fault there must fail the mutant's
+# test, not the test process
+FUSED_RUNNER = r"""
+import ctypes, inspect, sys
+import torch
+from hypermerge_tpu_torch.ops import crdt_kernels as ck
+lib, cases, source = sys.argv[1:]
+exec(source)  # _run_host_doc
+symbol, argtypes = ck._SIGNATURES["doc_kernel"]
+fn = getattr(ctypes.CDLL(lib), symbol)
+fn.argtypes, fn.restype = argtypes, ctypes.c_int
+for args, A, K, want, want_wire in torch.load(cases):
+    got, wire = _run_host_doc(fn, args, A, K, ck.DOC_ROUTE_ONE_BLOCK, lean=False)
+    if not torch.equal(wire, want_wire) or not all(
+            torch.equal(g, w) for g, w in zip(got, want)):
+        sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("name", list(FUSED_MUTANTS))
+def test_doc_kernel_fused_mutants_fail(tmp_path, name):
+    path, edits, cases = FUSED_MUTANTS[name]
+    text = (CSRC / path).read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    if path.endswith(".cuh"):
+        # the source's quoted include finds the edited header beside it
+        (tmp_path / path).write_text(text)
+        text = (CSRC / "doc_kernel.cu").read_text()
+    _compile_host({"doc_kernel": text}, tmp_path)
+    inputs = []
+    for case in cases:
+        args, A, K = _narrow_args("narrowest") if case == "narrow" else _doc_case(case)
+        want, want_wire = _plain_lanes_and_wire(args, A, K, False)
+        inputs.append((args, A, K, tuple(want), want_wire))
+    torch.save(inputs, tmp_path / "cases.pt")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", FUSED_RUNNER,
+             str(tmp_path / "libdoc_kernel.so"), str(tmp_path / "cases.pt"),
+             inspect.getsource(_run_host_doc)],
+            capture_output=True, text=True, timeout=180,
+            env=dict(os.environ, PYTHONPATH=str(TESTS.parent)))
+    except subprocess.TimeoutExpired:
+        return  # the mutant hung its launch: caught
+    # 1: some lane or wire byte differs; a signal: the launch faulted
+    assert proc.returncode != 0, f"mutant {name} passed on {cases}"
+    assert proc.returncode == 1 or proc.returncode < 0, proc.stderr
 
 
 def _run_host_pack(fn, kw):
