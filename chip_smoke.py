@@ -7,8 +7,10 @@ Phases (any failure raises, and the script exits non-zero before it
 prints a result):
   1. build every CUDA kernel from kernels/csrc (one nvcc per source, all
      at once) and the port's host C++ library (native/, g++), print the
-     card's name and power limit, and whether the native library loaded
-     and with which capabilities;
+     card's name and power limit, each source's launch caps (pack_prefix:
+     its most threads a block, cells a thread, and the SM count and
+     shared memory a block may opt into, from which it sizes its grid),
+     and whether the native library loaded and with which capabilities;
   2. hold each kernel against its plain PyTorch version on the card, on
      the same inputs, exactly (integer and bool outputs, tolerance 0):
      kernel 1 alone (materialize), the slab's one launch (kernel 1 with
@@ -17,10 +19,12 @@ prints a result):
      with its sort keys in shared memory and in global scratch, full and
      lean, at the bulk slab (4096 docs x 1024 rows, 1 actor), a mesh
      rank's share of it (1024 x 1024), a multi-actor batch (1024 x 512, 3
-     actors, half text) and one long doc (1 x 65536); pack_prefix on the inputs the sidecar pack hands it at
-     the slab, at a ragged slab (partial windows, an empty doc, a shared
-     feed, values outside int16) and at one doc of 65,536 rows (int32
-     row planes); the four clock kernels at the mirror's capacity of
+     actors, half text) and one long doc (1 x 65536); pack_prefix on the
+     inputs the sidecar pack hands it at the slab, at a ragged slab
+     (partial windows, an empty doc, a shared feed, values outside int16)
+     and at one doc of 65,536 rows (int32 row planes): its 11 wire
+     planes, the slab launch's flags and slot, and the five ranges it
+     folds (also the batch's own); the four clock kernels at the mirror's capacity of
      BASELINE config 5 (131072 x 64): the pairwise ops (also at A = 3
      and A = 1024, full and broadcast rows), the scatter-max with 1,000
      and 65,536 triples piled on one cell (and its parameter route, host
@@ -78,7 +82,9 @@ prints a result):
         against the first slice's path (`pack_docs` over the same
         histories); pack_prefix and materialize_wire must each have
         launched once, materialize and summary_wire never (one launch
-        for kernels 1-2 a slab);
+        for kernels 1-2 a slab); the dispatch must run on the pack's
+        device lanes (`host_args` never called) and upload the pred edges
+        and the actor map alone (the `slab.h2d_bytes` counter);
      c. the clock slice: BASELINE config 5 (`bench.py` `_config5_union`)
         on the card — a DeviceClockMirror seeded with 100,000 docs x 64
         actors, then 1,000 `update`s, `union()`, `dominated(q)` and
@@ -158,8 +164,15 @@ prints a result):
      torch.cat for the ring gather, whose kernel alone is read with cold
      inputs and outputs and must not be under its bound, with the
      flagged launch over the same ranks, timed at the summary gather's
-     shape of phase 3e and at n = 4, 4096 x 1540); time the pack's host
-     stages,
+     shape of phase 3e and at n = 4, 4096 x 1540); pack_prefix at the
+     slab (its bound from the planes it reads and the planes, flags,
+     slot and ranges it writes; the wrapper, its host work, the kernel
+     alone warm and with the L2 flushed before each call), at the ragged
+     slab and at the 65,536-row doc; time the pack's host stages
+     (marshal into the staging buffer, its one copy up, the emit, the
+     whole pack) and profile the sidecar slab (pack + dispatch + fetch:
+     device time by kernel, idle share, the copies in each direction
+     with their count, bytes and ms),
      config 5's hot query (1,000 writes + union(), host buffering
      included), and print the read mix's QPS, its p50 and p99 from the
      raw per-read latencies (and the `serve.read_s` histogram's bucket
@@ -195,8 +208,10 @@ holds the slab's device program of this tree against another tree of the
 port (OTHER, e.g. its parent unpacked by `git archive`) on the same card:
 ROUNDS (default 1) times OTHER, this tree, this tree, OTHER, each a
 process of its own that builds its tree's kernels and prints one JSON
-line (`slab_numbers`, through entries every tree of the port has), then
-the card's name and power limit.
+line (`slab_numbers`, through entries every tree of the port has: the
+slab program, the wire, the sidecar slab's wall, pack and pack_prefix
+with its profile and copies, phase 3d's open on one shared corpus, the
+live tick), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -589,40 +604,76 @@ def time_kernels(ck, batch, long_doc=None):
 def profile_dispatch(label, fn) -> dict:
     """Device time by kernel for one call of fn (a slab dispatch or a
     read window, host stages included), from torch.profiler; returns the
-    wall, the device's busy time and its idle share."""
+    wall, the device's busy time, its idle share and the window's copies
+    by direction (count, bytes, ms: the trace's memcpy records)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        time.sleep(PROFILE_PAD_S)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(PROFILE_PAD_S)
-
-    rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    # busy = device-side events only (kernels, copies); a CPU op such as
-    # aten::copy_ also carries the device time of the work it launched
-    busy_ms = sum(
-        dev_us(e) for e in rows
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-    ) / 1e3
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        rows = sorted(prof.key_averages(), key=dev_us, reverse=True)
+        # busy = device-side events only (kernels, copies); a CPU op such
+        # as aten::copy_ also carries the device time of the work it
+        # launched
+        busy_ms = sum(
+            dev_us(e) for e in rows
+            if getattr(e, "device_type", None)
+            == torch.autograd.DeviceType.CUDA
+        ) / 1e3
+        if busy_ms > 0:
+            break
+        log(f"profile {label}: no device record (window {attempt} of "
+            f"{PROFILE_TRIES})")
+    copies = trace_copies(prof)
+    log(f"profile {label}: copies {json.dumps(copies)}")
     if busy_ms <= 0:
         # the window's work ran (fn's own checks stand); only the
         # profiler's reading of it is missing
         log(f"profile {label}: wall_ms={wall_ms!r}; the profiler delivered "
             "no device record: busy time and idle share not measured")
         return dict(wall_ms=wall_ms, device_busy_ms=None,
-                    device_idle_share=None)
+                    device_idle_share=None, copies=copies)
     log(f"profile {label}: wall_ms={wall_ms!r} device_busy_ms="
         f"{busy_ms!r} device_idle_share={1 - busy_ms / wall_ms!r}")
     for e in rows[:8]:
         if dev_us(e) > 0:
             log(f"  {dev_us(e) / 1e3!r} ms  x{e.count}  {e.key[:70]}")
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / wall_ms)
+                device_idle_share=1 - busy_ms / wall_ms, copies=copies)
+
+
+def trace_copies(prof) -> dict:
+    """{"HtoD" / "DtoH" / "DtoD": {"count", "bytes", "ms"}} of a profiled
+    window's memcpy records (its Chrome trace: each record's duration and
+    its "bytes" argument; bytes None where the trace gives none)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.unlink(path)
+    out = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("ph") != "X" or not name.startswith("Memcpy"):
+            continue
+        kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in name),
+                    "other")
+        r = out.setdefault(kind, {"count": 0, "bytes": 0, "ms": 0.0})
+        r["count"] += 1
+        r["ms"] += e.get("dur", 0) / 1e3
+        n = e.get("args", {}).get("bytes")
+        r["bytes"] = None if n is None or r["bytes"] is None else r["bytes"] + n
+    return out
 
 
 # -- the sidecar slice --------------------------------------------------------
@@ -689,58 +740,86 @@ def capture(module, name, fn):
 
 def compare_pack(pk, columnar, specs, label, **kw):
     """Pack `specs` on the card, then hold pack_prefix against its plain
-    version on the inputs the pack handed it; returns (max abs err, the
-    pack_prefix keyword arguments)."""
+    version on the inputs the pack handed it: the 11 wire planes, flags,
+    slot and the ranges (the batch's own ranges too); returns (max abs
+    err, the pack_prefix keyword arguments)."""
     import torch
 
-    _batch, calls = capture(
+    batch, calls = capture(
         pk, "pack_prefix",
         lambda: columnar.pack_docs_columns(specs, device="cuda", **kw),
     )
     if len(calls) != 1:
         raise AssertionError(f"{label}: the fast pack path was not taken")
     k = calls[0][1]
-    got, mm = pk.pack_prefix_cuda(**k)
-    want, mm_plain = pk.pack_prefix_plain(**k)
+    got = pk.pack_prefix_cuda(**k)
+    want = pk.pack_prefix_plain(**k)
     torch.cuda.synchronize()
-    err = max_abs_err(mm, mm_plain)
-    if not torch.equal(mm, mm_plain):
-        raise AssertionError(f"{label}: value range {mm} != {mm_plain}")
-    for name, a, b in zip(columnar.COLUMNS, got, want):
+    err = max_abs_err(got.ranges, want.ranges)
+    ranges = want.ranges.tolist()
+    if got.ranges.tolist() != ranges:
+        raise AssertionError(f"{label}: ranges {got.ranges} != {want.ranges}")
+    if batch.ranges != dict(zip(pk.RANGES, ranges)):
+        raise AssertionError(f"{label}: the batch's ranges {batch.ranges}")
+    for name, a, b in zip((*columnar.COLUMNS, "flags", "slot"),
+                          (*got.planes, got.flags, got.slot),
+                          (*want.planes, want.flags, want.slot)):
         err = max(err, max_abs_err(a, b))
         if a.dtype != b.dtype or not torch.equal(a, b):
-            raise AssertionError(f"{label}: packed plane {name} differs")
+            raise AssertionError(f"{label}: packed lane {name} differs")
     log(f"phase 2 pack {label} [{k['Dp']}, {k['N']}] "
-        f"M={k['planes'][0].shape[0]} row32={k['row32']}: "
-        f"kernel == plain (exact)")
+        f"M={k['planes'][0].shape[0]} row32={k['row32']}: kernel == plain "
+        f"(exact: 11 planes, flags, slot, ranges {dict(zip(pk.RANGES, ranges))})")
     return err, k
 
 
 def slice_path(ck, columnar, mat, fcs):
     """The sidecar slice's entries as a user calls them, counts set to 0
-    just before and read just after; returns (batch, out, summary arrays,
-    lean, counts)."""
+    just before and read just after; the dispatch must take the pack's
+    device lanes (host_args never runs) and upload the pred edges and the
+    actor map alone. Returns (batch, out, summary arrays, lean, counts)."""
     import numpy as np
     import torch
 
-    from hypermerge_tpu_torch.crdt.change import Action
-
     specs = slab_specs(fcs, SLAB["n_docs"])
-    for k in ck.launches:
-        ck.launches[k] = 0
-    t0 = time.perf_counter()
-    batch = columnar.pack_docs_columns(
-        specs, n_docs=SLAB["n_docs"], n_rows=SLAB["n_ops"], device="cuda"
-    )
-    # lean as the bulk loader picks it: no INC ops, host clocks in hand
-    lean = not bool(np.any(batch.cols["action"] == int(Action.INC)))
-    out, wire = ck.run_batch_full(batch, lean=lean)
-    arrays = mat.fetch_summary(wire, batch, lean=lean)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    host_args_calls = []
+    orig_host_args = ck.host_args
+
+    def spy_host_args(*a, **k):
+        host_args_calls.append(1)
+        return orig_host_args(*a, **k)
+
+    ck.host_args = spy_host_args
+    try:
+        for k in ck.launches:
+            ck.launches[k] = 0
+        h2d0 = ck._SLAB_H2D.value()
+        t0 = time.perf_counter()
+        batch = columnar.pack_docs_columns(
+            specs, n_docs=SLAB["n_docs"], n_rows=SLAB["n_ops"], device="cuda"
+        )
+        # lean as the bulk loader picks it: no INC ops (the pack's count),
+        # host clocks in hand
+        lean = not batch.has_inc()
+        copying = batch.cols.copying
+        out, wire = ck.run_batch_full(batch, lean=lean)
+        arrays = mat.fetch_summary(wire, batch, lean=lean)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        uploaded = ck._SLAB_H2D.value() - h2d0
+    finally:
+        ck.host_args = orig_host_args
     counts = dict(ck.launches)
+    da, _A, _K = ck.bucket_doc_actors(batch)
+    N = batch.n_rows
+    small = (ck._narrow(batch.psrc, -1, N - 1).nbytes
+             + ck._narrow(batch.ptgt, -1, N - 1).nbytes
+             + np.ascontiguousarray(da, np.int32).nbytes)
     log(f"phase 3b sidecar slice: {wall:.3f} s wall (pack + dispatch + "
-        f"fetch), lean={lean}, launches {counts}")
+        f"fetch), lean={lean}, launches {counts}; the dispatch uploaded "
+        f"{uploaded:.0f} bytes (pred edges + actor map {small}), host_args "
+        f"ran {len(host_args_calls)} times, host planes still copying at "
+        f"the dispatch: {copying}")
     for k in SLICE2:
         if counts[k] != 1:
             raise AssertionError(
@@ -750,6 +829,12 @@ def slice_path(ck, columnar, mat, fcs):
     if counts["materialize"] or counts["summary_wire"]:
         raise AssertionError(f"the sidecar slab took more than one launch "
                              f"of kernels 1-2: {counts}")
+    if host_args_calls or batch.lanes is None:
+        raise AssertionError("the sidecar slab's dispatch did not take the "
+                             "pack's device lanes")
+    if uploaded != small:
+        raise AssertionError(f"the dispatch uploaded {uploaded} bytes, "
+                             f"expected the pred edges + actor map's {small}")
     return batch, out, arrays, lean, counts
 
 
@@ -847,8 +932,24 @@ def dev_us(e):
     )
 
 
-def time_pack(pk, columnar, fcs, k_slab):
-    """pack_prefix numbers at the slab, and the pack's host stages."""
+def pack_bound(k_slab, out):
+    """(bytes, operations) the pack must move and do at this slab: the
+    source planes, per-doc vectors and LUTs read once, the 11 wire
+    planes, flags, slot and the ranges written once; per cell the row
+    test, 4 compares / selects for obj and ref, 2 LUT index clamps, the
+    flags and 4 folds: ~16 integer operations."""
+    in_bytes = nbytes(*k_slab["planes"], k_slab["doc_start"], k_slab["ends"],
+                      k_slab["writer"], k_slab["lut_off"], *k_slab["luts"])
+    out_bytes = nbytes(*out.planes, out.flags, out.slot) + 4 * 5
+    return in_bytes + out_bytes, 16 * k_slab["Dp"] * k_slab["N"]
+
+
+def time_pack(pk, ck, columnar, mat, fcs, k_slab, lean):
+    """pack_prefix numbers at the slab (the wrapper, its host work, the
+    kernel alone warm and with the L2 flushed before each call, the plain
+    version, the bound), the pack's host stages, and the sidecar slab's
+    profile (pack + dispatch + fetch: device time by kernel, idle share,
+    copies by direction)."""
     import numpy as np
     import torch
 
@@ -860,29 +961,34 @@ def time_pack(pk, columnar, fcs, k_slab):
     )
     a = calls[0][0]  # fcs, fc_idx, fc_idx_a, ends, writer_g, flat_lut, ...
     N = k_slab["N"]
-    inp = pk.marshal_pack_inputs(*a[:6], N)
     dev = torch.device("cuda")
-    outs, _mm = pk.pack_prefix_cuda(**k_slab)
-    in_bytes = nbytes(*k_slab["planes"], k_slab["doc_start"], k_slab["ends"],
-                      k_slab["writer"], k_slab["lut_off"], *k_slab["luts"])
-    out_bytes = nbytes(*outs)
-    cells = k_slab["Dp"] * k_slab["N"]
+    inp = pk.marshal_pack_inputs(*a[:6], N, dev)
+
+    def call():
+        return pk.pack_prefix_cuda(**k_slab)
+
+    flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device=dev)
+
+    def cold():
+        flush.zero_()
+        return call()
+
+    nbytes_, ops = pack_bound(k_slab, call())
     r = dict(
-        ms=median_ms(lambda: pk.pack_prefix_cuda(**k_slab)),
-        kernel_device_ms=kernel_device_ms(
-            lambda: pk.pack_prefix_cuda(**k_slab), "pack_prefix_kernel"
-        ),
+        ms=median_ms(call),
+        host_ms=host_call_ms(call),
+        kernel_ms=kernel_device_ms(call, "pack_prefix_kernel"),
+        cold_kernel_ms=kernel_device_ms(cold, "pack_prefix_kernel"),
         plain_ms=median_ms(lambda: pk.pack_prefix_plain(**k_slab)),
         library_ms=None,
-        bytes=in_bytes + out_bytes,
-        # per cell: the (d, p) split, the row test, 4 compares/selects
-        # for obj/ref, 2 LUT index clamps, the min/max: ~16 int ops
-        ops=16 * cells,
+        bytes=nbytes_,
+        ops=ops,
     )
-    # the pack's host stages: the marshal, the upload of its output, the
-    # whole emit (marshal, upload, kernel, download) and the whole pack
+    # the pack's host stages: the marshal into the staging buffer, its one
+    # copy up, the whole emit (marshal, upload, kernel, the planes' copy
+    # down started) and the whole pack
     r.update(host_medians_ms({
-        "marshal_ms": lambda: pk.marshal_pack_inputs(*a[:6], N),
+        "marshal_ms": lambda: pk.marshal_pack_inputs(*a[:6], N, dev),
         "upload_ms": lambda: pk.upload(inp, dev),
         "device_pack_prefix_ms": lambda: pk.device_pack_prefix(*a),
         "pack_docs_columns_ms": lambda: columnar.pack_docs_columns(
@@ -899,6 +1005,43 @@ def time_pack(pk, columnar, fcs, k_slab):
         + " ".join(f"{k}={v!r}" for k, v in r.items()))
     if not np.isfinite(r["ms"]):
         raise AssertionError("pack_prefix time is not finite")
+
+    def sidecar_dispatch():
+        b = columnar.pack_docs_columns(specs, device="cuda", **kw)
+        _o, w = ck.run_batch_full(b, lean=lean)
+        mat.fetch_summary(w, b, lean=lean)
+
+    sidecar_dispatch()
+    prof = profile_dispatch("sidecar slab (pack + dispatch + fetch)",
+                            sidecar_dispatch)
+    r["sidecar_copies"] = prof["copies"]
+    r["sidecar_idle_share"] = prof["device_idle_share"]
+    return r
+
+
+def time_pack_shape(pk, label, k):
+    """pack_prefix at another shape of phase 2 (the ragged slab, the
+    65,536-row int32 doc): wrapper, kernel alone warm and cold, bound."""
+    import torch
+
+    def call():
+        return pk.pack_prefix_cuda(**k)
+
+    flush = torch.empty(4 * L2_BYTES, dtype=torch.uint8, device="cuda")
+
+    def cold():
+        flush.zero_()
+        return call()
+
+    nbytes_, ops = pack_bound(k, call())
+    r = dict(ms=median_ms(call), kernel_ms=kernel_device_ms(
+        call, "pack_prefix_kernel"), cold_kernel_ms=kernel_device_ms(
+        cold, "pack_prefix_kernel"), plain_ms=median_ms(
+        lambda: pk.pack_prefix_plain(**k)),
+        bound_ms=max(nbytes_ / MEM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3)
+    log(f"timing pack {label} [{k['Dp']}, {k['N']}] "
+        f"M={k['planes'][0].shape[0]} row32={k['row32']}: "
+        + " ".join(f"{key}={v!r}" for key, v in r.items()))
     return r
 
 
@@ -3222,16 +3365,114 @@ def host_split_ms(ck, fn, runs=50, warmup=5) -> dict:
     return {k: statistics.median(v) for k, v in split.items()}
 
 
-def slab_numbers(tree: str) -> int:
+def sidecar_numbers(root: str) -> dict:
+    """The sidecar slab (phase 3b's: 4,096 docs over 8 template feeds
+    written to sidecars under `root`) through entries every tree of the
+    port has: `sidecar_wall_ms` (pack_docs_columns on the card +
+    run_batch_full + fetch_summary, lean as the tree's bulk loader picks
+    it) and `sidecar_pack_ms` (the pack alone), host medians of 7 ending
+    in a synchronize, and the slab's stages apart
+    (`sidecar_stage_pack_ms`, `_dispatch_ms`, `_fetch_ms`, `_tail_ms`);
+    `pack_prefix_ms`,
+    pack_prefix_cuda on the inputs
+    the pack hands it (CUDA events, median of 15), and its kernel alone
+    (`pack_prefix_kernel_ms`, the profiler); one profiled slab's wall,
+    idle share and copies by direction (`sidecar_profile`)."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.crdt.change import Action
+    from hypermerge_tpu_torch.ops import columnar, synth
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+    from hypermerge_tpu_torch.ops import materialize as mat
+    from hypermerge_tpu_torch.ops import pack_kernels as pk
+    from hypermerge_tpu_torch.storage import colcache
+
+    hists = [synth.synth_changes(SLAB["n_ops"], n_actors=1,
+                                 ops_per_change=16, seed=t)
+             for t in range(TEMPLATES)]
+    specs = slab_specs(sidecar_feeds(colcache, root, hists), SLAB["n_docs"])
+
+    def pack():
+        return columnar.pack_docs_columns(
+            specs, n_docs=SLAB["n_docs"], n_rows=SLAB["n_ops"], device="cuda")
+
+    def lean_of(b):
+        if hasattr(b, "has_inc"):
+            return not b.has_inc()
+        return not bool(np.any(b.cols["action"] == int(Action.INC)))
+
+    def slab():
+        b = pack()
+        lean = lean_of(b)
+        _o, w = ck.run_batch_full(b, lean=lean)
+        mat.fetch_summary(w, b, lean=lean)
+
+    _b, calls = capture(pk, "pack_prefix", pack)
+    k = calls[0][1]
+    res = host_medians_ms({"sidecar_wall_ms": slab, "sidecar_pack_ms": pack})
+    # the slab's stages apart (host clock, medians of 7 after 2): the
+    # pack, the dispatch until it returns, fetch_summary (the wire's copy
+    # and its host parse), then what the card still had to finish
+    stages = {"pack": [], "dispatch": [], "fetch": [], "tail": []}
+    for i in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = pack()
+        t1 = time.perf_counter()
+        lean = lean_of(b)
+        _o, w = ck.run_batch_full(b, lean=lean)
+        t2 = time.perf_counter()
+        mat.fetch_summary(w, b, lean=lean)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        if i >= 2:
+            for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                stages[name].append(dt * 1e3)
+        del b, _o, w
+    for name, v in stages.items():
+        res[f"sidecar_stage_{name}_ms"] = statistics.median(v)
+    res["pack_prefix_ms"] = median_ms(lambda: pk.pack_prefix_cuda(**k), 15, 3)
+    res["pack_prefix_kernel_ms"] = kernel_device_ms(
+        lambda: pk.pack_prefix_cuda(**k), "pack_prefix_kernel")
+    res["sidecar_profile"] = profile_dispatch("ab sidecar slab", slab)
+    return res
+
+
+def open_numbers(corpus: str, root: str) -> dict:
+    """`open_ms`: phase 3d's open (Repo(path) on a copy of `corpus`,
+    open_many of its urls and fetch_bulk_summaries), one host wall."""
+    import shutil
+
+    from hypermerge_tpu_torch.repo import Repo
+
+    with open(os.path.join(corpus, "urls.json")) as f:
+        urls = json.load(f)
+    path = os.path.join(root, "open")
+    shutil.copytree(corpus, path)
+    repo = Repo(path=path)
+    try:
+        t0 = time.perf_counter()
+        repo.open_many(urls)
+        repo.back.fetch_bulk_summaries()
+        return {"open_ms": (time.perf_counter() - t0) * 1e3}
+    finally:
+        repo.close()
+
+
+def slab_numbers(tree: str, corpus: str | None = None) -> int:
     """One JSON line of the port in `tree`, through entries every tree of
     the port has: `slab_full_ms` / `slab_lean_ms`, materialize_full_device
     / materialize_full_lean_device at SLAB (kernels 1 and 2, however many
     launches the tree takes; CUDA events, median of 15 after 3 warm-ups),
     `slab_peak_mb` (peak_mb of one full dispatch); `wire_ms` /
     `wire_long_doc_ms`, summary_wire_cuda alone at SLAB and at LONG_DOC;
-    for the live tick's buckets (live_tick_cases) materialize_live_device's
-    events (`_ms`), host time until it returns (`_host_ms`) and
-    host_split_ms (`_pre_ms`, `_c_ms`, `_post_ms`, `_c_events_ms`)."""
+    the sidecar slab (sidecar_numbers) and, with `corpus`, phase 3d's
+    open (open_numbers); for the live tick's buckets (live_tick_cases)
+    materialize_live_device's events (`_ms`), host time until it returns
+    (`_host_ms`) and host_split_ms (`_pre_ms`, `_c_ms`, `_post_ms`,
+    `_c_events_ms`)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -3269,6 +3510,10 @@ def slab_numbers(tree: str) -> int:
     lout = ck.materialize_cuda(*la, A=lA, K=lK)
     res["wire_long_doc_ms"] = median_ms(
         lambda: ck.summary_wire_cuda(lout, long_doc.n_rows, lA, False), 15, 3)
+    with tempfile.TemporaryDirectory(prefix="hm-ab-") as root:
+        res.update(sidecar_numbers(root))
+        if corpus is not None:
+            res.update(open_numbers(corpus, root))
     for label, lvs in live_tick_cases(columnar, synth).items():
         targs, tA, tK = live_args(ck, live, lvs, "cuda")
 
@@ -3285,18 +3530,26 @@ def slab_numbers(tree: str) -> int:
 
 def ab_main(other: str, rounds: int) -> int:
     """`--ab OTHER [ROUNDS]`: slab_numbers of OTHER and of this tree in
-    turn, each in a process of its own; exits non-zero if any fails."""
+    turn, each in a process of its own, on one corpus of phase 3d's size
+    written first by this tree's make_corpus (without .sig sidecars);
+    exits non-zero if any fails."""
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+
     here = os.path.dirname(os.path.abspath(__file__))
     order = [("other", other), ("this", here), ("this", here),
              ("other", other)] * rounds
-    for label, tree in order:
-        run = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--slab-numbers",
-             tree], capture_output=True, text=True, timeout=600)
-        if run.returncode != 0:
-            print(run.stdout + run.stderr, file=sys.stderr)
-            return run.returncode or 1
-        log(f"ab {label} {run.stdout.strip().splitlines()[-1]}")
+    with tempfile.TemporaryDirectory(prefix="hm-ab-corpus-") as corpus:
+        urls = make_corpus(corpus, READ["n_docs"], READ["n_ops"], sign=False)
+        with open(os.path.join(corpus, "urls.json"), "w") as f:
+            json.dump(urls, f)
+        for label, tree in order:
+            run = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--slab-numbers",
+                 tree, corpus], capture_output=True, text=True, timeout=900)
+            if run.returncode != 0:
+                print(run.stdout + run.stderr, file=sys.stderr)
+                return run.returncode or 1
+            log(f"ab {label} {run.stdout.strip().splitlines()[-1]}")
     log(card_line())
     return 0
 
@@ -3305,7 +3558,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--ab"]:
         return ab_main(sys.argv[2], int(sys.argv[3]) if sys.argv[3:] else 1)
     if sys.argv[1:2] == ["--slab-numbers"]:
-        return slab_numbers(sys.argv[2])
+        return slab_numbers(*sys.argv[2:4])
     try:
         import torch
     except ImportError:
@@ -3351,7 +3604,11 @@ def main() -> int:
         f"{ck.launch_cap('clock_scatter')} triples a launch, serve_order "
         f"{ck.launch_cap('serve_order', 0)} entries a launch, "
         f"{ck.launch_cap('serve_order', 1)} keys in shared memory, "
-        f"serve_counts {ck.launch_cap('serve_counts', 0)} entries a launch")
+        f"serve_counts {ck.launch_cap('serve_counts', 0)} entries a launch; "
+        f"pack_prefix at most {ck.launch_cap('pack_prefix', 0)} threads a "
+        f"block, {ck.launch_cap('pack_prefix', 1)} cells a thread, grid from "
+        f"{ck.launch_cap('pack_prefix', 2)} SMs and "
+        f"{ck.launch_cap('pack_prefix', 3)} bytes of shared memory a block")
     for stem, text in _build.build_log.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -3448,7 +3705,10 @@ def main() -> int:
             log(f"timing multi {multi.shape} {name}: ms={r['ms']!r} "
                 f"plain_ms={r['plain_ms']!r} library_ms={r['library_ms']!r} "
                 f"bound_ms={r['bound_ms']!r} ({r['bound_by']})")
-        timing["pack_prefix"] = time_pack(pk, columnar, fcs, k_slab)
+        timing["pack_prefix"] = time_pack(pk, ck, columnar, mat, fcs,
+                                          k_slab, lean)
+        time_pack_shape(pk, "ragged", k_ragged)
+        time_pack_shape(pk, "i16ok=False", k_big)
         clock_timing, hot_ms = time_clock_kernels(ckk, PM, mirror, actors)
         timing.update(clock_timing)
         timing.update(time_serve_kernels(sk, seen, last))
@@ -3468,18 +3728,6 @@ def main() -> int:
         del mirror
         profile_dispatch("first-slice slab dispatch",
                          lambda: ck.run_batch_full(slab))
-        specs = slab_specs(fcs, SLAB["n_docs"])
-
-        def sidecar_dispatch():
-            b = columnar.pack_docs_columns(
-                specs, n_docs=SLAB["n_docs"], n_rows=SLAB["n_ops"],
-                device="cuda",
-            )
-            _o, w = ck.run_batch_full(b, lean=lean)
-            mat.fetch_summary(w, b, lean=lean)
-
-        profile_dispatch("sidecar slab (pack + dispatch + fetch)",
-                         sidecar_dispatch)
 
     meta = {
         "pack_prefix": ("hypermerge_tpu_torch/kernels/csrc/pack_prefix.cu",

@@ -918,9 +918,6 @@ class RepoBackend:
         """One packed slab -> async device dispatch + deferred doc init.
         Returns the pending-summary entry (a mutable list: the barrier
         replaces its wire slot with parsed host arrays)."""
-        import numpy as np
-
-        from ..crdt.change import Action
         from ..ops.crdt_kernels import run_batch_full
         from ..ops.materialize import DecodedBatch, decode_patch
 
@@ -934,8 +931,9 @@ class RepoBackend:
         # every slab, however small, dispatches on the backend's device
         # (the kernels compile once at build, not per bucket). No INC
         # ops + host clocks in hand -> skip the seq and value lanes AND
-        # the summary wire's clock section
-        lean = not bool(np.any(batch.cols["action"] == int(Action.INC)))
+        # the summary wire's clock section (the pack's INC count where it
+        # folded one: no host column is read before the barrier)
+        lean = not batch.has_inc()
         mesh = self._mesh()
         if mesh is not None:
             # multi-device: THE same kernels, doc-sharded over dp
@@ -948,6 +946,9 @@ class RepoBackend:
                 )
         else:
             out, wire = run_batch_full(batch, lean=lean, device=self.device)
+        # the launch is queued: the pack's device lanes are no longer
+        # needed (the host planes' copy holds its own reference)
+        batch.lanes = None
         summary = _start_host_copy(wire)
         self._stat_add("t_dispatch", time.perf_counter() - t0)
         dec = DecodedBatch(batch, out, host_clocks=slab_clocks)

@@ -34,7 +34,9 @@ floats (float64 — no precision loss through the device path), bigints.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 
@@ -90,6 +92,23 @@ class _Interner:
         return len(self.items)
 
 
+class SlabLanes(NamedTuple):
+    """The slab launch's lanes where the prefix pack left them, on its
+    device: flags = action | insert << 3 (uint8), slot (int8 zeros: one
+    writer a doc), ctr / seq / obj / ref in the row type, key in the key
+    type and value int32, each [Dp, N]. The dispatch reads them in place
+    (ops/crdt_kernels.py `handoff_args`)."""
+
+    flags: Any
+    slot: Any
+    ctr: Any
+    seq: Any
+    obj: Any
+    key: Any
+    ref: Any
+    value: Any
+
+
 @dataclass
 class ColumnarBatch:
     """[D, N] padded op columns + [D, P] pred edges + side tables.
@@ -99,9 +118,16 @@ class ColumnarBatch:
     device tie-break), padded with -1. The device kernels only ever see
     A_loc (max actors per doc, a small constant) — never the batch-wide
     actor count — so the jit bucket and the [D, A_loc] clock output stay
-    independent of how many documents share a slab."""
+    independent of how many documents share a slab.
 
-    cols: Dict[str, np.ndarray]
+    `cols` is a mapping of host [D, N] columns: a dict, or the prefix
+    pack's `pack_kernels.HostPlanes`, whose reads wait for the planes'
+    copy to the host. That pack also gives the batch its shape (`dims`),
+    its launch lanes on the device (`lanes`) and the ranges it folded
+    there (`ranges`: vmin, vmax, ctr_max, seq_max, n_inc), so that the
+    dispatch reads no host column."""
+
+    cols: Mapping[str, np.ndarray]
     psrc: np.ndarray
     ptgt: np.ndarray
     n_ops: np.ndarray  # [D] real (unpadded) op counts
@@ -113,10 +139,22 @@ class ColumnarBatch:
     op_actor_ids: List[List[str]] = field(default_factory=list)
     doc_actors: Optional[np.ndarray] = None  # [D, A_loc] int32, -1 pad
     slot: Optional[np.ndarray] = None  # [D, N] int16 local actor slots
+    dims: Optional[Tuple[int, int]] = None  # (D, N), when given outright
+    lanes: Optional[SlabLanes] = None
+    ranges: Optional[Dict[str, int]] = None
 
     @property
     def shape(self) -> Tuple[int, int]:
+        if self.dims is not None:
+            return self.dims
         return self.cols["action"].shape  # (D, N)
+
+    def has_inc(self) -> bool:
+        """Whether any row is an INC op: from the pack's ranges where it
+        folded them, else from the action column."""
+        if self.ranges is not None:
+            return self.ranges["n_inc"] > 0
+        return bool(np.any(self.cols["action"] == int(Action.INC)))
 
     @property
     def n_docs(self) -> int:
@@ -452,8 +490,11 @@ def _try_pack_prefix_single(
     searchsorted over an already-sorted key.
 
     The padded-plane emit is `pack_kernels.device_pack_prefix`: the CUDA
-    kernel on `device` "cuda", its plain PyTorch version on "cpu". None
-    when the specs do not have this shape."""
+    kernel on `device` "cuda", its plain PyTorch version on "cpu". The
+    batch carries its shape, the slab launch's lanes where the kernel
+    left them and the ranges it folded; its host planes come down behind
+    the call (`HostPlanes`). None when the specs do not have this
+    shape."""
     for spec in doc_specs:
         if len(spec) != 1:
             return None
@@ -598,7 +639,7 @@ def _try_pack_prefix_single(
 
     from .pack_kernels import device_pack_prefix
 
-    cols = device_pack_prefix(
+    cols, lanes, ranges = device_pack_prefix(
         fcs, fc_idx, fc_idx_a, ends, writer_g, flat_lut,
         Dp, N, i16ok, row_dt, kdt, device,
     )
@@ -625,8 +666,11 @@ def _try_pack_prefix_single(
         floats=list(float_int.items),
         bigints=list(big_int.items),
         doc_actors=doc_actors,
+        slot=np.zeros((Dp, N), np.int8),  # single writer: slot 0
+        dims=(Dp, N),
+        lanes=lanes,
+        ranges=ranges,
     )
-    batch.slot = np.zeros((Dp, N), np.int8)  # single writer: slot 0
     return batch
 
 

@@ -42,11 +42,12 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..crdt.change import Action
 from ..device import DeviceLike, resolve
 from .columnar import PAD, ColumnarBatch, doc_actor_map_from_pairs, round_up_pow2
@@ -256,8 +257,8 @@ def summary_wire_spec(N: int, A: int, lean: bool) -> Dict[str, int]:
     mask_bytes = (N + 7) // 8
     order_bits = max(1, (N - 1).bit_length())
     if order_bits > 25:
-        # _unpack_uint gathers at most 4 bytes per value: shift (<=7) +
-        # order_bits must fit a 32-bit window
+        # _unpack_uint reads one 32-bit window per value: shift (<=7) +
+        # order_bits must fit it
         raise ValueError(
             f"summary wire bucket too large: N={N} needs "
             f"{order_bits}-bit order entries, max 25 (N <= 2^25)"
@@ -350,8 +351,11 @@ _SIGNATURES = {
     ),
     "doc_route": ("hm_doc_route", [_I] * 3),
     "summary_wire": ("hm_summary_wire", [_P] * 4 + [_I] * 9 + [_P] * 3),
-    # wrapper in ops/pack_kernels.py
-    "pack_prefix": ("hm_pack_prefix", [_P] * 10 + [_I] * 9 + [_P] * 3),
+    # wrapper in ops/pack_kernels.py: 12 source planes, their codes, the
+    # per-doc vectors and LUTs, shapes, 13 output lanes, the ranges
+    "pack_prefix": (
+        "hm_pack_prefix", [_P] * 12 + [_I] + [_P] * 8 + [_I] * 9 + [_P] * 16
+    ),
     # wrappers in ops/clock_kernels.py
     "clock_pair": ("hm_clock_pair", [_P] * 2 + [_I] * 5 + [_P] * 2),
     "clock_union": ("hm_clock_union", [_P] + [_I] * 3 + [_P] * 2),
@@ -385,6 +389,7 @@ _STEMS = {"clock_scatter_params": "clock_scatter", "doc_route": "doc_kernel"}
 # per-launch caps each source reports (its C entry hm_<stem>_cap)
 _CAP_SYMBOLS = {
     "summary_wire": ("hm_summary_wire_cap", [_I]),
+    "pack_prefix": ("hm_pack_prefix_cap", [_I]),
     "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
     "serve_lookup": ("hm_serve_lookup_cap", [_I]),
     "serve_order": ("hm_serve_order_cap", [_I]),
@@ -738,24 +743,88 @@ def materialize_live_device(
 
 
 # ---------------------------------------------------------------------------
+# staged uploads: host arrays in one buffer, one copy to the device
+
+_TORCH_DTYPE = {
+    np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+    np.dtype(np.uint8): torch.uint8,
+}
+
+
+def aligned_layout(sizes: Sequence[int]) -> Tuple[List[int], int]:
+    """(offsets, total bytes) of pieces of `sizes` bytes laid back to back,
+    each starting at a 16-byte boundary and padded to the next one (so a
+    kernel may read a piece up to the 16 bytes past its end)."""
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-int(n) // 16) * 16
+    return offs, max(total, 16)
+
+
+class Staging:
+    """Host arrays of the given (dtype, shape) specs at 16-byte offsets of
+    one host buffer, pinned when it is bound for a card (torch's caching
+    host allocator reuses such buffers once their copies are done). Fill
+    `arrays`, then `upload` moves the whole buffer in one copy."""
+
+    def __init__(self, specs, device: torch.device) -> None:
+        self.specs = [(np.dtype(dt), tuple(shape)) for dt, shape in specs]
+        sizes = [dt.itemsize * math.prod(shape) for dt, shape in self.specs]
+        self.offsets, self.total = aligned_layout(sizes)
+        self.host = torch.empty(self.total, dtype=torch.uint8,
+                                pin_memory=device.type == "cuda")
+        raw = self.host.numpy()
+        self.arrays = [
+            raw[o : o + n].view(dt).reshape(shape)
+            for o, n, (dt, shape) in zip(self.offsets, sizes, self.specs)
+        ]
+
+    def upload(self, device: torch.device) -> List[torch.Tensor]:
+        """Typed views of the buffer on `device`: one non-blocking copy
+        onto a card (on the current stream), the buffer itself on the
+        CPU."""
+        buf = self.host
+        if device.type != "cpu":
+            buf = torch.empty(self.total, dtype=torch.uint8, device=device)
+            buf.copy_(self.host, non_blocking=True)
+        return [
+            buf[o : o + dt.itemsize * math.prod(shape)]
+            .view(_TORCH_DTYPE[dt]).view(shape)
+            for o, (dt, shape) in zip(self.offsets, self.specs)
+        ]
+
+
+def staged_upload(arrays: Sequence[np.ndarray],
+                  device: torch.device) -> List[torch.Tensor]:
+    """`arrays` on `device` through one Staging buffer and one copy."""
+    st = Staging([(a.dtype, a.shape) for a in arrays], device)
+    for view, a in zip(st.arrays, arrays):
+        view[...] = a
+    return st.upload(device)
+
+
+# ---------------------------------------------------------------------------
 # host helpers (copies of the reference's jax-free helpers)
 
 
 def _unpack_uint(packed, N: int, bits: int):
-    """Host-side inverse of _pack_uint: [D, OB] uint8 -> [D, N] int64."""
-    D = packed.shape[0]
+    """Host-side inverse of _pack_uint: [D, OB] uint8 -> [D, N] int64.
+    Each value is one gather of the little-endian 32-bit window at its
+    first byte (a strided view of the padded rows: summary_wire_spec keeps
+    shift + bits within 32), shifted and masked in place, so the slab's
+    decode makes one [D, N] temporary, not a dozen."""
+    D, OB = packed.shape
+    pk = np.zeros((D, OB + 4), np.uint8)
+    pk[:, :OB] = packed
+    windows = np.ndarray((D, OB + 1), dtype="<u4", buffer=pk,
+                         strides=(pk.strides[0], 1))
     idx = np.arange(N, dtype=np.int64) * bits
-    lo = (idx >> 3).astype(np.int64)
-    sh = (idx & 7).astype(np.int64)
-    pk = np.concatenate([packed, np.zeros((D, 4), np.uint8)], axis=1)
-    wide = bits > 17  # sh + bits can exceed the 3-byte window
-    acct = np.int64 if wide else np.int32
-    acc = pk[:, lo].astype(acct)
-    acc |= pk[:, lo + 1].astype(acct) << 8
-    acc |= pk[:, lo + 2].astype(acct) << 16
-    if wide:
-        acc |= pk[:, lo + 3].astype(acct) << 24
-    return ((acc >> sh.astype(acct)) & ((1 << bits) - 1)).astype(np.int64)
+    w = windows[:, idx >> 3]
+    w >>= (idx & 7).astype(np.uint32)
+    w &= (1 << bits) - 1
+    return w.astype(np.int64)
 
 
 def unpack_bits_le(packed, N: int):
@@ -910,7 +979,10 @@ def host_args(batch: ColumnarBatch, lean: bool = False):
 
 def _check_ranges(batch: ColumnarBatch, A: int, K: int) -> None:
     N = batch.n_rows
-    max_ctr = int(batch.cols["ctr"].max(initial=0))
+    max_ctr = (
+        batch.ranges["ctr_max"] if batch.ranges is not None
+        else int(batch.cols["ctr"].max(initial=0))
+    )
     if max_ctr * A + A >= 2**30:
         raise ValueError(
             f"lamport x actor-slot composite overflow: ctr={max_ctr} A={A}"
@@ -945,14 +1017,56 @@ def run_batch_summary(
     return materialize_summary_device(*args, A=A, K=K)
 
 
+# bytes the single-device slab dispatch (run_batch_full) hands from host
+# arrays to its device
+_SLAB_H2D = telemetry.counter("slab.h2d_bytes")
+
+
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    """Whether tensor t lies on `dev` (a bare "cuda" is the current
+    card)."""
+    if t.device.type != dev.type:
+        return False
+    return dev.type == "cpu" or t.device.index == (
+        torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def handoff_args(batch: ColumnarBatch, lean: bool, dev: torch.device):
+    """(args, A_loc, K) of the slab launch from the lanes the pack left
+    on `dev` (batch.lanes) and its ranges: nothing is narrowed or scanned
+    on the host, and only the pred edges and the actor map go up, in one
+    staged copy. `lean` leaves the seq/value slots None."""
+    da, A, K = bucket_doc_actors(batch)
+    _check_ranges(batch, A, K)
+    N = batch.n_rows
+    small = (
+        _narrow(batch.psrc, -1, N - 1), _narrow(batch.ptgt, -1, N - 1),
+        np.ascontiguousarray(da, np.int32),
+    )
+    psrc, ptgt, da_t = staged_upload(small, dev)
+    _SLAB_H2D.add(sum(a.nbytes for a in small))
+    L = batch.lanes
+    return (
+        L.flags, L.slot, L.ctr, None if lean else L.seq, L.obj, L.key,
+        L.ref, None if lean else L.value, psrc, ptgt, da_t,
+    ), A, K
+
+
 def run_batch_full(
     batch: ColumnarBatch, lean: bool = False, device: DeviceLike = None
 ):
     """Host entry -> (MaterializeOut, fused summary wire buffer), the slab
     dispatch of the bulk cold open. `lean=True` (callers that hold
     authoritative host clocks and verified the batch carries no INC ops)
-    skips the seq/value lanes and the wire's clock section."""
-    args, A, K = device_args(batch, lean=lean, device=device)
+    skips the seq/value lanes and the wire's clock section. A batch whose
+    pack left its lanes on the dispatch device (the prefix pack's
+    hand-off) launches on them; any other takes `host_args`."""
+    dev = resolve(device)
+    if batch.lanes is not None and _on(batch.lanes.flags, dev):
+        args, A, K = handoff_args(batch, lean, dev)
+    else:
+        args, A, K = device_args(batch, lean=lean, device=dev)
+        _SLAB_H2D.add(sum(a.nbytes for a in args if a is not None))
     if lean:
         (flags, slot, ctr, _seq, obj, key, ref, _value, psrc, ptgt,
          da) = args

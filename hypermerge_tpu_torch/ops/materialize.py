@@ -49,7 +49,10 @@ class DecodedBatch:
     """Numpy views of device outputs, shared by the decoders.
 
     Lanes transfer device->host lazily, on first attribute access, so a
-    consumer that only needs clocks does not pay for ranks.
+    consumer that only needs clocks does not pay for ranks. So do the
+    batch's host columns (`cols`): a dispatch builds this before the
+    prefix pack's planes have reached the host, and a read waits for
+    them.
     """
 
     _LANES = (
@@ -64,11 +67,15 @@ class DecodedBatch:
         host_clocks: Optional[List[Dict[str, int]]] = None,
     ) -> None:
         self.batch = batch
-        self.cols = {k: np.asarray(v) for k, v in batch.cols.items()}
         self._out = out
         # authoritative per-doc clocks from the caller (lean kernel runs
         # don't transfer the seq wire, so the device clock lane is zeros)
         self.host_clocks = host_clocks
+
+    @property
+    def cols(self):
+        """The batch's host columns, {name: [D, N]}."""
+        return self.batch.cols
 
     def __getattr__(self, name: str):
         if name in DecodedBatch._LANES and "_out" in self.__dict__:

@@ -17,9 +17,6 @@ import os
 import threading
 from typing import List, Optional
 
-import numpy as np
-
-from ..crdt.change import Action
 from ..device import DeviceLike
 from ..storage.colcache import FeedColumnCache, MemoryColumnStorage
 from .columnar import pack_docs_columns, round_up_pow2
@@ -75,7 +72,7 @@ def _warm(
             specs[: min(len(specs), bucket)], n_docs=bucket, n_rows=n_rows,
             device=device,
         )
-        lean = not bool(np.any(batch.cols["action"] == int(Action.INC)))
+        lean = not batch.has_inc()
         _out, summary = run_batch_full(batch, lean=lean, device=device)
         summary[:1].cpu()  # wait for the launches to finish
 

@@ -4,8 +4,8 @@
 // g++ against this header. Every CUDA thread of a block is a std::thread;
 // __syncthreads() is a std::barrier over the block, a warp ballot or
 // shuffle is a std::barrier over its 32 threads; atomics are GCC builtins.
-// A <<<>>> launch runs its blocks one after another, each with the dynamic
-// shared memory the launch asks for; a cooperative launch
+// A <<<>>> launch runs its blocks one after another (a 2-D grid row by
+// row), each with the dynamic shared memory the launch asks for; a cooperative launch
 // (cudaLaunchCooperativeKernel) runs every thread of every block at once,
 // as the ring gather's blocks wait on each other. Launches from several
 // host threads at once (one per card, as peer ranks run) keep their own
@@ -16,7 +16,9 @@
 // that of a CUDA 12.4 toolkit unless the build defines another, and the
 // one device has HM_SHIM_SMS SMs (132 unless defined) and lets a block
 // opt into HM_SHIM_SHARED_OPTIN bytes of shared memory (232,448). A
-// cudaMemcpyAsync is a memcpy, done when it returns. What this checks is
+// cudaMemcpyAsync is a memcpy, done when it returns, and so is an
+// asynchronous copy into shared memory (`__pipeline_memcpy_async`). What
+// this checks is
 // the kernel's logic (phases, barriers, indexing, sort keys, flag
 // protocols), not its speed or the GPU compiler's view of it.
 #pragma once
@@ -33,6 +35,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __grid_constant__
@@ -47,6 +50,7 @@ typedef int cudaError_t;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaErrorPeerAccessAlreadyEnabled = 704;
 constexpr int cudaFuncAttributeMaxDynamicSharedMemorySize = 8;
+constexpr int cudaMemcpyHostToDevice = 1;
 constexpr int cudaMemcpyDeviceToHost = 2;
 inline int cudaGetLastError() { return 0; }
 inline int cudaMemcpyAsync(void* dst, const void* src, size_t bytes, int,
@@ -200,10 +204,30 @@ template <class T>
 inline T __ldcg(const T* p) {
   return *p;
 }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+// (hi:lo) >> (shift & 31), the low 32 bits
+inline unsigned __funnelshift_r(unsigned lo, unsigned hi, unsigned shift) {
+  const unsigned long long v = (static_cast<unsigned long long>(hi) << 32) | lo;
+  return static_cast<unsigned>(v >> (shift & 31));
+}
+// cuda_pipeline_primitives.h: a copy into shared memory, done when it
+// returns, so a commit and a wait have nothing to do
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t bytes,
+                                    size_t = 0) {
+  std::memcpy(dst, src, bytes);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 
-// blocks [0, grid): one after another (sequential) or all at once
-inline void shim_run(int grid, int block, size_t dynamic_bytes, bool concurrent,
-                     const std::function<void()>& body) {
+// the blocks of grid.x x grid.y, x fastest: one after another (sequential)
+// or all at once
+inline void shim_run(dim3 shape, int block, size_t dynamic_bytes,
+                     bool concurrent, const std::function<void()>& body) {
+  const int gx = static_cast<int>(shape.x), gy = static_cast<int>(shape.y);
+  const int grid = gx * gy;
   const int waves = concurrent ? 1 : grid;
   const int per_wave = concurrent ? grid : 1;
   for (int w = 0; w < waves; ++w) {
@@ -215,12 +239,14 @@ inline void shim_run(int grid, int block, size_t dynamic_bytes, bool concurrent,
       const int b = w * per_wave + k;
       shim_block* ctx = blocks[k].get();
       for (int t = 0; t < block; ++t)
-        threads.emplace_back([&body, ctx, t, b, grid, block] {
+        threads.emplace_back([&body, ctx, t, b, gx, gy, block] {
           shim_current = ctx;
           threadIdx.x = t;
-          blockIdx.x = b;
+          blockIdx.x = b % gx;
+          blockIdx.y = b / gx;
           blockDim.x = block;
-          gridDim.x = grid;
+          gridDim.x = gx;
+          gridDim.y = gy;
           body();
         });
     }
@@ -229,7 +255,7 @@ inline void shim_run(int grid, int block, size_t dynamic_bytes, bool concurrent,
 }
 
 // stands in for kernel<<<grid, block, dynamic_bytes, stream>>>(...)
-inline void shim_launch(int grid, int block, size_t dynamic_bytes,
+inline void shim_launch(dim3 grid, int block, size_t dynamic_bytes,
                         const std::function<void()>& body) {
   shim_run(grid, block, dynamic_bytes, false, body);
 }

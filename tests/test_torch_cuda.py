@@ -9,6 +9,7 @@ Tolerance: exact (bool, int32 and uint8 outputs).
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -204,12 +205,86 @@ def test_pack_kernel_equals_plain(cuda, tmp_path, monkeypatch, shape):
         assert got.cols["ctr"].dtype == np.int32
     k = calls[0]
     assert k["planes"][0].is_cuda
-    outs, mm = pk.pack_prefix_cuda(**k)
-    outs_plain, mm_plain = pk.pack_prefix_plain(**k)
+    _hold_pack(pk.pack_prefix_cuda(**k), pk.pack_prefix_plain(**k))
+    assert got.ranges == dict(zip(pk.RANGES, want.ranges.values()))
+    assert got.lanes.flags.is_cuda and want.lanes.flags.device.type == "cpu"
+
+
+def _hold_pack(got, want):
+    """Every output of the pack: the wire planes, flags, slot, ranges."""
     torch.cuda.synchronize()
-    assert torch.equal(mm, mm_plain)
-    for name, a, b in zip(columnar.COLUMNS, outs, outs_plain):
+    assert got.ranges.tolist() == want.ranges.tolist()
+    for name, a, b in zip((*columnar.COLUMNS, "flags", "slot"),
+                          (*got.planes, got.flags, got.slot),
+                          (*want.planes, want.flags, want.slot)):
         assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def _slab_specs(tmp_path, n_docs=4096):
+    """The sidecar slab: n_docs docs over 8 template feeds of 1,024 ops."""
+    fcs = _sidecar_feeds(tmp_path, [1024] * 8)
+    return [[(fcs[d % 8], 0, float("inf"))] for d in range(n_docs)]
+
+
+def test_pack_kernel_equals_plain_at_the_slab(cuda, tmp_path, monkeypatch):
+    """pack_prefix.cu at the sidecar slab [4096, 1024] against its plain
+    version on the card's own inputs: planes, flags, slot and ranges."""
+    calls = []
+    orig = pk.pack_prefix
+
+    def spy(**k):
+        calls.append(k)
+        return orig(**k)
+
+    monkeypatch.setattr(pk, "pack_prefix", spy)
+    columnar.pack_docs_columns(_slab_specs(tmp_path), n_docs=4096,
+                               n_rows=1024, device="cuda")
+    (k,) = calls
+    _hold_pack(pk.pack_prefix_cuda(**k), pk.pack_prefix_plain(**k))
+
+
+def test_host_cols_wait_for_their_copy(cuda, tmp_path):
+    """Host columns read right after the pack, while the copy stream is
+    held busy, equal the same pack's columns on the CPU: a read waits on
+    the copy's event (a read that did not would see the pinned buffer
+    before the copy wrote it)."""
+    specs = _slab_specs(tmp_path, 512)
+    want = columnar.pack_docs_columns(specs, n_docs=512, n_rows=1024,
+                                      device="cpu")
+    with torch.cuda.stream(pk._copy_stream(cuda)):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s ahead of the copy
+    got = columnar.pack_docs_columns(specs, n_docs=512, n_rows=1024,
+                                     device="cuda")
+    assert got.cols.copying
+    for name in columnar.COLUMNS:
+        assert got.cols[name].dtype == want.cols[name].dtype, name
+        np.testing.assert_array_equal(got.cols[name], want.cols[name])
+    assert not got.cols.copying
+
+
+@pytest.mark.parametrize("lean", [True, False])
+def test_handoff_dispatch_equals_host_route(cuda, tmp_path, lean):
+    """run_batch_full on the pack's device lanes: byte-equal to the same
+    batch through host_args, and it uploads only the pred edges and the
+    actor map."""
+    batch = columnar.pack_docs_columns(_slab_specs(tmp_path, 1024),
+                                       n_docs=1024, n_rows=1024, device="cuda")
+    assert batch.lanes is not None and not batch.has_inc()
+    counter = ck._SLAB_H2D
+    before = counter.value()
+    out, wire = ck.run_batch_full(batch, lean=lean)
+    uploaded = counter.value() - before
+    da, _A, _K = ck.bucket_doc_actors(batch)
+    N = batch.n_rows
+    assert uploaded == (ck._narrow(batch.psrc, -1, N - 1).nbytes
+                        + ck._narrow(batch.ptgt, -1, N - 1).nbytes
+                        + np.ascontiguousarray(da, np.int32).nbytes)
+    host_route = dataclasses.replace(batch, lanes=None)
+    out_h, wire_h = ck.run_batch_full(host_route, lean=lean)
+    torch.cuda.synchronize()
+    assert torch.equal(wire, wire_h)
+    for f in out._fields:
+        assert torch.equal(getattr(out, f), getattr(out_h, f)), f
 
 
 # -- the clock kernels -------------------------------------------------------

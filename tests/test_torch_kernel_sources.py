@@ -8,9 +8,12 @@ hypermerge_tpu_torch/kernels/csrc/*.cu with g++ against
 tests/cuda_host_shim.h (one std::thread per CUDA thread, std::barrier for
 __syncthreads and warp ballots), calls the same C entry points the
 wrappers call, with CPU buffers, and compares every lane and wire byte
-with doc_kernel_plain / summarize_wire_plain, and every packed plane and
-the value range with pack_prefix_plain (on the pack inputs of the cases
-of test_torch_pack.py and on its crafted parity traps), and the four
+with doc_kernel_plain / summarize_wire_plain, and every packed plane, the
+slab launch's flags and slot and the five ranges with pack_prefix_plain
+(on the pack inputs of the cases of test_torch_pack.py, its parity traps
+and its crafted shapes: tiles across a doc's end, every window offset
+mod 16, every source dtype, int32 row and key planes, N not a multiple
+of 16; also on a shim of one SM, whose tiles are 2,048 cells), and the four
 clock kernels with the plain versions in ops/clock_kernels.py (seeded
 clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
 scatter cells; the column reduce on both of its routes, with D = 64 and
@@ -54,7 +57,10 @@ breaks ties by the higher row, counts that ignore INSERT, a split counts
 launch that drops its last chunk, a warp sum that skips one shuffle)
 and of the ring (a wrong source block, a wait over n - 1 ranks, a wait
 for == epoch, a push that skips the last vector, a raise before the
-pushes) must fail. The ring runs in a subprocess with a time limit of
+pushes), and of the pack (pad cells taking the next doc's rows, the
+vector holding a doc's end written as pads, a staged window read without
+its misalignment, insert at bit 2 of flags, the value maximum folded from
+INT_MIN; each in a subprocess) must fail. The ring runs in a subprocess with a time limit of
 its own, so that a deadlock fails its test and the run goes on.
 Tolerance: exact.
 """
@@ -85,7 +91,7 @@ from hypermerge_tpu_torch.ops import synth
 from hypermerge_tpu_torch.ops.columnar import COLUMNS
 from hypermerge_tpu_torch.serve import kernels as sk
 from test_torch_pack import CASES as PACK_CASES
-from test_torch_pack import port_pack, trap_inputs, trap_variants
+from test_torch_pack import CRAFTED, pack_inputs, port_pack, trap_variants
 
 TESTS = Path(__file__).resolve().parent
 CSRC = TESTS.parent / "hypermerge_tpu_torch" / "kernels" / "csrc"
@@ -100,6 +106,8 @@ def _host_source(text: str) -> str:
     goes to the shim's own cudaLaunchCooperativeKernel, which runs every
     block at once."""
     text = text.replace("#include <cuda_runtime.h>", '#include "cuda_host_shim.h"')
+    # the shim stands in for the asynchronous-copy primitives
+    text = text.replace("#include <cuda_pipeline_primitives.h>\n", "")
     text = _DYNAMIC_SHARED.sub(r"\1* \2 = shim_dynamic_shared<\1>();", text)
     out, pos = [], 0
     for m in _LAUNCH.finditer(text):
@@ -791,45 +799,190 @@ def test_doc_kernel_fused_mutants_fail(tmp_path, name):
 
 def _run_host_pack(fn, kw):
     """pack_prefix.cu, compiled for the host, over pack_prefix keyword
-    arguments (CPU tensors); outputs start as garbage."""
+    arguments (CPU tensors), as the card runs it: the inputs staged at
+    16-byte offsets of one buffer (`marshal_pack_inputs`' layout), the
+    outputs carved from one buffer (`pack_prefix_cuda`'s) and starting as
+    garbage. Returns a PackOut."""
+    cpu = torch.device("cpu")
+    inputs = [*kw["planes"], kw["doc_start"], kw["ends"], kw["writer"],
+              kw["lut_off"], *kw["luts"]]
+    staged = ck.staged_upload([t.numpy() for t in inputs], cpu)
+    planes, (doc_start, ends, writer, lut_off), luts = (
+        staged[:12], staged[12:16], staged[16:])
+    codes = sum(pk._TORCH_CODE[t.dtype] << (2 * k) for k, t in enumerate(planes))
     dtypes = pk._out_dtypes(kw["row32"], kw["key32"])
     Dp, N = kw["Dp"], kw["N"]
-    outs = tuple(
-        torch.full((Dp, N), 0x5A, dtype=dtypes[name]) for name in COLUMNS
-    )
-    minmax = torch.zeros(2, dtype=torch.int32)
-    planes, luts = kw["planes"], kw["luts"]
-    src_ptrs = np.asarray([t.data_ptr() for t in planes], np.int64)
-    src_codes = np.asarray([pk._TORCH_CODE[t.dtype] for t in planes], np.int32)
-    out_ptrs = np.asarray([t.data_ptr() for t in outs], np.int64)
+    lane_dtypes = [dtypes[name] for name in COLUMNS] + [torch.uint8, torch.int8]
+    sizes = [32] + [Dp * N * t.itemsize for t in lane_dtypes]
+    offs, total = ck.aligned_layout(sizes)
+    buf = torch.full((total,), 0x5A, dtype=torch.uint8)
+    lanes = [buf[o : o + n].view(t).view(Dp, N)
+             for o, n, t in zip(offs[1:], sizes[1:], lane_dtypes)]
+    host = torch.zeros(8, dtype=torch.int32)
     rc = fn(
-        src_ptrs.ctypes.data, src_codes.ctypes.data, kw["doc_start"].data_ptr(),
-        kw["ends"].data_ptr(), kw["writer"].data_ptr(), kw["lut_off"].data_ptr(),
+        *(t.data_ptr() for t in planes), codes, doc_start.data_ptr(),
+        ends.data_ptr(), writer.data_ptr(), lut_off.data_ptr(),
         *(t.data_ptr() for t in luts), *(int(t.shape[0]) for t in luts),
-        kw["ends"].shape[0], Dp, N, int(kw["row32"]), int(kw["key32"]),
-        out_ptrs.ctypes.data, minmax.data_ptr(), None,
+        ends.shape[0], Dp, N, int(kw["row32"]), int(kw["key32"]),
+        *(t.data_ptr() for t in lanes), buf[:32].data_ptr(), host.data_ptr(),
+        None,
     )
     assert rc == 0
-    return outs, minmax
+    return pk.PackOut(planes=tuple(lanes[:11]), flags=lanes[11],
+                      slot=lanes[12], ranges=host[:5].clone())
+
+
+def _pack_equal(got, want):
+    """Whether two PackOuts agree: every plane and lane with its dtype,
+    and the ranges."""
+    return got.ranges.tolist() == want.ranges.tolist() and all(
+        g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip((*got.planes, got.flags, got.slot),
+                        (*want.planes, want.flags, want.slot)))
 
 
 PACK_SOURCE_CASES = [c for c in PACK_CASES if c != "multi_actor_general"]
+PACK_CRAFTED = list(trap_variants()) + list(CRAFTED)
 
 
-@pytest.mark.parametrize("case", PACK_SOURCE_CASES + list(trap_variants()))
-def test_pack_kernel_source_equals_plain(host_kernels, tmp_path, monkeypatch, case):
+def _pack_kwargs(case, tmp_path, monkeypatch):
     if case in PACK_CASES:
         _, port_specs, kw_pack, _ = PACK_CASES[case](tmp_path)
         _, calls = port_pack(monkeypatch, port_specs, **kw_pack)
         (kw,) = calls
-    else:
-        kw = trap_inputs(case)
-    want, want_mm = pk.pack_prefix_plain(**kw)
-    got, got_mm = _run_host_pack(host_kernels["pack_prefix"], kw)
-    assert got_mm.tolist() == want_mm.tolist()
-    for name, g, w in zip(COLUMNS, got, want):
+        return kw
+    return pack_inputs(case)
+
+
+@pytest.mark.parametrize("case", PACK_SOURCE_CASES + PACK_CRAFTED)
+def test_pack_kernel_source_equals_plain(host_kernels, tmp_path, monkeypatch, case):
+    kw = _pack_kwargs(case, tmp_path, monkeypatch)
+    want = pk.pack_prefix_plain(**kw)
+    got = _run_host_pack(host_kernels["pack_prefix"], kw)
+    for name, g, w in zip(COLUMNS, got.planes, want.planes):
         assert g.dtype == w.dtype, name
         assert torch.equal(g, w), name
+    assert torch.equal(got.flags, want.flags)
+    assert got.slot.dtype == torch.int8 and torch.equal(got.slot, want.slot)
+    assert got.ranges.tolist() == want.ranges.tolist()
+
+
+@pytest.fixture(scope="module")
+def pack_one_sm(tmp_path_factory):
+    """pack_prefix.cu on a shim of one SM: the entry keeps 128 threads
+    (tiles of 2,048 cells) where the 132-SM shim halves them."""
+    out = tmp_path_factory.mktemp("pack_one_sm")
+    return _compile_host({"pack_prefix": (CSRC / "pack_prefix.cu").read_text()},
+                         out, defines=("HM_SHIM_SMS=1",))["pack_prefix"]
+
+
+@pytest.mark.parametrize("case", list(CRAFTED))
+def test_pack_kernel_source_wide_tiles(pack_one_sm, case):
+    kw = pack_inputs(case)
+    assert _pack_equal(_run_host_pack(pack_one_sm, kw), pk.pack_prefix_plain(**kw))
+
+
+def test_pack_kernel_source_reports_its_limits(host_kernels):
+    cap = host_kernels["pack_prefix_cap"]
+    assert [cap(i) for i in range(4)] == [128, 16, 132, 232448]
+    assert cap(4) == -1
+
+
+def test_pack_kernel_source_rejects_misaligned_planes(host_kernels):
+    """A source plane off its 16-byte boundary (the staged copy reads
+    aligned chunks) is refused, and nothing is written."""
+    kw = pack_inputs("offsets")
+    kw["planes"] = list(kw["planes"])
+    raw = torch.zeros(kw["planes"][0].numel() + 1, dtype=torch.uint8)
+    kw["planes"][0] = raw[1:]
+    fn = host_kernels["pack_prefix"]
+    args = [t.data_ptr() for t in kw["planes"]] + [0] + [
+        t.data_ptr() for t in (kw["doc_start"], kw["ends"], kw["writer"],
+                               kw["lut_off"], *kw["luts"])]
+    rc = fn(*args, 7, 7, 7, 7, 40, 41, 64, 0, 0, *([None] * 14),
+            torch.zeros(8, dtype=torch.int32).data_ptr(), None)
+    assert rc == -1
+
+
+# mutants of the pack: (edits, the cases each must fail on)
+PACK_MUTANTS = {
+    # a pad cell's window length from the tile, not from ends[d]: the
+    # cells past a doc's end take the next doc's rows
+    "pad_cells_take_real_rows": (
+        [("const int n_real = left <= 0 ? 0 : (left < a.tile ? left : a.tile);",
+          "const int n_real = a.tile;")],
+        ("straddle",)),
+    # the vector holding ends[d] written as pads: its real cells are lost
+    "drops_the_last_partial_vector": (
+        [("const int real = left <= 0 ? 0 : (left < kV ? left : kV);",
+          "const int real = left < kV ? 0 : kV;")],
+        ("offsets",)),
+    # the staged window read from its aligned superset's start
+    "window_ignores_misalignment": (
+        [("return static_cast<int>((s_first * code_bytes(code)) & 15);",
+          "return 0;")],
+        ("offsets",)),
+    "insert_at_bit_2": (
+        [("return static_cast<uint8_t>(action | insert << 3);",
+          "return static_cast<uint8_t>(action | insert << 2);")],
+        ("fuzz",)),
+    # the value maximum folded from INT_MIN: no 0 in it when every value
+    # is negative and no cell is a pad
+    "value_fold_from_int_min": (
+        [("int vmin = 0, vmax = 0, ctr = 0, seq = 0, inc = 0;",
+          "int vmin = 0, vmax = INT_MIN, ctr = 0, seq = 0, inc = 0;")],
+        ("no_pad_negative",)),
+}
+
+# a pack mutant runs in a subprocess: a window past its doc can read past
+# the staged planes, and a fault there must fail the mutant, not the run
+PACK_RUNNER = r"""
+import ctypes, sys
+import torch
+from hypermerge_tpu_torch.ops import crdt_kernels as ck
+from hypermerge_tpu_torch.ops import pack_kernels as pk
+from hypermerge_tpu_torch.ops.columnar import COLUMNS
+lib, cases, source = sys.argv[1:]
+exec(source)  # _run_host_pack, _pack_equal
+symbol, argtypes = ck._SIGNATURES["pack_prefix"]
+fn = getattr(ctypes.CDLL(lib), symbol)
+fn.argtypes, fn.restype = argtypes, ctypes.c_int
+for kw, want in torch.load(cases):
+    if not _pack_equal(_run_host_pack(fn, kw), pk.PackOut(*want)):
+        sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("name", list(PACK_MUTANTS))
+def test_pack_mutants_fail(tmp_path, monkeypatch, name):
+    edits, cases = PACK_MUTANTS[name]
+    text = (CSRC / "pack_prefix.cu").read_text()
+    for old, new in edits:
+        assert text.count(old) == 1, old
+        text = text.replace(old, new)
+    _compile_host({"pack_prefix": text}, tmp_path)
+    inputs = []
+    for case in cases:
+        kw = _pack_kwargs(case, tmp_path, monkeypatch)
+        # tensors of their own: the pack's are views of one staging buffer
+        kw = {k: [t.clone() for t in v] if isinstance(v, list)
+              else v.clone() if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
+        inputs.append((kw, tuple(pk.pack_prefix_plain(**kw))))
+    torch.save(inputs, tmp_path / "cases.pt")
+    source = inspect.getsource(_run_host_pack) + inspect.getsource(_pack_equal)
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", PACK_RUNNER,
+             str(tmp_path / "libpack_prefix.so"), str(tmp_path / "cases.pt"),
+             source],
+            capture_output=True, text=True, timeout=180,
+            env=dict(os.environ, PYTHONPATH=str(TESTS.parent)))
+    except subprocess.TimeoutExpired:
+        return  # the mutant hung its launch: caught
+    # 1: some plane, lane or range differs; a signal: the launch faulted
+    assert proc.returncode != 0, f"mutant {name} passed on {cases}"
+    assert proc.returncode == 1 or proc.returncode < 0, proc.stderr
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,22 @@ def test_parse_summary_wire_matches_reference(lean):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("bits", [1, 3, 10, 17, 18, 25])
+def test_unpack_uint_matches_reference(bits):
+    """The host decode of the wire's packed order entries at every width
+    up to the spec's 25 bits (a value straddling 4 bytes from 18 on),
+    on random bytes and on all-ones rows, against the reference's."""
+    rng = np.random.default_rng(bits)
+    N = 1000
+    OB = (N * bits + 7) // 8
+    packed = rng.integers(0, 256, (5, OB), dtype=np.uint8)
+    packed[0] = 255
+    want = ref_k._unpack_uint(packed, N, bits)
+    got = pk._unpack_uint(packed, N, bits)
+    assert got.dtype == want.dtype == np.int64
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("N", [1, 7, 64, 1000, 2**15, 2**20])
 def test_summary_wire_spec_matches_reference(N):
     for lean in (False, True):

@@ -234,12 +234,15 @@ def trap_inputs(variant):
       non-zero is REF_NONE), and a value range whose low end is -1;
     - "no_pad_positive": every cell a real row and every value positive:
       vmin is still 0;
+    - "no_pad_negative": every cell a real row and every value a negative
+      inline int: vmax is still 0;
     - "row32": int32 row and key planes, values outside int16.
     """
     rng = np.random.default_rng(list(trap_variants()).index(variant))
-    ends = {"no_pad_positive": [8, 8, 8]}.get(variant, [8, 5, 0])
+    no_pad = variant in ("no_pad_positive", "no_pad_negative")
+    ends = [8, 8, 8] if no_pad else [8, 5, 0]
     D, N = 3, 8
-    Dp = D if variant == "no_pad_positive" else 4
+    Dp = D if no_pad else 4
     M = sum(ends)
     row32 = variant == "row32"
     ctr = np.arange(1, M + 1, dtype=np.int32)
@@ -268,6 +271,9 @@ def trap_inputs(variant):
         value[vkind == 1] = -1  # the range's low end is exactly -1
     if variant == "no_pad_positive":
         value = np.abs(value) + 1
+    if variant == "no_pad_negative":
+        vkind[:] = 1
+        value = -1 - np.abs(value)
     planes = [
         rng.integers(0, 7, M).astype(np.uint8),  # action
         ctr, ctr.copy(),  # ctr, seq
@@ -288,7 +294,80 @@ def trap_inputs(variant):
 
 
 def trap_variants():
-    return ("wrap", "clamp", "ref_map", "no_pad_positive", "row32")
+    return ("wrap", "clamp", "ref_map", "no_pad_positive", "no_pad_negative",
+            "row32")
+
+
+# crafted shapes for the kernel's own seams (ends, dtypes of each source
+# plane in _PACK_SRC_PLANES order, Dp, N, row32, key32): the same planes
+# go through the reference's traced program, the plain version and the
+# CUDA source compiled for the host
+_I8, _I16, _I32, _U8 = np.int8, np.int16, np.int32, np.uint8
+_NARROW = (_U8, _I32, _I16, _I16, _I8, _I16, _I16, _I8, _U8, _U8, _I32, _U8)
+CRAFTED = {
+    # rows of 4,096 cells: tiles of 512 (2,048 at 128 threads) whose
+    # edges fall inside docs, a doc ending one row into a tile, pad docs
+    "straddle": ([1500, 700, 513, 2048, 4000], _NARROW, 7, 4096, False, False),
+    # 40 docs of 1 to 35 rows: every window offset mod 16 for the 1-byte
+    # planes (and every even / 4-byte offset for the wider ones), docs
+    # ending mid-vector, N = 64
+    "offsets": ([1 + (7 * d) % 35 for d in range(40)], _NARROW, 41, 64,
+                False, False),
+    # every plane in each of the four source dtypes, in turn
+    "codes_i8": ([20, 33, 16], (_I8,) * 12, 4, 48, False, False),
+    "codes_u8": ([20, 33, 16], (_U8,) * 12, 4, 48, False, False),
+    "codes_i16": ([20, 33, 16], (_I16,) * 12, 4, 48, False, False),
+    "codes_i32": ([20, 33, 16], (_I32,) * 12, 4, 48, False, False),
+    # int32 row and key planes, values outside int16, INC rows
+    "row32_key32": ([90, 128, 3], _NARROW, 3, 128, True, True),
+    # N not a multiple of 16: the scalar path, with several tiles' worth
+    # of cells per thread
+    "scalar_n": ([1000, 7, 999], _NARROW, 4, 1000, False, False),
+}
+
+
+def crafted_inputs(name):
+    """pack_prefix keyword arguments (CPU tensors) for one CRAFTED shape:
+    random source rows held inside each plane's dtype (ctr dense from 1, values
+    spread over int32, a quarter of the actions INC), random LUT
+    offsets, LUTs of 16 entries read in range."""
+    ends, dtypes, Dp, N, row32, key32 = CRAFTED[name]
+    rng = np.random.default_rng(list(CRAFTED).index(name) + 100)
+    D = len(ends)
+    M = int(sum(ends))
+    cols = [
+        np.where(rng.random(M) < 0.25, 6, rng.integers(0, 6, M)),  # action
+        np.arange(1, M + 1), rng.integers(1, 50, M),  # ctr, seq
+        rng.integers(-3, 40000, M), rng.choice([0, -1, 2], M),  # obj
+        rng.integers(-2, 11, M),  # key
+        rng.integers(-3, 40000, M), rng.choice([0, -1, -2, -3, 4], M),  # ref
+        rng.integers(0, 2, M), rng.integers(0, 6, M),  # insert, vkind
+        rng.integers(-(2**31), 2**31 - 1, M), rng.integers(0, 3, M),  # dt
+    ]
+    # held inside each dtype, as a sidecar's narrowing keeps them
+    # table rows of the LUT kinds in range (the reference pads a LUT to a
+    # power of two, so its clamp differs past the end)
+    vkind = cols[9]
+    lut_kind = (vkind == 2) | (vkind == 3) | (vkind == 5)
+    cols[10] = np.where(lut_kind, rng.integers(0, 11, M), cols[10])
+    planes = [np.clip(c, np.iinfo(dt).min, np.iinfo(dt).max).astype(dt)
+              for c, dt in zip(cols, dtypes)]
+    doc_start = np.concatenate([[0], np.cumsum(ends)[:-1]]).astype(np.int64)
+    luts = [rng.integers(-(2**20), 2**20, 16).astype(np.int32)
+            for _ in range(4)]
+    t = torch.from_numpy
+    return dict(
+        planes=[t(p) for p in planes], doc_start=t(doc_start),
+        ends=t(np.asarray(ends, np.int32)),
+        writer=t(rng.integers(0, 9, D).astype(np.int32)),
+        lut_off=t(rng.integers(0, 5, (4, D)).astype(np.int32)),
+        luts=[t(x) for x in luts], Dp=Dp, N=N, row32=row32, key32=key32,
+    )
+
+
+def pack_inputs(case):
+    """The keyword arguments of a trap variant or a CRAFTED shape."""
+    return crafted_inputs(case) if case in CRAFTED else trap_inputs(case)
 
 
 def reference_pack_program(kw):
@@ -318,15 +397,31 @@ def reference_pack_program(kw):
     return [np.asarray(o) for o in out[:-2]], (int(out[-2]), int(out[-1]))
 
 
-@pytest.mark.parametrize("variant", trap_variants())
+@pytest.mark.parametrize("variant", list(trap_variants()) + list(CRAFTED))
 def test_pack_prefix_parity_traps(variant):
-    kw = trap_inputs(variant)
+    kw = pack_inputs(variant)
     want, (vmin, vmax) = reference_pack_program(kw)
-    got, minmax = port_pk.pack_prefix(**kw)
-    assert minmax.tolist() == [vmin, vmax]
+    out = port_pk.pack_prefix(**kw)
+    assert out.ranges[:2].tolist() == [vmin, vmax]
     if variant == "no_pad_positive":
         assert vmin == 0 < vmax
-    for name, g, w in zip(ref_columnar.COLUMNS, got, want):
+    if variant == "no_pad_negative":
+        assert vmin < 0 == vmax
+    for name, g, w in zip(ref_columnar.COLUMNS, out.planes, want):
         g = g.numpy()
         assert g.dtype == w.dtype, name
         np.testing.assert_array_equal(g, w, err_msg=name)
+    # the hand-off: flags and slot as the dispatch's host_args builds them
+    # from the reference's planes, the ranges as it scans them
+    action, insert, ctr, seq, value = (
+        want[ref_columnar.COLUMNS.index(n)]
+        for n in ("action", "insert", "ctr", "seq", "value"))
+    np.testing.assert_array_equal(
+        out.flags.numpy(), action.astype(np.uint8) | (insert.astype(np.uint8) << 3))
+    assert out.flags.dtype == torch.uint8 and out.slot.dtype == torch.int8
+    assert not out.slot.any()
+    assert out.ranges.tolist() == [
+        int(value.min(initial=0)), int(value.max(initial=0)),
+        int(ctr.max(initial=0)), int(seq.max(initial=0)),
+        int((action == int(ref_columnar.Action.INC)).sum()),
+    ]
