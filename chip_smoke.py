@@ -24,7 +24,9 @@ prints a result):
      (partial windows, an empty doc, a shared feed, values outside int16)
      and at one doc of 65,536 rows (int32 row planes): its 11 wire
      planes, the slab launch's flags and slot, and the five ranges it
-     folds (also the batch's own); the four clock kernels at the mirror's capacity of
+     folds (also the batch's own); at the same three, the host route's
+     planes (HM_DEVICE_PACK=0: the native hm_pack_prefix) byte-equal to
+     the kernel's; the four clock kernels at the mirror's capacity of
      BASELINE config 5 (131072 x 64): the pairwise ops (also at A = 3
      and A = 1024, full and broadcast rows), the scatter-max with 1,000
      and 65,536 triples piled on one cell (and its parameter route, host
@@ -122,8 +124,10 @@ prints a result):
         at BASELINE config 5 equal to `union_reduce` and `gte`; the
         product route, a `Repo` on phase d's corpus with
         `visible_devices()` replaced by the 4 ranks (slabs of 512 docs),
-        `open_many` + `fetch_bulk_summaries` with `sharded_slabs >= 1` and
-        every summary byte-equal to phase d's single-device Repo; then a
+        `open_many` + `fetch_bulk_summaries` serially (HM_PIPELINE=0)
+        with `sharded_slabs >= 1`, and pipelined (HM_PIPELINE=1: whole
+        slabs round-robin over the ranks) with `rr_slabs >= 1`, every
+        summary of both byte-equal to phase d's single-device Repo; then a
         `MeshBulkScheduler` dispatching the product's slabs, whose
         `collective_clock_union` and `gather_summaries` equal the
         per-slab fetches; each wall printed. With two or more cards the
@@ -142,6 +146,20 @@ prints a result):
         clock, history length and frontend value identical; one captured
         tick batch equal to the plain version on the CPU; the engine's
         stats and the first-edit latency and burst rate printed;
+     g. the pipelined cold open (backend/pipeline.py) at bench.py's
+        primary size: `make_corpus` writes 10,240 docs x 1,024 ops once
+        (no .sig, as in d); slabs of 4,096 (three); fresh copies of it
+        opened by `Repo(path)` + `open_many` + `fetch_bulk_summaries`
+        under three routes — (a) HM_PIPELINE=0, (b) HM_PIPELINE=1 with
+        the device pack (the default), (c) HM_PIPELINE=1 HM_DEVICE_PACK=0
+        (the native host pack) — each twice, the second time under
+        torch.profiler; every open's summaries byte-equal to the first;
+        launch counts set to 0 before each open and read after:
+        pack_prefix once a slab on a and b and never on c,
+        materialize_wire once a slab on every route, `host_args` on c
+        alone; the `pipeline` stat 1 on b and c; each open's wall,
+        `wall_critical_path`, stage busy times, pack pool lanes,
+        `os.cpu_count()` and (profiled) the device idle share printed;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -169,8 +187,9 @@ prints a result):
      slot and ranges it writes; the wrapper, its host work, the kernel
      alone warm and with the L2 flushed before each call), at the ragged
      slab and at the 65,536-row doc; time the pack's host stages
-     (marshal into the staging buffer, its one copy up, the emit, the
-     whole pack) and profile the sidecar slab (pack + dispatch + fetch:
+     (marshal into the staging buffer, native and numpy, its one copy
+     up, the emit, the whole pack) beside the host route's (the native
+     emit alone, the whole host pack) and profile the sidecar slab (pack + dispatch + fetch:
      device time by kernel, idle share, the copies in each direction
      with their count, bytes and ms),
      config 5's hot query (1,000 writes + union(), host buffering
@@ -210,12 +229,13 @@ ROUNDS (default 1) times OTHER, this tree, this tree, OTHER, each a
 process of its own that builds its tree's kernels and prints one JSON
 line (`slab_numbers`, through entries every tree of the port has: the
 slab program, the wire, the sidecar slab's wall, pack and pack_prefix
-with its profile and copies, phase 3d's open on one shared corpus, the
-live tick), then the card's name and power limit.
+with its profile and copies, phase 3d's and phase 3g's opens on shared
+corpora, the live tick), then the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -281,6 +301,19 @@ LIVE_TRACE = dict(n_docs=1, n_ops=259_778, ops_per_change=1, text_frac=1.0,
                   seed=3, edits=256, chunk=32, tick_ms=None, bucket=262144)
 LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
                   seed=0, edits=128, chunk=128, tick_ms=3000, bucket=32768)
+# the pipelined cold open (phase 3g): bench.py's primary size, 10,240 docs
+# x 1,024 ops in slabs of 4,096 (three slabs), under three routes: (a) the
+# serial twin, (b) the streaming pipeline with the device pack (the
+# port's default), (c) the pipeline with the native host pack
+BENCH_OPEN = dict(n_docs=10240, n_ops=1024, slab=4096, runs=2)
+OPEN_ROUTES = {
+    "a": dict(HM_PIPELINE="0", HM_DEVICE_PACK="1"),
+    "b": dict(HM_PIPELINE="1", HM_DEVICE_PACK="1"),
+    "c": dict(HM_PIPELINE="1", HM_DEVICE_PACK="0"),
+}
+OPEN_STATS = ("wall_critical_path", "t_sql", "t_io", "t_spec", "t_pack",
+              "t_dispatch", "t_fetch", "t_fetch_busy", "pack_workers",
+              "t_pack_busy_per_worker", "t_pack_wall")
 # readings that a kernel's entry in the `kernels` line carries beside the
 # contract's keys, where phase 4 took them
 EXTRA_READINGS = ("host_ms", "kernel_ms", "cold_kernel_ms", "device_route_ms",
@@ -304,6 +337,21 @@ PROFILE_PAD_S = 0.005
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """Environment variables set for the block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_line() -> str:
@@ -767,9 +815,22 @@ def compare_pack(pk, columnar, specs, label, **kw):
         err = max(err, max_abs_err(a, b))
         if a.dtype != b.dtype or not torch.equal(a, b):
             raise AssertionError(f"{label}: packed lane {name} differs")
+    # the host route (HM_DEVICE_PACK=0: the native hm_pack_prefix) on the
+    # same specs: its planes byte-equal to the kernel's, in the wire dtypes
+    with env_vars(HM_DEVICE_PACK="0", HM_NATIVE_PACK="1"):
+        host, natives = capture(
+            columnar, "_native_pack_prefix",
+            lambda: columnar.pack_docs_columns(specs, device="cuda", **kw))
+    if len(natives) != 1 or host.lanes is not None:
+        raise AssertionError(f"{label}: the native host pack did not run")
+    for name in columnar.COLUMNS:
+        a, b = host.cols[name], batch.cols[name]
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{label}: native plane {name} != kernel's")
     log(f"phase 2 pack {label} [{k['Dp']}, {k['N']}] "
         f"M={k['planes'][0].shape[0]} row32={k['row32']}: kernel == plain "
-        f"(exact: 11 planes, flags, slot, ranges {dict(zip(pk.RANGES, ranges))})")
+        f"(exact: 11 planes, flags, slot, ranges {dict(zip(pk.RANGES, ranges))})"
+        "; the native host pack's 11 planes == the kernel's (exact)")
     return err, k
 
 
@@ -984,16 +1045,35 @@ def time_pack(pk, ck, columnar, mat, fcs, k_slab, lean):
         bytes=nbytes_,
         ops=ops,
     )
-    # the pack's host stages: the marshal into the staging buffer, its one
-    # copy up, the whole emit (marshal, upload, kernel, the planes' copy
-    # down started) and the whole pack
+    # the pack's host stages: the marshal into the staging buffer (one
+    # native call; its numpy twin beside it), its one copy up, the whole
+    # emit (marshal, upload, kernel, the planes' copy down started) and
+    # the whole pack; the host route beside them: the native emit alone
+    # (hm_pack_value_minmax + hm_pack_prefix) and its whole pack
+    fcs_, _fc_idx, fc_idx_a, ends, writer_g, flat_lut, Dp, _N, i16ok, \
+        row_dt, kdt, _dev = a
+    lib = columnar._native_pack_lib()
+
+    def marshal_numpy():
+        with env_vars(HM_NATIVE_PACK="0"):
+            return pk.marshal_pack_inputs(*a[:6], N, dev)
+
+    def host_pack():
+        with env_vars(HM_DEVICE_PACK="0"):
+            return columnar.pack_docs_columns(specs, device="cuda", **kw)
+
     r.update(host_medians_ms({
         "marshal_ms": lambda: pk.marshal_pack_inputs(*a[:6], N, dev),
+        "marshal_numpy_ms": marshal_numpy,
         "upload_ms": lambda: pk.upload(inp, dev),
         "device_pack_prefix_ms": lambda: pk.device_pack_prefix(*a),
         "pack_docs_columns_ms": lambda: columnar.pack_docs_columns(
             specs, device="cuda", **kw
         ),
+        "native_pack_ms": lambda: columnar._native_pack_prefix(
+            lib, fcs_, fc_idx_a, ends, writer_g, flat_lut, len(ends), Dp, N,
+            i16ok, row_dt, kdt),
+        "host_pack_docs_columns_ms": host_pack,
     }))
     t_bytes = r["bytes"] / MEM_BYTES_PER_S * 1e3
     t_ops = r["ops"] / SCALAR_OPS_PER_S * 1e3
@@ -2415,8 +2495,10 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
     timed("config5_union_dominated_s", clock_queries)
 
     # the product route: Repo over the ranks, phase 3d's corpus in slabs
-    # of MESH_SLAB docs, every slab sharded; its packed slabs are kept for
-    # the scheduler below
+    # of MESH_SLAB docs. Serially (HM_PIPELINE=0) every slab is sharded;
+    # its packed slabs are kept for the scheduler below. Pipelined (the
+    # default where the native pack loads), whole slabs round-robin over
+    # the ranks (MeshBulkScheduler, nothing tracked resident).
     batches = []
     orig_full = sharded.sharded_full
 
@@ -2424,34 +2506,45 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
         batches.append(batch)
         return orig_full(batch, mesh, lean=lean)
 
+    def product_open(pipelined):
+        repo = Repo(path=root)
+        try:
+            def product():
+                repo.open_many(urls)
+                return repo.back.fetch_bulk_summaries()
+
+            summ = timed(f"product_open_many_{pipelined}_s", product)
+            got = summary_rows(summ, list(rows))
+            return dict(repo.back.last_bulk_stats), got
+        finally:
+            repo.close()
+
     orig_visible = meshmod.visible_devices
     meshmod.visible_devices = lambda: list(devices)
     sharded.sharded_full = spy
-    old_slab = os.environ.get("HM_BULK_SLAB")
-    os.environ["HM_BULK_SLAB"] = str(MESH_SLAB)
-    repo = Repo(path=root)
     try:
-        def product():
-            repo.open_many(urls)
-            return repo.back.fetch_bulk_summaries()
-
-        summ = timed("product_open_many_s", product)
-        stats = dict(repo.back.last_bulk_stats)
-        got = summary_rows(summ, list(rows))
+        with env_vars(HM_BULK_SLAB=MESH_SLAB, HM_PIPELINE=0):
+            stats, got = product_open("serial")
+        sharded.sharded_full = orig_full
+        with env_vars(HM_BULK_SLAB=MESH_SLAB, HM_PIPELINE=1):
+            rr_stats, rr_got = product_open("pipelined")
     finally:
-        repo.close()
         sharded.sharded_full = orig_full
         meshmod.visible_devices = orig_visible
-        if old_slab is None:
-            del os.environ["HM_BULK_SLAB"]
-        else:
-            os.environ["HM_BULK_SLAB"] = old_slab
     if stats.get("sharded_slabs", 0) < 1 or stats["fast"] != len(urls):
         raise AssertionError(f"product route over {n} ranks: {stats}")
-    bad = [d for d in rows if got[d] != rows[d]]
-    if bad:
-        raise AssertionError(f"product route: {len(bad)} summaries differ "
-                             "from the single-device Repo")
+    if (rr_stats.get("rr_slabs", 0) < 1 or "sharded_slabs" in rr_stats
+            or rr_stats["pipeline"] != 1
+            or sum(rr_stats["slabs_per_chip"]) != rr_stats["rr_slabs"]
+            or rr_stats["fast"] != len(urls)):
+        raise AssertionError(f"pipelined product route over {n} ranks: "
+                             f"{rr_stats}")
+    for route, summaries in (("sharded", got), ("round-robin", rr_got)):
+        bad = [d for d in rows if summaries[d] != rows[d]]
+        if bad:
+            raise AssertionError(f"product route ({route}): {len(bad)} "
+                                 "summaries differ from the single-device "
+                                 "Repo")
 
     # the mesh scheduler: the product's slabs round-robin over the ranks,
     # then the collective union and the summary gather
@@ -2483,7 +2576,8 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
     walls["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 3e multi-device slice ({label}, {n} ranks, meshes "
         f"{[m.shape for m in meshes]}): walls {walls}; product route stats "
-        f"{stats}; launches {counts}")
+        f"{stats}; pipelined product route stats {rr_stats}; launches "
+        f"{counts}")
     for k in ("ring_gather", "clock_union_min", "clock_union", "clock_pair",
               "clock_scatter", "materialize", "materialize_wire"):
         if counts[k] == 0:
@@ -2491,8 +2585,10 @@ def mesh_path(ck, meshmod, sharded, slab, multi, ref, root, urls, rows,
     log(f"phase 3e check ({label}): sharded_full (full, lean) == "
         f"run_batch_full; step lanes and union == one device; config-5 union "
         f"and dominated == one device; {len(urls)} product summaries == the "
-        f"single-device Repo ({stats['sharded_slabs']} sharded slabs); "
-        f"scheduler union and gather == per-slab fetches")
+        f"single-device Repo, serially ({stats['sharded_slabs']} sharded "
+        f"slabs) and pipelined ({rr_stats['rr_slabs']} round-robin slabs, "
+        f"{rr_stats['slabs_per_chip']} a rank); scheduler union and gather "
+        f"== per-slab fetches")
     return counts, gather_shape, walls
 
 
@@ -3106,6 +3202,136 @@ def live_path(ck, root, device=None):
     return launches, numbers, runs["trace"]["captured"]
 
 
+def profiled_wall(fn) -> dict:
+    """fn under torch.profiler, once: its wall, the device's busy time
+    (kernels and copies) and its idle share over the window; busy and
+    idle None where the profiler delivered no device record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(
+        dev_us(e) for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    if busy_ms <= 0:
+        return dict(wall_ms=wall_ms, device_busy_ms=None,
+                    device_idle_share=None)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms)
+
+
+def bench_open(ck, path, urls, doc_ids, route, profiled=False):
+    """One cold open of the corpus at `path` (a fresh copy) under route
+    `route` of OPEN_ROUTES: Repo(path), open_many + fetch_bulk_summaries,
+    its launch counts set to 0 just before and read just after (and the
+    host_args calls); returns (numbers, the summaries' rows)."""
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+
+    with env_vars(HM_BULK_SLAB=BENCH_OPEN["slab"], **OPEN_ROUTES[route]):
+        repo = Repo(path=path)
+        try:
+            for k in ck.launches:
+                ck.launches[k] = 0
+
+            def open_all():
+                repo.open_many(urls)
+                return repo.back.fetch_bulk_summaries()
+
+            box = {}
+
+            def timed():
+                box["summ"] = open_all()
+
+            if profiled:
+                numbers, host_args_calls = capture(
+                    ck, "host_args", lambda: profiled_wall(timed))
+            else:
+                def walled():
+                    t0 = time.perf_counter()
+                    timed()
+                    torch.cuda.synchronize()
+                    return dict(wall_ms=(time.perf_counter() - t0) * 1e3)
+
+                numbers, host_args_calls = capture(ck, "host_args", walled)
+            launches = {k: v for k, v in ck.launches.items() if v}
+            stats = dict(repo.back.last_bulk_stats)
+            rows = summary_rows(box["summ"], doc_ids)
+        finally:
+            repo.close()
+    numbers.update(route=route, launches=launches,
+                   host_args=len(host_args_calls),
+                   pipeline=stats["pipeline"], fast=stats["fast"],
+                   **{k: stats.get(k) for k in OPEN_STATS})
+    return numbers, rows
+
+
+def pipeline_path(ck, root):
+    """Phase 3g, the pipelined cold open at bench.py's primary size:
+    `make_corpus` writes 10,240 docs x 1,024 ops once (no .sig, as in
+    3d); each route of OPEN_ROUTES opens a fresh copy of it twice, the
+    second time under torch.profiler (the device idle share over the
+    open). Every open's summaries are byte-equal to the first
+    serial open's; pack_prefix launches once a slab on routes a and b
+    and never on c, materialize_wire once a slab on every route, and
+    host_args runs on route c alone; the pipeline stat is 1 on b and c.
+    Returns (route b's first launch counts, the numbers)."""
+    import shutil
+
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    cfg = BENCH_OPEN
+    src = os.path.join(root, "corpus")
+    t0 = time.perf_counter()
+    urls = make_corpus(src, cfg["n_docs"], cfg["n_ops"], sign=False)
+    doc_ids = [validate_doc_url(u) for u in urls]
+    slabs = -(-cfg["n_docs"] // cfg["slab"])
+    log(f"phase 3g corpus: {cfg['n_docs']} x {cfg['n_ops']} ops written in "
+        f"{time.perf_counter() - t0:.1f} s (set-up); {slabs} slabs of "
+        f"{cfg['slab']}; os.cpu_count()={os.cpu_count()}")
+    want_rows = None
+    out, main_counts = [], None
+    runs = [(r, i, i > 0) for i in range(cfg["runs"]) for r in OPEN_ROUTES]
+    for route, run, profiled in runs:
+        path = os.path.join(root, f"open-{route}{run}")
+        shutil.copytree(src, path)
+        numbers, rows = bench_open(ck, path, urls, doc_ids, route, profiled)
+        shutil.rmtree(path)
+        numbers["run"] = run
+        if want_rows is None:
+            want_rows = rows
+        bad = sum(1 for d in doc_ids if rows[d] != want_rows[d])
+        del rows
+        launches = numbers["launches"]
+        expect = {
+            "pack_prefix": 0 if route == "c" else slabs,
+            "materialize_wire": slabs,
+        }
+        if (bad or numbers["fast"] != cfg["n_docs"]
+                or {k: launches.get(k, 0) for k in expect} != expect
+                or numbers["host_args"] != (slabs if route == "c" else 0)
+                or numbers["pipeline"] != (0 if route == "a" else 1)):
+            raise AssertionError(f"phase 3g route {route} run {run}: {bad} "
+                                 f"summaries differ; {numbers}")
+        if route == "b" and main_counts is None:
+            main_counts = dict(ck.launches)
+        log(f"phase 3g open route {route} run {run}"
+            f"{' (profiled)' if profiled else ''}: " + json.dumps(numbers))
+        out.append(numbers)
+    log(f"phase 3g check: {len(runs)} opens, every summary == the serial "
+        f"open's; pack_prefix {slabs} a route-a/b open and 0 on c, "
+        f"materialize_wire {slabs} an open, host_args on route c alone")
+    return main_counts, out
+
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -3440,9 +3666,12 @@ def sidecar_numbers(root: str) -> dict:
     return res
 
 
-def open_numbers(corpus: str, root: str) -> dict:
-    """`open_ms`: phase 3d's open (Repo(path) on a copy of `corpus`,
-    open_many of its urls and fetch_bulk_summaries), one host wall."""
+def open_numbers(corpus: str, root: str, key: str = "open_ms") -> dict:
+    """{key: one host wall} of a cold open of `corpus` (Repo(path) on a
+    copy of it, open_many of its urls and fetch_bulk_summaries) with the
+    tree's defaults: phase 3d's open (`open_ms`), and the bench-size
+    open of phase 3g (`open_bench_ms`; pipelined where the tree has the
+    pipeline, serial in a tree without it)."""
     import shutil
 
     from hypermerge_tpu_torch.repo import Repo
@@ -3456,12 +3685,14 @@ def open_numbers(corpus: str, root: str) -> dict:
         t0 = time.perf_counter()
         repo.open_many(urls)
         repo.back.fetch_bulk_summaries()
-        return {"open_ms": (time.perf_counter() - t0) * 1e3}
+        return {key: (time.perf_counter() - t0) * 1e3}
     finally:
         repo.close()
+        shutil.rmtree(path)
 
 
-def slab_numbers(tree: str, corpus: str | None = None) -> int:
+def slab_numbers(tree: str, corpus: str | None = None,
+                 bench_corpus: str | None = None) -> int:
     """One JSON line of the port in `tree`, through entries every tree of
     the port has: `slab_full_ms` / `slab_lean_ms`, materialize_full_device
     / materialize_full_lean_device at SLAB (kernels 1 and 2, however many
@@ -3469,7 +3700,8 @@ def slab_numbers(tree: str, corpus: str | None = None) -> int:
     `slab_peak_mb` (peak_mb of one full dispatch); `wire_ms` /
     `wire_long_doc_ms`, summary_wire_cuda alone at SLAB and at LONG_DOC;
     the sidecar slab (sidecar_numbers) and, with `corpus`, phase 3d's
-    open (open_numbers); for the live tick's buckets (live_tick_cases)
+    open (open_numbers), with `bench_corpus` phase 3g's (`open_bench_ms`);
+    for the live tick's buckets (live_tick_cases)
     materialize_live_device's events (`_ms`), host time until it returns
     (`_host_ms`) and host_split_ms (`_pre_ms`, `_c_ms`, `_post_ms`,
     `_c_events_ms`)."""
@@ -3514,6 +3746,8 @@ def slab_numbers(tree: str, corpus: str | None = None) -> int:
         res.update(sidecar_numbers(root))
         if corpus is not None:
             res.update(open_numbers(corpus, root))
+        if bench_corpus is not None:
+            res.update(open_numbers(bench_corpus, root, "open_bench_ms"))
     for label, lvs in live_tick_cases(columnar, synth).items():
         targs, tA, tK = live_args(ck, live, lvs, "cuda")
 
@@ -3531,21 +3765,25 @@ def slab_numbers(tree: str, corpus: str | None = None) -> int:
 def ab_main(other: str, rounds: int) -> int:
     """`--ab OTHER [ROUNDS]`: slab_numbers of OTHER and of this tree in
     turn, each in a process of its own, on one corpus of phase 3d's size
-    written first by this tree's make_corpus (without .sig sidecars);
-    exits non-zero if any fails."""
+    and one of phase 3g's, written first by this tree's make_corpus
+    (without .sig sidecars); exits non-zero if any fails."""
     from hypermerge_tpu_torch.ops.corpus import make_corpus
 
     here = os.path.dirname(os.path.abspath(__file__))
     order = [("other", other), ("this", here), ("this", here),
              ("other", other)] * rounds
-    with tempfile.TemporaryDirectory(prefix="hm-ab-corpus-") as corpus:
-        urls = make_corpus(corpus, READ["n_docs"], READ["n_ops"], sign=False)
-        with open(os.path.join(corpus, "urls.json"), "w") as f:
-            json.dump(urls, f)
+    with tempfile.TemporaryDirectory(prefix="hm-ab-corpus-") as root:
+        corpus, bench = os.path.join(root, "read"), os.path.join(root, "open")
+        for where, cfg in ((corpus, READ), (bench, BENCH_OPEN)):
+            urls = make_corpus(where, cfg["n_docs"], cfg["n_ops"],
+                               sign=False)
+            with open(os.path.join(where, "urls.json"), "w") as f:
+                json.dump(urls, f)
         for label, tree in order:
             run = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--slab-numbers",
-                 tree, corpus], capture_output=True, text=True, timeout=900)
+                 tree, corpus, bench], capture_output=True, text=True,
+                timeout=900)
             if run.returncode != 0:
                 print(run.stdout + run.stderr, file=sys.stderr)
                 return run.returncode or 1
@@ -3558,7 +3796,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--ab"]:
         return ab_main(sys.argv[2], int(sys.argv[3]) if sys.argv[3:] else 1)
     if sys.argv[1:2] == ["--slab-numbers"]:
-        return slab_numbers(*sys.argv[2:4])
+        return slab_numbers(*sys.argv[2:5])
     try:
         import torch
     except ImportError:
@@ -3594,6 +3832,11 @@ def main() -> int:
         raise AssertionError("the port imported jax or the JAX package")
 
     # -- 1. build + device line ---------------------------------------------
+    t_start = time.perf_counter()
+
+    def elapsed(after):
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s after {after}")
+
     card = card_line()
     log(card)
     t0 = time.perf_counter()
@@ -3669,6 +3912,7 @@ def main() -> int:
         errs.update(compare_mesh_kernels(ringmod, meshmod, ckk))
         errs["materialize_live"], live_inputs, live_cases = (
             compare_live_kernel(ck, live, columnar, synth))
+        elapsed("phase 2")
 
         # -- 3. the main paths -------------------------------------------------
         slice1 = main_path(ck, mat, synth, columnar, slab, long_doc)
@@ -3677,6 +3921,7 @@ def main() -> int:
         clock_counts, mirror, actors = clock_path(ck, PM)
         store_path(ck, PM, sql, stores)
         refs = mesh_references(ck, ckk, slab, multi)
+        elapsed("phases 3a-3c")
         with tempfile.TemporaryDirectory(prefix="hm-read-") as read_root:
             read_counts, read_numbers, seen, last, urls, rows = read_path(
                 ck, sk, read_root)
@@ -3692,9 +3937,14 @@ def main() -> int:
             else:
                 log(f"phase 3e peer ranks: not run ({n_cards} GPU visible)")
         del refs, rows
+        elapsed("phases 3d-3e")
         with tempfile.TemporaryDirectory(prefix="hm-live-") as live_root:
             live_launches, live_numbers, _captured = live_path(ck, live_root)
         del _captured
+        elapsed("phase 3f")
+        with tempfile.TemporaryDirectory(prefix="hm-open-") as open_root:
+            open_counts, open_numbers = pipeline_path(ck, open_root)
+        elapsed("phase 3g")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -3728,6 +3978,7 @@ def main() -> int:
         del mirror
         profile_dispatch("first-slice slab dispatch",
                          lambda: ck.run_batch_full(slab))
+        elapsed("phase 4")
 
     meta = {
         "pack_prefix": ("hypermerge_tpu_torch/kernels/csrc/pack_prefix.cu",
@@ -3759,9 +4010,12 @@ def main() -> int:
         "materialize_live": ("hypermerge_tpu_torch/kernels/csrc/doc_kernel.cu",
                              "hypermerge_tpu/ops/crdt_kernels.py:553"),
     }
-    # launches: each kernel's count on its slice's main path (the sidecar
-    # slice; kernels 1 and 2 apart: the first slice, whose long doc's slab
-    # takes them; the config-5 clock slice, the read slice)
+    # launches: each kernel's count on its slice's main path (the bulk
+    # kernels: the pipelined cold open's route b, phase 3g, beside the
+    # sidecar slice's one; kernels 1 and 2 apart: the first slice, whose
+    # long doc's slab takes them; the config-5 clock slice, the read slice)
+    sidecar_counts = {k: counts[k] for k in BULK}
+    counts.update({k: open_counts[k] for k in BULK})
     counts.update({k: slice1[k] for k in ("materialize", "summary_wire")})
     counts.update({k: clock_counts[k] for k in CLOCKS})
     counts.update({k: read_counts[k] for k in SERVE})
@@ -3788,11 +4042,14 @@ def main() -> int:
             # host work, the kernel alone (profiler; cold), the flush and
             # the library dispatch
             **{k: r[k] for k in EXTRA_READINGS if k in r},
+            **({"sidecar_slice_launches": sidecar_counts[name]}
+               if name in BULK else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
     log("read_mix " + json.dumps(read_numbers))
     log("live " + json.dumps(live_numbers))
+    log("pipeline_open " + json.dumps(open_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -9,23 +9,28 @@ thread/process (SURVEY.md §7.1).
 Bulk cold-start: `load_documents_bulk` packs many docs' feeds into one
 columnar batch and materializes them in slab-sized GPU dispatches
 (ops/crdt_kernels.py run_batch_full); `fetch_bulk_summaries` is the
-barrier that brings each slab's summary wire to the host.
+barrier that brings each slab's summary wire to the host. The stages run
+as the streaming slab pipeline (backend/pipeline.py: sidecar IO and
+specs on an IO thread, packs on a pool of GIL-free pack workers, the
+slab's launch on the caller thread, the wire's wait and parse on fetch
+workers) where the reference's gate enables it (`pipeline_enabled`: the
+native pack loads and drops the GIL, or HM_PIPELINE=1), else serially
+(HM_PIPELINE=0, the correctness twin, `_load_slabs_serial`).
 
 The backend runs on its device (`device`, cuda unless "cpu"), which it
 hands to the clock mirror, the bulk loader and the read-serving tier.
 When two or more ranks of that device type are visible
 (parallel/mesh.py `visible_devices`: every CUDA card) and HM_MESH is not
-0, the serial bulk loader shards each slab over a mesh of them
-(parallel/sharded.py `sharded_full`, stat `sharded_slabs`), as the
-reference does.
+0, the pipelined loader streams whole slabs round-robin over them
+(`_slab_rr`: parallel/sharded.py `MeshBulkScheduler`, stat `rr_slabs`;
+HM_SLAB_RR=0 turns it off) and the serial loader shards each slab over
+a mesh of them (`sharded_full`, stat `sharded_slabs`), as the reference
+does.
 Incremental changes on bulk-loaded docs go through the live apply
 engine (backend/live.py, `self.live`; HM_LIVE=0 keeps the host-OpSet
 twin), as in the reference.
 Not ported yet; the port behaves as the reference with the switch off:
-the streaming pipeline
-(HM_PIPELINE=0: slabs load serially, so the reference's round-robin
-slab scheduler, `_slab_rr`, has no counterpart), the write-ahead
-journal (HM_WAL=0) and crash recovery (a directory left with its
+the write-ahead journal (HM_WAL=0) and crash recovery (a directory left with its
 `repo.dirty` marker raises NotImplementedError instead of opening
 unrecovered), the service plane (HM_SERVICE=0: no admission control),
 and the network, file server and hyperfile store (their entry points
@@ -225,6 +230,10 @@ class RepoBackend:
         self._pending_memo: List = []
         self._stats_lock = make_lock("repo.stats")
         self._bulk_t0: Optional[float] = None
+        # the pipelined load's fetch workers, joined by the barrier
+        self._fetch_ctx = None
+        self._rr_cached = False  # round-robin scheduler, built lazily
+        self._rr_value = None
         # per-doc summary memo: doc_id -> last fetched summary row + the
         # clock it was fetched at. A later bulk load of a doc whose
         # clock has not moved (the same clock rows the device-resident
@@ -627,9 +636,9 @@ class RepoBackend:
         SELECT for all docs, one feed-registry executemany, one clock
         executemany, parallel sidecar loads, and per-actor syncs deferred
         to a single pass at the end. Device dispatches are async — the
-        materialization barrier is `fetch_bulk_summaries`. Stages run one
-        after another for all docs (the reference's HM_PIPELINE=0 serial
-        twin; the streaming pipeline is not ported).
+        materialization barrier is `fetch_bulk_summaries`. The stages
+        stream per slab (backend/pipeline.py) or, under HM_PIPELINE=0, run
+        one after another for all docs.
 
         `pad_docs`/`pad_rows` override the slab's bucket shape."""
         with telemetry.span(
@@ -645,13 +654,26 @@ class RepoBackend:
     def _load_documents_bulk_locked(
         self, doc_ids, slab, pad_docs, pad_rows
     ) -> None:
+        from .pipeline import pipeline_enabled
+
         # summaries are for the latest load: drop refs nobody fetched so
         # repeated open_many calls can't pin old slabs' host+device memory
         self._pending_summaries = []
         self._pending_memo = []
+        stale = self._fetch_ctx
+        self._fetch_ctx = None
+        if stale is not None:
+            # nobody ran the barrier for the previous load: settle its
+            # fetch workers before dispatching a new pipeline (and don't
+            # let a fetch error vanish with the discarded context)
+            try:
+                stale.join()
+            except Exception as e:
+                log("repo:backend", f"unfetched bulk load's fetch: {e}")
 
         now = time.perf_counter
         self._bulk_t0 = now()
+        pipelined = pipeline_enabled()
 
         # -- phase 1: register docs + one bulk cursor upsert/select -----
         t0 = now()
@@ -679,8 +701,10 @@ class RepoBackend:
         cursor_map = self.cursors.get_multiple(
             self.id, [d.id for d in new_docs]
         )
-        # stage breakdown (seconds): each stage's wall time (they run
-        # back-to-back, so they sum to the wall clock). t_fetch lands
+        # stage breakdown (seconds). Serial twin: each stage's wall time
+        # (they run back-to-back, so they sum to the wall clock).
+        # Pipeline: each stage's BUSY time — the stages overlap, so the
+        # wall clock is `wall_critical_path`, ~max(stage). t_fetch lands
         # when the materialization barrier runs.
         with self._stats_lock:
             self.last_bulk_stats = {
@@ -688,7 +712,8 @@ class RepoBackend:
                 "fast": 0,
                 "memo": 0,
                 "fallback": 0,
-                "pipeline": 0,
+                "pipeline": 1 if pipelined else 0,
+                "pack_workers": 0,  # serial twin: pack inline, no pool
                 "t_sql": round(now() - t0, 3),
                 "t_io": 0.0,
                 "t_spec": 0.0,
@@ -700,7 +725,12 @@ class RepoBackend:
         clock_rows: Dict[str, Dict[str, int]] = {}
         self._begin_bulk_actors()
         try:
-            memo_hits, fallback_docs = self._load_slabs_serial(
+            load = (
+                self._load_slabs_pipelined
+                if pipelined
+                else self._load_slabs_serial
+            )
+            memo_hits, fallback_docs = load(
                 new_docs, cursor_map, slab, ready_ids, clock_rows,
                 pad_docs, pad_rows,
             )
@@ -729,15 +759,33 @@ class RepoBackend:
                     "(non-contiguous feed seqs)",
                 )
         except Exception:
-            # a failed load must not pin device refs or hand the barrier
-            # a half-built pending list
+            # a failed load must not pin device refs, leave fetch workers
+            # running unjoined, or hand the barrier a half-built pending
+            # list (a failure AFTER the pipeline ran — clock write,
+            # fallback replay — still has live fetch workers: join them
+            # so no hm-pipe thread outlives the load)
+            ctx = self._fetch_ctx
             self._pending_summaries = []
             self._pending_memo = []
+            self._fetch_ctx = None
             self._bulk_t0 = None  # a later barrier must not stamp
             # wall_critical_path with this dead load's idle time
+            if ctx is not None:
+                try:
+                    ctx.join()
+                except Exception:
+                    pass  # the load's own error is the one to raise
             raise
         finally:
             self._end_bulk_actors()
+        if pipelined:
+            # busy aliases: explicit names for readers that want both
+            # views without knowing the mode
+            with self._stats_lock:
+                for k in ("t_io", "t_spec", "t_pack", "t_dispatch"):
+                    self.last_bulk_stats[k + "_busy"] = (
+                        self.last_bulk_stats.get(k, 0.0)
+                    )
         # provisional: the barrier extends this through the fetch
         with self._stats_lock:
             self.last_bulk_stats["wall_critical_path"] = round(
@@ -748,9 +796,9 @@ class RepoBackend:
             self.to_frontend.push(msgs.bulk_ready_msg(ready_ids))
 
     def _stat_add(self, key: str, dt: float) -> None:
-        """Accumulate a stage timing into last_bulk_stats (microsecond
-        precision: rounding each addition to ms would floor a stage of
-        many small slivers to 0)."""
+        """Accumulate a stage timing into last_bulk_stats (pipeline stage
+        threads add concurrently). Microsecond precision: rounding each
+        addition to ms would floor a stage of many small slivers to 0."""
         with self._stats_lock:
             s = self.last_bulk_stats
             s[key] = round(s.get(key, 0.0) + dt, 6)
@@ -815,6 +863,143 @@ class RepoBackend:
             entries, slab, ready_ids, clock_rows, pad_docs, pad_rows,
         )
         return memo_hits, fallback_docs
+
+    def _load_slabs_pipelined(
+        self, new_docs, cursor_map, slab, ready_ids, clock_rows,
+        pad_docs, pad_rows,
+    ):
+        """Streamed phases 2-4 (backend/pipeline.py): slab N+1's sidecar
+        IO and pack proceed while slab N is on the device and slab N-1's
+        summary is on its way to the host. Entry groups are the serial
+        twin's (slab-sized chunks of the post-memo entry stream, in doc
+        order), so both produce bit-identical summaries. Returns
+        (memo_hits, fallback_docs); the fetch workers may still run, and
+        `_fetch_ctx` hands them to the barrier."""
+        from ..ops.columnar import pack_docs_columns, round_up_pow2
+        from .pipeline import FetchContext, SlabPipeline, pack_worker_count
+
+        now = time.perf_counter
+        contiguous: Dict[str, bool] = {}
+
+        def prefetch(doc_chunk):
+            t0 = now()
+            needed = self._collect_cursor_actors(doc_chunk, cursor_map)
+            actors = [self._get_or_create_actor(a) for a in needed]
+            self._prefetch_columns(actors)
+            self._stat_add("t_io", now() - t0)
+
+        def classify(doc):
+            t0 = now()
+            try:
+                spec, clock, n_changes, actor_ids, ok = (
+                    self._doc_feed_spec(
+                        doc.id, contiguous, cursor_map[doc.id]
+                    )
+                )
+                if not ok:
+                    return ("fallback", doc)
+                if n_changes == 0:
+                    self._gate_unknown_empty(doc)
+                e = (doc, spec, clock, n_changes, actor_ids)
+                m = self._summary_memo.get(doc.id)
+                if m is not None and m["clock"] == clock:
+                    return ("memo", (e, m))
+                return ("entry", e)
+            finally:
+                self._stat_add("t_spec", now() - t0)
+
+        # the round-robin scheduler (built before any dispatch, so the
+        # fetch stage can size itself) accumulates per-rank times across
+        # loads: snapshot now, diff after the run
+        rr = self._slab_rr()
+        disp0 = list(rr.t_dispatch_chip) if rr is not None else None
+        slabs0 = list(rr.slabs_per_chip) if rr is not None else None
+        # with strict round-robin the rank of slab `seq` is (cursor at
+        # load start + seq), so a pack worker places its pack on the rank
+        # that will launch the slab and the lanes never cross cards
+        rr_cursor0 = rr.cursor() if rr is not None else 0
+        rank_of: Dict[int, int] = {}  # id(entry) -> rank it launched on
+
+        def pack(chunk, seq):
+            # runs on a pack-pool worker (HM_PACK_WORKERS)
+            t0 = now()
+            dev = rr.pack_device_for(seq, rr_cursor0) if rr else None
+            batch = pack_docs_columns(
+                [e[1] for e in chunk],
+                n_docs=pad_docs or round_up_pow2(len(chunk)),
+                n_rows=pad_rows,
+                device=self.device if dev is None else dev,
+            )
+            self._stat_add("t_pack", now() - t0)
+            return batch
+
+        def dispatch(chunk, batch):
+            entry = self._dispatch_slab(chunk, batch, ready_ids, clock_rows)
+            if rr is not None:
+                rank_of[id(entry)] = rr.last_device
+            return entry
+
+        stats = self.last_bulk_stats  # captured: the fetch workers can
+        # outlive this load; their timings belong to THIS load's stats
+
+        def fetch(entry):
+            t0 = now()
+            self._fetch_slab(entry)
+            dt = now() - t0
+            rank = rank_of.pop(id(entry), None)
+            with self._stats_lock:
+                stats["t_fetch_busy"] = round(
+                    stats.get("t_fetch_busy", 0.0) + dt, 6
+                )
+                if rank is not None:
+                    per = stats.setdefault(
+                        "t_fetch_chips", [0.0] * len(rr.devices)
+                    )
+                    per[rank] = round(per[rank] + dt, 6)
+
+        # one fetch worker per rank (bounded: each is one wait and one
+        # host parse at a time)
+        workers = 1
+        if rr is not None:
+            workers = max(1, min(
+                len(rr.devices),
+                int(os.environ.get("HM_FETCH_WORKERS", "4")),
+            ))
+        pipe = SlabPipeline(
+            new_docs,
+            prefetch=prefetch,
+            classify=classify,
+            pack=pack,
+            dispatch=dispatch,
+            fetch=fetch,
+            slab=slab,
+            fetch_workers=workers,
+            pack_workers=pack_worker_count(),
+        )
+        ctx = FetchContext()
+        try:
+            memo_hits, fallbacks = pipe.run(ctx)
+        finally:
+            if rr is not None:
+                rr.release()  # dispatching done: drop backpressure refs
+        with self._stats_lock:
+            # pool shape + per-worker busy lanes: sum(busy) can exceed
+            # the wall once packs overlap
+            stats["pack_workers"] = pipe.pack_workers
+            stats["t_pack_busy_per_worker"] = [
+                round(b, 6) for b in pipe.pack_busy
+            ]
+            stats["t_pack_wall"] = round(pipe.pack_wall(), 6)
+            if rr is not None:
+                stats["t_dispatch_chips"] = [
+                    round(b - a, 6)
+                    for a, b in zip(disp0, rr.t_dispatch_chip)
+                ]
+                stats["slabs_per_chip"] = [
+                    b - a for a, b in zip(slabs0, rr.slabs_per_chip)
+                ]
+        self._fetch_ctx = ctx
+        return memo_hits, fallbacks
 
     def _fetch_slab(self, entry) -> None:
         """Wait for one slab's summary wire to reach the host and parse
@@ -934,8 +1119,17 @@ class RepoBackend:
         # the summary wire's clock section (the pack's INC count where it
         # folded one: no host column is read before the barrier)
         lean = not batch.has_inc()
-        mesh = self._mesh()
-        if mesh is not None:
+        rr = self._slab_rr()
+        mesh = self._mesh() if rr is None else None
+        if rr is not None:
+            # pipelined over several ranks: successive WHOLE slabs land
+            # on successive ranks (bounded in-flight queues per rank)
+            out, wire = rr.dispatch(batch, lean=lean)
+            with self._stats_lock:
+                stats = self.last_bulk_stats
+                stats["rr_slabs"] = stats.get("rr_slabs", 0) + 1
+                stats.setdefault("rr_devices", len(rr.devices))
+        elif mesh is not None:
             # multi-device: THE same kernels, doc-sharded over dp
             from ..parallel.sharded import sharded_full
 
@@ -964,6 +1158,38 @@ class RepoBackend:
             )
         return entry
 
+    def _slab_rr(self):
+        """The round-robin slab scheduler over the visible ranks of the
+        backend's device type: a `MeshBulkScheduler` with resident
+        tracking off (the barrier fetches per slab on the fetch workers,
+        so tracked refs would pin every slab's wire with no reader).
+        Pipeline mode only, with two or more ranks, unless HM_SLAB_RR or
+        HM_MESH is 0. The mode gates re-evaluate on every call (the
+        serial twin must never round-robin, even on a backend that ran
+        pipelined); only the scheduler is cached. None otherwise."""
+        from .pipeline import pipeline_enabled
+
+        if (
+            os.environ.get("HM_SLAB_RR", "1") == "0"
+            or os.environ.get("HM_MESH", "1") == "0"
+            or not pipeline_enabled()
+        ):
+            return None
+        if self._rr_cached:
+            return self._rr_value
+        self._rr_cached = True
+        from ..parallel import mesh as meshmod
+
+        devs = [d for d in meshmod.visible_devices()
+                if d.type == self.device.type]
+        if len(devs) > 1:
+            from ..parallel.sharded import MeshBulkScheduler
+
+            self._rr_value = MeshBulkScheduler(
+                meshmod.make_mesh(devices=devs), track_resident=False
+            )
+        return self._rr_value
+
     def fetch_bulk_summaries(self) -> "BulkSummaries":
         """The materialization barrier for the preceding bulk load(s):
         brings every slab's fused summary wire buffer (winner/liveness
@@ -975,20 +1201,30 @@ class RepoBackend:
         this, any doc in the load renders host-side with no further
         device work. Clears the pending refs and refreshes the memo with
         the freshly fetched rows. Runs under `repo.bulk`, the guard of
-        the pending accumulators."""
+        the pending accumulators.
+
+        After a pipelined load the fetch workers already waited for and
+        parsed each slab's wire while later slabs packed and dispatched;
+        this joins them (a fetch failure re-raises as PipelineError) and
+        assembles host-side only: `t_fetch` is the residual wait,
+        `t_fetch_busy` the workers' busy time."""
         from ..ops.materialize import BulkSummaries
 
         with self._bulk_mutex:
             pending = self._pending_summaries
             memo_pending = self._pending_memo
+            fetch_ctx = self._fetch_ctx
             wall_t0 = self._bulk_t0
             self._pending_summaries = []
             self._pending_memo = []
+            self._fetch_ctx = None
             # one barrier per load — cleared up front so neither a
             # fetch failure below nor a later (empty) barrier call can
             # restamp the critical path with idle wall time
             self._bulk_t0 = None
             t0 = time.perf_counter()
+            if fetch_ctx is not None:
+                fetch_ctx.join()  # raises PipelineError on a fetch failure
             for entry in pending:
                 self._fetch_slab(entry)
             out = BulkSummaries(
@@ -1704,6 +1940,18 @@ class RepoBackend:
 
     def close(self) -> None:
         self._closed = True
+        # a barrier-less bulk load may still have fetch workers draining
+        # device buffers: settle them before the feeds, slab mmap and
+        # sqlite they indirectly depend on go away, and log any error
+        # nobody ran the barrier to see
+        with self._bulk_mutex:
+            ctx = self._fetch_ctx
+            self._fetch_ctx = None
+        if ctx is not None:
+            try:
+                ctx.join()
+            except Exception as e:
+                log("repo:backend", f"bulk fetch at close: {e}")
         if self.serve is not None:
             self.serve.close()  # drains: in-flight reads answer first
         if self.live is not None:

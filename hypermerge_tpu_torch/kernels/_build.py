@@ -7,6 +7,12 @@ source, the headers and the flags, so an edited kernel rebuilds and an
 unchanged one is reused. `build` starts one nvcc per source, all at
 once, and waits for all of them. A build with preprocessor `defines`
 (a test build of a source) is a library of its own beside the plain one.
+
+Builds and loads are safe from several threads of one process (the
+pipeline's pack workers may be first to call a kernel): one lock
+serializes them, so a source compiles once. Across processes each
+compile writes a temporary named by process and thread, published with
+`os.replace`.
 """
 
 from __future__ import annotations
@@ -16,8 +22,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
+
+from ..analysis.lockdep import make_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -35,6 +44,8 @@ NVCC_FLAGS = [
 # process ran, by stem (and " -D<define>" for each define)
 build_log: Dict[str, str] = {}
 _libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+# held across a build and the load that follows it
+_lock = make_lock("kernels.build")
 
 
 def nvcc_path() -> str:
@@ -63,6 +74,11 @@ def build(stems: Iterable[str] = STEMS,
           defines: Tuple[str, ...] = ()) -> Dict[str, Path]:
     """Build every stem that is not built yet, all nvcc runs in parallel;
     raises with the compiler's output if any build fails."""
+    with _lock:
+        return _build(stems, defines)
+
+
+def _build(stems: Iterable[str], defines: Tuple[str, ...]) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = {stem: target(stem, defines) for stem in stems}
     nvcc = nvcc_path()
@@ -70,7 +86,7 @@ def build(stems: Iterable[str] = STEMS,
     for stem, path in out.items():
         if path.exists():
             continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
         proc = subprocess.Popen(
@@ -95,6 +111,9 @@ def load(stem: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of one kernel source, built if needed."""
     lib = _libs.get((stem, defines))
     if lib is None:
-        lib = ctypes.CDLL(str(build([stem], defines)[stem]))
-        _libs[stem, defines] = lib
+        with _lock:
+            lib = _libs.get((stem, defines))
+            if lib is None:
+                lib = ctypes.CDLL(str(_build([stem], defines)[stem]))
+                _libs[stem, defines] = lib
     return lib

@@ -3,10 +3,17 @@ port's copy of hypermerge_tpu/native/__init__.py.
 
 The library carries ed25519 and BLAKE2b merkle roots (utils/crypto.py),
 brotli block frames (storage/block.py: blocks the reference wrote can be
-"BR"-framed, so the port needs the same decoder) and the binary change
-codec (crdt/codec.py). Every capability degrades to a pure-Python path
-at the call site, as in the reference, except reading a brotli block,
-which raises without it.
+"BR"-framed, so the port needs the same decoder), the columnar pack
+entries (ops/columnar.py's host pack route, ops/pack_kernels.py's
+marshal) and the binary change codec (crdt/codec.py). Every capability
+degrades to a pure-Python or PyTorch path at the call site, as in the
+reference, except reading a brotli block, which raises without it.
+
+GIL contract: the library is loaded with ctypes.CDLL (never PyDLL), so
+every foreign call runs with the GIL released. The pack and codec
+entries touch only caller-owned buffers, which makes that sound; the
+streaming slab pipeline (backend/pipeline.py) relies on it to pack
+slabs on several threads at once (`pack_drops_gil`, `pack_parallel_ok`).
 
 The library builds at first use with g++ into `_build/` (gitignored),
 named by a hash of the source and the flags, so an edited source
@@ -100,8 +107,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hm_compress.argtypes = [ctypes.c_int, ctypes.c_int, buf, size, buf, size]
     lib.hm_decompress.restype = ctypes.c_long
     lib.hm_decompress.argtypes = [ctypes.c_int, buf, size, buf, size]
-    # the change codec touches only caller-owned buffers, so its calls
-    # run with the GIL released (ctypes.CDLL, never PyDLL)
+    ll = ctypes.c_longlong
+    ptr = ctypes.c_void_p
+    lib.hm_pack_value_minmax.restype = ctypes.c_int
+    lib.hm_pack_value_minmax.argtypes = [ll] + [ptr] * 12
+    lib.hm_pack_prefix.restype = ctypes.c_int
+    lib.hm_pack_prefix.argtypes = [ll, ll, ll] + [ptr] * 16
+    lib.hm_pack_gather.restype = ctypes.c_int
+    lib.hm_pack_gather.argtypes = [ll] + [ptr] * 7
     lib.hm_change_encode.restype = ctypes.c_long
     lib.hm_change_encode.argtypes = [buf, size, buf, size]
     lib.hm_change_decode.restype = ctypes.c_long
@@ -136,6 +149,29 @@ def caps() -> int:
 
 def available() -> bool:
     return load() is not None
+
+
+def pack_lib() -> Optional[ctypes.CDLL]:
+    """The library handle for the columnar pack entries; None without
+    it."""
+    return load()
+
+
+def pack_drops_gil() -> bool:
+    """True when the pack entries run GIL-free (a plain CDLL): what the
+    pipelined bulk open's pack stage relies on to overlap packing with
+    sidecar IO and the device dispatch."""
+    lib = pack_lib()
+    return lib is not None and not isinstance(lib, ctypes.PyDLL)
+
+
+def pack_parallel_ok() -> bool:
+    """True when the pack entries may run on several threads at once (the
+    pipeline's pack pool, HM_PACK_WORKERS > 1): they are stateless C
+    loops into caller-owned buffers, so concurrent calls with distinct
+    output buffers are safe, and with the GIL dropped they run on as many
+    cores."""
+    return pack_drops_gil()
 
 
 def codec_lib() -> Optional[ctypes.CDLL]:

@@ -1,10 +1,11 @@
 // hm_native: the host C++ layer of hypermerge_tpu_torch — the port's
 // copy of hypermerge_tpu/native/src/hm_native.cpp, cut to what the port
 // calls: ed25519 keypairs/signatures and BLAKE2b merkle roots (libsodium),
-// brotli block frames (libbrotli), and the binary change-frame codec.
-// The reference's columnar pack entries (the port packs in numpy and on
-// the GPU), its zlib codec (Python's zlib module reads and writes "ZL"
-// blocks) and its transport crypto (the port has no network) are left out.
+// brotli block frames (libbrotli), the columnar pack entries (the bulk
+// cold open's host pack route and the device pack's marshal) and the
+// binary change-frame codec. The reference's zlib codec (Python's zlib
+// module reads and writes "ZL" blocks) and its transport crypto (the
+// port has no network) are left out.
 //
 // libsodium and libbrotli are dlopen'd at init, so the build needs no
 // headers and no libraries beyond libdl. Every entry point degrades:
@@ -216,6 +217,283 @@ long hm_decompress(int codec, const uint8_t *in, size_t len, uint8_t *out,
     return (long)outlen;
   }
   return -2;
+}
+
+// -------------------------------------------------------------------
+// Columnar pack: the host route of the bulk cold open's prefix pack
+// (ops/columnar.py _try_pack_prefix_single under HM_DEVICE_PACK=0), a
+// copy of the reference's entries. One pass per column reads each
+// feed's narrow source planes directly and writes the padded output
+// planes in place — pad cells are written exactly once, real cells
+// exactly once, no intermediates. The plain PyTorch pack
+// (ops/pack_kernels.py pack_prefix_plain) is its twin, held byte-equal
+// by tests/test_torch_native_pack.py. hm_pack_gather is the device
+// route's marshal: the same source planes, each doc's window copied
+// into one concatenated plane per source (ops/pack_kernels.py
+// marshal_pack_inputs). Every entry touches only caller-owned buffers
+// (no allocation, no Python objects), so ctypes calls run with the GIL
+// released and may run on several threads at once.
+//
+// dtype codes match storage/colcache.py _V3_DTYPES:
+//   0 = int8, 1 = int16, 2 = int32, 3 = uint8
+//
+// Source plane order (per feed, NP pointers):
+//   0 action, 1 ctr, 2 seq, 3 obj_ctr, 4 obj_a, 5 key, 6 ref_ctr,
+//   7 ref_a, 8 insert, 9 vkind, 10 value, 11 dt
+//
+// Output column order (ops/columnar.py COLUMNS):
+//   0 action, 1 actor, 2 ctr, 3 seq, 4 obj, 5 key, 6 ref, 7 insert,
+//   8 vkind, 9 value, 10 dt
+
+static const int PACK_NP = 12;
+static const int PACK_NOUT = 11;
+
+// v3 checkpoint planes sit back-to-back behind 1-byte dtype tags, so a
+// plane pointer is usually NOT aligned for its element type: all typed
+// loads/stores go through memcpy (compiles to a plain mov on x86/ARM64,
+// and is defined behavior everywhere — unlike a misaligned typed deref)
+static inline long long pk_ld(const void *p, int dt, long long i) {
+  switch (dt) {
+  case 0:
+    return ((const int8_t *)p)[i];
+  case 1: {
+    int16_t v;
+    memcpy(&v, (const char *)p + i * 2, 2);
+    return v;
+  }
+  case 2: {
+    int32_t v;
+    memcpy(&v, (const char *)p + i * 4, 4);
+    return v;
+  }
+  default:
+    return ((const uint8_t *)p)[i];
+  }
+}
+
+static inline void pk_st(void *p, int dt, long long i, long long v) {
+  switch (dt) {
+  case 0:
+    ((int8_t *)p)[i] = (int8_t)v;
+    break;
+  case 1: {
+    int16_t w = (int16_t)v;
+    memcpy((char *)p + i * 2, &w, 2);
+    break;
+  }
+  case 2: {
+    int32_t w = (int32_t)v;
+    memcpy((char *)p + i * 4, &w, 4);
+    break;
+  }
+  default:
+    ((uint8_t *)p)[i] = (uint8_t)v;
+    break;
+  }
+}
+
+static inline void pk_fill(void *p, int dt, long long start, long long end,
+                           long long v) {
+  for (long long i = start; i < end; i++)
+    pk_st(p, dt, i, v);
+}
+
+static inline int pk_itemsize(int dt) { return dt == 1 ? 2 : dt == 2 ? 4 : 1; }
+
+// value kinds that remap through a side table (ops/columnar.py VK_*)
+static const int PK_VK_FLOAT = 2;
+static const int PK_VK_STR = 3;
+static const int PK_VK_BIGINT = 5;
+
+// LUT indices come from DISK (sidecar planes): clamp every gather into
+// the table bounds, like the numpy twin's clipped key gather — a
+// corrupt sidecar must at worst pack garbage that downstream validation
+// rejects, never read out of process memory. On well-formed input the
+// clamp is a no-op, so the twins stay bit-identical.
+static inline long long pk_lut(const long long *lut, long long len,
+                               long long i) {
+  if (len <= 0)
+    return 0; // empty table (callers pad to >=1, but never trust that)
+  if (i < 0)
+    i = 0;
+  if (i >= len)
+    i = len - 1;
+  return lut[i];
+}
+
+// min/max of the remapped value column over all real rows, folded with 0
+// (the numpy twin's .min(initial=0)/.max(initial=0)) — the caller picks
+// the wire dtype from this BEFORE allocating outputs.
+int hm_pack_value_minmax(
+    long long D, const long long *fc_idx, const long long *ends,
+    const long long *src_ptrs, const uint8_t *src_dt, const long long *slut,
+    const long long *soffs, const long long *flut, const long long *foffs,
+    const long long *blut, const long long *boffs,
+    const long long *lut_lens /* [4]: klen, slen, flen, blen */,
+    long long *out_minmax) {
+  long long lo = 0, hi = 0;
+  for (long long d = 0; d < D; d++) {
+    long long f = fc_idx[d];
+    long long n = ends[d];
+    const void *vk = (const void *)src_ptrs[f * PACK_NP + 9];
+    int vk_dt = src_dt[f * PACK_NP + 9];
+    const void *val = (const void *)src_ptrs[f * PACK_NP + 10];
+    int val_dt = src_dt[f * PACK_NP + 10];
+    long long so = soffs[f], fo = foffs[f], bo = boffs[f];
+    for (long long i = 0; i < n; i++) {
+      long long k = pk_ld(vk, vk_dt, i);
+      long long v = pk_ld(val, val_dt, i);
+      if (k == PK_VK_STR)
+        v = pk_lut(slut, lut_lens[1], so + v);
+      else if (k == PK_VK_FLOAT)
+        v = pk_lut(flut, lut_lens[2], fo + v);
+      else if (k == PK_VK_BIGINT)
+        v = pk_lut(blut, lut_lens[3], bo + v);
+      if (v < lo)
+        lo = v;
+      if (v > hi)
+        hi = v;
+    }
+  }
+  out_minmax[0] = lo;
+  out_minmax[1] = hi;
+  return 0;
+}
+
+int hm_pack_prefix(
+    long long D, long long Dp, long long N, const long long *fc_idx,
+    const long long *ends, const long long *src_ptrs, const uint8_t *src_dt,
+    const long long *klut, const long long *koffs, const long long *slut,
+    const long long *soffs, const long long *flut, const long long *foffs,
+    const long long *blut, const long long *boffs,
+    const long long *lut_lens /* [4]: klen, slen, flen, blen */,
+    const long long *writer_g, const long long *out_ptrs,
+    const uint8_t *out_dt) {
+  // defaults per output column (pad rows + pad docs)
+  static const long long defaults[PACK_NOUT] = {7, 0, 0, 0, -1, -1,
+                                                -3, 0, 0, 0, 0};
+  // plain source -> output copies: {out column, source plane}
+  static const int plain[][2] = {{0, 0},  {2, 1},  {3, 2}, {7, 8},
+                                 {8, 9},  {10, 11}};
+  for (long long d = 0; d < D; d++) {
+    long long f = fc_idx[d];
+    long long n = ends[d];
+    if (n < 0 || n > N)
+      return -1;
+    long long base = d * N;
+    const long long *sp = src_ptrs + f * PACK_NP;
+    const uint8_t *sd = src_dt + f * PACK_NP;
+
+    for (size_t c = 0; c < sizeof(plain) / sizeof(plain[0]); c++) {
+      int oc = plain[c][0], sc = plain[c][1];
+      void *out = (void *)out_ptrs[oc];
+      if (out_dt[oc] == sd[sc]) {
+        memcpy((char *)out + base * pk_itemsize(out_dt[oc]),
+               (const char *)sp[sc], (size_t)(n * pk_itemsize(out_dt[oc])));
+      } else {
+        const void *src = (const void *)sp[sc];
+        for (long long i = 0; i < n; i++)
+          pk_st(out, out_dt[oc], base + i, pk_ld(src, sd[sc], i));
+      }
+      pk_fill(out, out_dt[oc], base + n, base + N, defaults[oc]);
+    }
+
+    { // actor: the feed writer's batch-global (string-sorted) id
+      void *out = (void *)out_ptrs[1];
+      pk_fill(out, out_dt[1], base, base + n, writer_g[f]);
+      pk_fill(out, out_dt[1], base + n, base + N, defaults[1]);
+    }
+    { // obj: row index of the container's MAKE op (-1 = root map)
+      void *out = (void *)out_ptrs[4];
+      const void *oa = (const void *)sp[4];
+      const void *oc_ = (const void *)sp[3];
+      int oa_dt = sd[4], oc_dt = sd[3];
+      for (long long i = 0; i < n; i++) {
+        long long a = pk_ld(oa, oa_dt, i);
+        pk_st(out, out_dt[4], base + i,
+              a == 0 ? pk_ld(oc_, oc_dt, i) - 1 : -1);
+      }
+      pk_fill(out, out_dt[4], base + n, base + N, defaults[4]);
+    }
+    { // key: feed-local key idx -> batch-global (-1 = none)
+      void *out = (void *)out_ptrs[5];
+      const void *kl = (const void *)sp[5];
+      int kl_dt = sd[5];
+      long long ko = koffs[f];
+      for (long long i = 0; i < n; i++) {
+        long long k = pk_ld(kl, kl_dt, i);
+        pk_st(out, out_dt[5], base + i,
+              k >= 0 ? pk_lut(klut, lut_lens[0], ko + k) : -1);
+      }
+      pk_fill(out, out_dt[5], base + n, base + N, defaults[5]);
+    }
+    { // ref: dense ctr -> row (-2 HEAD, -3 none)
+      void *out = (void *)out_ptrs[6];
+      const void *ra = (const void *)sp[7];
+      const void *rc = (const void *)sp[6];
+      int ra_dt = sd[7], rc_dt = sd[6];
+      for (long long i = 0; i < n; i++) {
+        long long a = pk_ld(ra, ra_dt, i);
+        pk_st(out, out_dt[6], base + i,
+              a == 0 ? pk_ld(rc, rc_dt, i) - 1 : a == -2 ? -2 : -3);
+      }
+      pk_fill(out, out_dt[6], base + n, base + N, defaults[6]);
+    }
+    { // value: side-table kinds remap through the flat global LUTs
+      void *out = (void *)out_ptrs[9];
+      const void *vk = (const void *)sp[9];
+      const void *val = (const void *)sp[10];
+      int vk_dt = sd[9], val_dt = sd[10];
+      long long so = soffs[f], fo = foffs[f], bo = boffs[f];
+      for (long long i = 0; i < n; i++) {
+        long long k = pk_ld(vk, vk_dt, i);
+        long long v = pk_ld(val, val_dt, i);
+        if (k == PK_VK_STR)
+          v = pk_lut(slut, lut_lens[1], so + v);
+        else if (k == PK_VK_FLOAT)
+          v = pk_lut(flut, lut_lens[2], fo + v);
+        else if (k == PK_VK_BIGINT)
+          v = pk_lut(blut, lut_lens[3], bo + v);
+        pk_st(out, out_dt[9], base + i, v);
+      }
+      pk_fill(out, out_dt[9], base + n, base + N, defaults[9]);
+    }
+  }
+  // pad docs [D, Dp): every column all-default
+  for (int oc = 0; oc < PACK_NOUT; oc++)
+    pk_fill((void *)out_ptrs[oc], out_dt[oc], D * N, Dp * N, defaults[oc]);
+  return 0;
+}
+
+// The device pack's marshal: for every doc d and source plane k, the
+// window [0, ends[d]) of feed fc_idx[d]'s plane k copied to
+// [doc_start[d], doc_start[d] + ends[d]) of output plane k, converted to
+// out_dt[k] where the feed's dtype differs. Returns -1 on a negative
+// window end (the caller checks windows against the feeds' rows).
+int hm_pack_gather(long long D, const long long *fc_idx,
+                   const long long *ends, const long long *doc_start,
+                   const long long *src_ptrs, const uint8_t *src_dt,
+                   const long long *out_ptrs, const uint8_t *out_dt) {
+  for (long long d = 0; d < D; d++) {
+    long long n = ends[d];
+    if (n < 0)
+      return -1;
+    const long long *sp = src_ptrs + fc_idx[d] * PACK_NP;
+    const uint8_t *sd = src_dt + fc_idx[d] * PACK_NP;
+    long long base = doc_start[d];
+    for (int k = 0; k < PACK_NP; k++) {
+      void *out = (void *)out_ptrs[k];
+      if (out_dt[k] == sd[k]) {
+        memcpy((char *)out + base * pk_itemsize(out_dt[k]),
+               (const char *)sp[k], (size_t)(n * pk_itemsize(out_dt[k])));
+      } else {
+        const void *src = (const void *)sp[k];
+        for (long long i = 0; i < n; i++)
+          pk_st(out, out_dt[k], base + i, pk_ld(src, sd[k], i));
+      }
+    }
+  }
+  return 0;
 }
 
 // -------------------------------------------------------------------

@@ -33,6 +33,7 @@ floats (float64 — no precision loss through the device path), bigints.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import (
     Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple,
@@ -107,6 +108,9 @@ class SlabLanes(NamedTuple):
     key: Any
     ref: Any
     value: Any
+    # on a card, the event recorded on the pack's stream after its launch:
+    # a launch on another stream waits on it (crdt_kernels.handoff_args)
+    packed: Any = None
 
 
 @dataclass
@@ -408,7 +412,8 @@ def _encode_value(op, str_ids, float_ids, big_ids) -> Tuple[int, int]:
 # and OpId -> row resolution via a sorted composite-key lookup. The
 # dominant cold-open shape (one single-writer feed per doc, whole-prefix
 # windows) takes a no-sort fast path whose padded-plane emit is the CUDA
-# kernel of ops/pack_kernels.py.
+# kernel of ops/pack_kernels.py, or, under HM_DEVICE_PACK=0, the host
+# route (the native hm_pack_prefix).
 
 
 def _prefix_single_ok(fc) -> bool:
@@ -458,6 +463,76 @@ def _pack_src_idx() -> np.ndarray:
     return got
 
 
+# dtype codes of the sidecar planes, as the native pack entries and
+# pack_prefix.cu read them (storage/colcache.py _V3_DTYPES)
+_DT_CODE = {
+    np.dtype(np.int8): 0,
+    np.dtype(np.int16): 1,
+    np.dtype(np.int32): 2,
+    np.dtype(np.uint8): 3,
+}
+_CODE_DT = {code: dt for dt, code in _DT_CODE.items()}
+
+
+def _native_pack_lib():
+    """The native library for the pack entries; None when it is absent or
+    HM_NATIVE_PACK=0."""
+    if os.environ.get("HM_NATIVE_PACK", "1") == "0":
+        return None
+    from .. import native
+
+    return native.pack_lib()
+
+
+def check_windows(fcs, fc_idx_a, ends) -> None:
+    """Raise on a doc window that runs past its feed's rows (a corrupt
+    sidecar): no pack route reads past a feed's planes."""
+    feed_rows = np.asarray([fc.n_rows for fc in fcs], np.int64)
+    if np.any(ends > feed_rows[fc_idx_a]):
+        raise ValueError("a doc window ends past its feed's rows")
+
+
+def feed_plane_ptrs(fcs):
+    """(addresses [F, 12] int64, dtype codes [F, 12] uint8, keep_alive) of
+    each plane-backed feed's pack source planes (_PACK_SRC_PLANES order),
+    as the native pack entries take them. A checkpoint-backed feed's
+    planes are slices of one buffer, so its row is its base address plus
+    the plane offsets (FeedColumns.plane_meta); another feed's planes are
+    read one by one, converted to contiguous int32 where their dtype has
+    no code. `keep_alive` must outlive the native call."""
+    n = len(PLANE_NAMES)
+    bases = np.zeros(len(fcs), np.int64)
+    offs, codes, keep_alive = [], [], []
+    for i, fc in enumerate(fcs):
+        meta = fc.plane_meta
+        if meta is not None:
+            bases[i] = meta[0]
+            offs.append(meta[1])
+            codes.append(meta[2])
+            keep_alive.append(meta)
+            continue
+        addr = np.zeros(n, np.int64)
+        code = np.zeros(n, np.uint8)
+        for name in _PACK_SRC_PLANES:
+            p = fc.planes[name]
+            if p.dtype not in _DT_CODE or not p.flags["C_CONTIGUOUS"]:
+                p = np.ascontiguousarray(p, np.int32)
+                keep_alive.append(p)
+            j = PLANE_NAMES.index(name)
+            addr[j] = p.__array_interface__["data"][0]
+            code[j] = _DT_CODE[p.dtype]
+        offs.append(addr)
+        codes.append(code)
+    idx = _pack_src_idx()
+    # a column gather comes out in Fortran order: the C entries walk rows
+    addrs = np.ascontiguousarray(bases[:, None] + np.stack(offs)[:, idx])
+    return addrs, np.ascontiguousarray(np.stack(codes)[:, idx]), keep_alive
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.__array_interface__["data"][0]
+
+
 def _pack_wire_dtypes(i16ok, row_dt, kdt, vmin, vmax):
     return {
         "action": np.uint8,
@@ -478,6 +553,52 @@ def _pack_wire_dtypes(i16ok, row_dt, kdt, vmin, vmax):
     }
 
 
+def _native_pack_prefix(
+    lib, fcs, fc_idx_a, ends, writer_g, flat_lut,
+    D, Dp, N, i16ok, row_dt, kdt,
+) -> Dict[str, np.ndarray]:
+    """The padded [Dp, N] wire planes through the native entries (the
+    reference's host route): per-feed narrow plane pointers in, output
+    buffers filled in place, pad cells included; the value plane's dtype
+    from the value range `hm_pack_value_minmax` folds first. Raises on a
+    corrupt window and on a non-zero return."""
+    check_windows(fcs, fc_idx_a, ends)
+    srcs, sdts, keep_alive = feed_plane_ptrs(fcs)
+    klut, koffs = flat_lut("k")
+    slut, soffs = flat_lut("s")
+    flut, foffs = flat_lut("f")
+    blut, boffs = flat_lut("b")
+    lut_lens = np.asarray(
+        [len(klut), len(slut), len(flut), len(blut)], np.int64
+    )
+    writer_g = np.ascontiguousarray(writer_g, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    fc_idx_a = np.ascontiguousarray(fc_idx_a, np.int64)
+    mm = np.zeros(2, np.int64)
+    rc = lib.hm_pack_value_minmax(
+        D, _ptr(fc_idx_a), _ptr(ends), _ptr(srcs), _ptr(sdts),
+        _ptr(slut), _ptr(soffs), _ptr(flut), _ptr(foffs), _ptr(blut),
+        _ptr(boffs), _ptr(lut_lens), _ptr(mm),
+    )
+    if rc != 0:
+        raise RuntimeError(f"hm_pack_value_minmax failed: {rc}")
+    dtypes = _pack_wire_dtypes(i16ok, row_dt, kdt, int(mm[0]), int(mm[1]))
+    cols = {name: np.empty(Dp * N, dtypes[name]) for name in COLUMNS}
+    out_ptrs = np.asarray([_ptr(a) for a in cols.values()], np.int64)
+    out_dts = np.asarray([_DT_CODE[a.dtype] for a in cols.values()],
+                         np.uint8)
+    rc = lib.hm_pack_prefix(
+        D, Dp, N, _ptr(fc_idx_a), _ptr(ends), _ptr(srcs), _ptr(sdts),
+        _ptr(klut), _ptr(koffs), _ptr(slut), _ptr(soffs), _ptr(flut),
+        _ptr(foffs), _ptr(blut), _ptr(boffs), _ptr(lut_lens),
+        _ptr(writer_g), _ptr(out_ptrs), _ptr(out_dts),
+    )
+    del keep_alive
+    if rc != 0:
+        raise RuntimeError(f"hm_pack_prefix failed: {rc}")
+    return {name: a.reshape(Dp, N) for name, a in cols.items()}
+
+
 def _try_pack_prefix_single(
     doc_specs, n_rows, n_pred, n_docs, device
 ) -> Optional[ColumnarBatch]:
@@ -489,12 +610,19 @@ def _try_pack_prefix_single(
     M-sized argsorts and composite-key resolution collapse into one
     searchsorted over an already-sorted key.
 
-    The padded-plane emit is `pack_kernels.device_pack_prefix`: the CUDA
-    kernel on `device` "cuda", its plain PyTorch version on "cpu". The
-    batch carries its shape, the slab launch's lanes where the kernel
-    left them and the ranges it folded; its host planes come down behind
-    the call (`HostPlanes`). None when the specs do not have this
-    shape."""
+    The padded-plane emit has two routes (`pack_kernels.
+    device_pack_enabled`). The device route, the port's default, is
+    `pack_kernels.device_pack_prefix`: the CUDA kernel on `device` "cuda",
+    its plain PyTorch version on "cpu". Its batch carries its shape, the
+    slab launch's lanes where the kernel left them and the ranges it
+    folded; its host planes come down behind the call (`HostPlanes`).
+    The host route (HM_DEVICE_PACK=0, the reference's default) writes
+    host planes through the native `hm_pack_prefix`, and the dispatch
+    then takes `host_args`; where that library is absent, HM_NATIVE_PACK
+    is 0 or a feed has no planes, it runs `pack_prefix_plain` on the CPU
+    instead. Each route raises where it cannot pack (a corrupt window, a
+    failed call); none falls back to another. None when the specs do not
+    have this shape."""
     for spec in doc_specs:
         if len(spec) != 1:
             return None
@@ -637,12 +765,25 @@ def _try_pack_prefix_single(
         )
         return flat, offs
 
-    from .pack_kernels import device_pack_prefix
+    from .pack_kernels import device_pack_enabled, device_pack_prefix
 
-    cols, lanes, ranges = device_pack_prefix(
-        fcs, fc_idx, fc_idx_a, ends, writer_g, flat_lut,
-        Dp, N, i16ok, row_dt, kdt, device,
-    )
+    lib = None
+    if not device_pack_enabled():
+        if all(fc.planes is not None for fc in fcs):
+            lib = _native_pack_lib()
+        if lib is None:
+            device = resolve("cpu")
+    if lib is not None:
+        cols = _native_pack_prefix(
+            lib, fcs, fc_idx_a, ends, writer_g, flat_lut,
+            D, Dp, N, i16ok, row_dt, kdt,
+        )
+        lanes = ranges = None
+    else:
+        cols, lanes, ranges = device_pack_prefix(
+            fcs, fc_idx, fc_idx_a, ends, writer_g, flat_lut,
+            Dp, N, i16ok, row_dt, kdt, device,
+        )
     pdt = np.int16 if i16ok else np.int32
     psrc = np.full(Dp * P, -1, pdt)
     ptgt = np.full(Dp * P, -1, pdt)

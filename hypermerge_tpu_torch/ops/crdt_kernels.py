@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..analysis.lockdep import make_lock
 from ..crdt.change import Action
 from ..device import DeviceLike, resolve
 from .columnar import PAD, ColumnarBatch, doc_actor_map_from_pairs, round_up_pow2
@@ -341,6 +342,7 @@ launches: Dict[str, int] = {
     "serve_lookup": 0, "serve_order": 0, "serve_counts": 0,
     "clock_union_min": 0, "ring_gather": 0,
 }
+_launches_lock = make_lock("kernels.launches")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -457,10 +459,12 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
 
 def _launched(name: str, rc: int, n: int = 1) -> None:
     """Count n launches of `name`, or raise if its entry returned an
-    error."""
+    error. Wrappers launch from several threads (the pipeline's pack
+    pool), so the count is taken under a lock."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
-    launches[name] += n
+    with _launches_lock:
+        launches[name] += n
 
 
 def launch_stream(dev: torch.device) -> int:
@@ -1035,7 +1039,11 @@ def handoff_args(batch: ColumnarBatch, lean: bool, dev: torch.device):
     """(args, A_loc, K) of the slab launch from the lanes the pack left
     on `dev` (batch.lanes) and its ranges: nothing is narrowed or scanned
     on the host, and only the pred edges and the actor map go up, in one
-    staged copy. `lean` leaves the seq/value slots None."""
+    staged copy. `lean` leaves the seq/value slots None. Lanes packed on
+    a card on another stream (a pack worker's) are waited for on this
+    stream, and their allocation is held for it (`record_stream`: the
+    lanes are views of one allocation), so dropping them after the launch
+    is queued is safe on either stream."""
     da, A, K = bucket_doc_actors(batch)
     _check_ranges(batch, A, K)
     N = batch.n_rows
@@ -1046,6 +1054,10 @@ def handoff_args(batch: ColumnarBatch, lean: bool, dev: torch.device):
     psrc, ptgt, da_t = staged_upload(small, dev)
     _SLAB_H2D.add(sum(a.nbytes for a in small))
     L = batch.lanes
+    if L.packed is not None:
+        stream = torch.cuda.current_stream(dev)
+        stream.wait_event(L.packed)
+        L.flags.record_stream(stream)
     return (
         L.flags, L.slot, L.ctr, None if lean else L.seq, L.obj, L.key,
         L.ref, None if lean else L.value, psrc, ptgt, da_t,

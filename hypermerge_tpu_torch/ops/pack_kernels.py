@@ -8,7 +8,8 @@ container and element references, the key and value LUT remaps into the
 batch-global tables, the writer broadcast, the pad defaults, and the
 value range that picks the value plane's wire dtype. The host part here
 is marshalling only — each of the 12 source planes concatenated, in its
-narrow sidecar dtype, over the docs' windows, with the per-doc vectors
+narrow sidecar dtype, over the docs' windows (one native call, GIL
+released, where the native library loads), with the per-doc vectors
 and the flat LUTs, into one staging buffer (`marshal_pack_inputs`) that
 goes up in one copy (`upload`) — and one kernel derives and writes every
 output cell:
@@ -33,10 +34,20 @@ behind the launch (`HostPlanes`: a copy stream, one pinned buffer, every
 read waiting on its event). Host planes are byte-identical to the
 reference's. Nothing here falls back: a failed build, copy, launch or
 check raises out of the pack.
+
+This is the port's default route on a card (`device_pack_enabled`:
+unless HM_DEVICE_PACK=0); the reference's default is its host route
+(HM_DEVICE_PACK=0 there too), which the port has beside it
+(ops/columnar.py `_native_pack_prefix`). A pack may run on any thread
+(the pipeline's pack pool): it launches on that thread's current stream,
+and the hand-off carries the event recorded there after the launch
+(`SlabLanes.packed`), which the slab launch and the host planes' copy
+wait on.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from collections.abc import Mapping
 from typing import Dict, NamedTuple, Sequence, Tuple
@@ -54,9 +65,15 @@ from .columnar import (
     VK_FLOAT,
     VK_STR,
     SlabLanes,
+    _CODE_DT,
+    _DT_CODE,
     _PACK_SRC_PLANES,
+    _native_pack_lib,
     _pack_src_idx,
     _pack_wire_dtypes,
+    _ptr as _np_ptr,
+    check_windows,
+    feed_plane_ptrs,
 )
 from .crdt_kernels import (
     _INC,
@@ -81,6 +98,12 @@ _PER_DOC = ("doc_start", "ends", "writer", "lut_off")
 _NUMPY_DTYPE = {t: dt for dt, t in _TORCH_DTYPE.items()}
 
 
+def device_pack_enabled() -> bool:
+    """Whether the prefix pack takes the device route: unless
+    HM_DEVICE_PACK=0 (the host route, ops/columnar.py)."""
+    return os.environ.get("HM_DEVICE_PACK", "1") != "0"
+
+
 class PackOut(NamedTuple):
     """What the pack writes: the 11 padded [Dp, N] wire planes (COLUMNS
     order), the slab launch's flags (uint8 action | insert << 3) and slot
@@ -98,20 +121,31 @@ def marshal_pack_inputs(
 ) -> Staging:
     """The host half of the pack: each source plane concatenated over the
     docs' windows (plane-backed feeds keep their narrow dtypes, promoted
-    to one per plane; a feed without checkpoint planes serves columns of
-    its rows matrix), then doc_start, ends, writer, lut_off and the four
-    flat LUTs, all in one staging buffer (pinned for a card). Raises on a
+    to one per plane; a feed without planes serves columns of its rows
+    matrix), then doc_start, ends, writer, lut_off and the four flat
+    LUTs, all in one staging buffer (pinned for a card). Plane-backed
+    feeds are copied by one native call (`hm_pack_gather`, GIL released)
+    where the native library loads, else by numpy per doc. Raises on a
     window that runs past its feed's rows (a corrupt sidecar) or past the
     bucket."""
     D = len(ends)
-    feed_rows = np.asarray([fc.n_rows for fc in fcs], np.int64)
-    if np.any(ends > feed_rows[fc_idx_a]):
-        raise ValueError("a doc window ends past its feed's rows")
+    check_windows(fcs, fc_idx_a, ends)
     if int(ends.max(initial=0)) > N:
         raise ValueError(f"a doc window exceeds the row bucket N={N}")
     M = int(ends.sum())
-    rows = None
-    if all(fc.planes is not None for fc in fcs):
+    doc_start = np.zeros(D, np.int64)
+    np.cumsum(ends[:-1], out=doc_start[1:])
+    planes = all(fc.planes is not None for fc in fcs)
+    lib = _native_pack_lib() if planes else None
+    rows = parts = ptrs = None
+    if lib is not None:
+        ptrs = feed_plane_ptrs(fcs)
+        used = ptrs[1][np.unique(fc_idx_a)]
+        dtypes = [
+            np.result_type(*(_CODE_DT[c] for c in np.unique(used[:, k])))
+            for k in range(len(_PACK_SRC_PLANES))
+        ]
+    elif planes:
         parts = [
             [fcs[fc_idx[d]].plane(name)[: ends[d]] for d in range(D)]
             for name in _PACK_SRC_PLANES
@@ -123,8 +157,6 @@ def marshal_pack_inputs(
             axis=0,
         )
         dtypes = [rows.dtype] * len(_PACK_SRC_PLANES)
-    doc_start = np.zeros(D, np.int64)
-    np.cumsum(ends[:-1], out=doc_start[1:])
     tables = [flat_lut(kind) for kind in ("k", "s", "f", "b")]
     small = [
         doc_start,
@@ -137,11 +169,27 @@ def marshal_pack_inputs(
         [(dt, (M,)) for dt in dtypes] + [(a.dtype, a.shape) for a in small],
         device,
     )
-    for k, view in enumerate(st.arrays[: len(dtypes)]):
-        if rows is None:
-            np.concatenate(parts[k], out=view)
-        else:
-            view[:] = rows[:, _pack_src_idx()[k]]
+    views = st.arrays[: len(dtypes)]
+    if ptrs is not None:
+        srcs, sdts, keep_alive = ptrs
+        fc_i = np.ascontiguousarray(fc_idx_a, np.int64)
+        ends64 = np.ascontiguousarray(ends, np.int64)
+        out_ptrs = np.asarray([_np_ptr(v) for v in views], np.int64)
+        out_dts = np.asarray([_DT_CODE[v.dtype] for v in views], np.uint8)
+        rc = lib.hm_pack_gather(
+            D, _np_ptr(fc_i), _np_ptr(ends64), _np_ptr(doc_start),
+            _np_ptr(srcs), _np_ptr(sdts), _np_ptr(out_ptrs),
+            _np_ptr(out_dts),
+        )
+        del keep_alive
+        if rc != 0:
+            raise RuntimeError(f"hm_pack_gather failed: {rc}")
+    else:
+        for k, view in enumerate(views):
+            if rows is None:
+                np.concatenate(parts[k], out=view)
+            else:
+                view[:] = rows[:, _pack_src_idx()[k]]
     for view, a in zip(st.arrays[len(dtypes):], small):
         view[...] = a
     return st
@@ -398,13 +446,16 @@ class HostPlanes(Mapping):
     memory held for that copy (`record_stream`). Every read waits on the
     copy's event first (`wait`), then narrows the value plane to its wire
     dtype; a reader never sees the buffer while it is being written.
-    Planes on the CPU are only converted."""
+    `packed` is the event recorded on the pack's stream (the caller's
+    current stream) after the pack. Planes on the CPU are only
+    converted."""
 
     def __init__(self, planes: Sequence[torch.Tensor], dtypes) -> None:
         self._dtypes = {k: np.dtype(v) for k, v in dtypes.items()}
         self._shape = tuple(planes[0].shape)
         self._cols = None
         self._done = None
+        self.packed = None
         if planes[0].device.type != "cuda":
             self._host = list(planes)
             return
@@ -421,9 +472,9 @@ class HostPlanes(Mapping):
         self._offsets = [s - lo for s in starts]
         self._dtype_of = [t.dtype for t in planes]
         stream = _copy_stream(dev)
-        packed = torch.cuda.Event()
-        packed.record(torch.cuda.current_stream(dev))
-        stream.wait_event(packed)
+        self.packed = torch.cuda.Event()
+        self.packed.record(torch.cuda.current_stream(dev))
+        stream.wait_event(self.packed)
         self._host = torch.empty(hi - lo, dtype=torch.uint8, pin_memory=True)
         with torch.cuda.stream(stream):
             self._host.copy_(span, non_blocking=True)
@@ -488,8 +539,9 @@ def device_pack_prefix(
     dtypes = _pack_wire_dtypes(i16ok, row_dt, kdt, ranges["vmin"],
                                ranges["vmax"])
     planes = dict(zip(COLUMNS, out.planes))
+    host = HostPlanes(out.planes, dtypes)
     lanes = SlabLanes(
-        flags=out.flags, slot=out.slot,
+        flags=out.flags, slot=out.slot, packed=host.packed,
         **{k: planes[k] for k in ("ctr", "seq", "obj", "key", "ref", "value")},
     )
-    return HostPlanes(out.planes, dtypes), lanes, ranges
+    return host, lanes, ranges

@@ -53,6 +53,7 @@ from .. import telemetry
 from ..ops import clock_kernels as ckk
 from ..ops.columnar import ColumnarBatch
 from ..ops.crdt_kernels import (
+    _SLAB_H2D,
     MaterializeOut,
     bucket_doc_actors,
     host_args,
@@ -379,6 +380,14 @@ class SlabRoundRobin:
         self.slabs_per_chip = [0] * len(self.devices)
         self.last_device: Optional[int] = None
 
+    def device_index(self, device) -> Optional[int]:
+        """Index of `device` within this scheduler's ranks (the first rank
+        on it; None when it is not one of them)."""
+        try:
+            return self.devices.index(device)
+        except ValueError:
+            return None
+
     def cursor(self) -> int:
         """Round-robin cursor snapshot (taken before a load starts)."""
         return self._next
@@ -419,16 +428,16 @@ class SlabRoundRobin:
         while len(q) >= self.depth:
             q.pop(0).synchronize()
         t0 = time.perf_counter()
+        # the bytes run_batch_full hands up (the slab counter's rise): on
+        # a pack's hand-off only the pred edges and the actor map; no host
+        # plane is read here, so the dispatch never waits for their copy
+        h2d0 = _SLAB_H2D.value()
         with telemetry.span("mesh.dispatch", "mesh"):
             out, summary = run_batch_full(
                 batch, lean=lean, device=self.devices[i]
             )
         _M_DISPATCHES.add(1)
-        _M_H2D.add(
-            sum(a.nbytes for a in batch.cols.values())
-            + batch.psrc.nbytes
-            + batch.ptgt.nbytes
-        )
+        _M_H2D.add(_SLAB_H2D.value() - h2d0)
         self.t_dispatch_chip[i] += time.perf_counter() - t0
         self.slabs_per_chip[i] += 1
         self.last_device = i
