@@ -161,6 +161,31 @@ prints a result):
         alone; the `pipeline` stat 1 on b and c; each open's wall,
         `wall_critical_path`, stage busy times, pack pool lanes,
         `os.cpu_count()` and (profiled) the device idle share printed;
+     h. the crash slice (storage/wal.py, storage/scrub.py, the backend's
+        open), bench.py `_config_crash` with the port in both processes:
+        (a) a child process runs the port's `Repo(path)` under HM_FSYNC=1
+        (the journal on, as by default), creates a doc and appends edits,
+        printing each ack after the durability flusher settled, and is
+        killed with SIGKILL after 150 acks; (b) `Repo(path)` on the card,
+        timed until the doc reads (`t_recover_ms`): recovery ran, its
+        report was persisted (`last_report`), the doc holds a gapless
+        prefix covering every ack (`acked_lost` 0), and the repo takes a
+        write; (c) the same kill inside a copy (never hard links) of
+        phase d's corpus, reopened on the card: the journal's ledger
+        bounds the scan (`feeds_skipped` at least the corpus's feeds
+        less the writer's dirty ones), then `open_many` +
+        `fetch_bulk_summaries` of the 2,048 docs on the pipelined
+        default route, launch counts set to 0 before the open and read
+        after it (pack_prefix and materialize_wire once a slab), every
+        summary byte-equal to phase d's open before the kill, and the
+        own clock store's `union_query` / `dominated_query` through the
+        mirror on the card (clock_union, clock_pair) equal to numpy over
+        the sqlite rows recovery left; (d) a `CrashRecorder` over a port
+        workload at HM_FSYNC=1, three prefixes materialized under
+        `powercut=True` and each reopened on the card: the journal
+        replays (`storage.wal.replayed` above 0) and `acked_lost` is 0;
+        each part's numbers printed with the card's name and power limit,
+        and a `crash` JSON line;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -241,6 +266,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -3333,6 +3359,330 @@ def pipeline_path(ck, root):
     return main_counts, out
 
 
+# the crash slice (phase 3h): bench.py `_config_crash` — a writer process
+# of the port under HM_FSYNC=1 (the journal on, as by default) killed with
+# SIGKILL after 150 durable acks, then its repo reopened on the card; the
+# same kill inside a copy of phase 3d's corpus; and a recorded port
+# workload cut by a simulated power cut at three prefixes
+CRASH = dict(acks=150, child_timeout_s=300, powercut_edits=6)
+CRASH_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[2])
+from hypermerge_tpu_torch.repo import Repo
+
+repo = Repo(path=sys.argv[1])
+url = repo.create({"edits": []})
+print("URL", url, flush=True)
+i = 0
+while True:
+    repo.change(url, lambda d, i=i: d["edits"].append(i))
+    if repo.back.live is not None:
+        repo.back.live.flush_now()
+    repo.back.durability.flush_now()
+    print("ACK", i, flush=True)  # durable under HM_FSYNC>=1
+    i += 1
+"""
+
+
+def kill_writer(path: str) -> tuple:
+    """Phase 3h (a): a child process runs the port's Repo(path) under
+    HM_FSYNC=1, creates a doc and appends edits, printing each ack after
+    the durability flusher settled; SIGKILL after CRASH["acks"] acks.
+    Returns (the doc's url, the acks received)."""
+    import signal
+    import threading
+
+    env = dict(os.environ, HM_FSYNC="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CRASH_CHILD, path, root],
+        stdout=subprocess.PIPE, env=env, text=True,
+    )
+    # a child that stops acking is killed, and the phase fails below
+    watchdog = threading.Timer(CRASH["child_timeout_s"], proc.kill)
+    watchdog.start()
+    url, acked = None, 0
+    try:
+        for line in proc.stdout:
+            parts = line.split()
+            if parts[:1] == ["URL"]:
+                url = parts[1]
+            elif parts[:1] == ["ACK"]:
+                acked = int(parts[1]) + 1
+                if acked >= CRASH["acks"]:
+                    break
+        # mid-burst hard kill: no atexit, no close(), no final flush
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=30)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+    if url is None or acked < CRASH["acks"]:
+        raise AssertionError(f"phase 3h writer: url {url}, {acked} acks")
+    return url, acked
+
+
+def crash_counters(report: dict, acked: int, edits: list) -> dict:
+    """The recovery's numbers, as bench.py `_config_crash` reports them,
+    with the report's counters and its journal section."""
+    from hypermerge_tpu_torch.storage import scrub
+
+    byte_keys = ("bytes_truncated", "sig_fragment_bytes")
+    wal = report.get("wal") or {}
+    return dict(
+        acked=acked,
+        recovered_edits=len(edits),
+        acked_lost=max(0, acked - len(edits)),
+        blocks_truncated=report.get("tail_blocks_dropped", 0),
+        bytes_truncated=report.get("bytes_truncated", 0),
+        scrub_repairs=sum(report.get(k, 0) for k in scrub._COUNTERS
+                          if k != "feeds" and k not in byte_keys),
+        report={k: report.get(k, 0) for k in scrub._COUNTERS},
+        feeds_skipped=report.get("feeds_skipped", 0),
+        wal={k: wal.get(k) for k in ("present", "session_match", "tier",
+                                     "records", "dirty_feeds", "replayed",
+                                     "skipped", "torn_bytes", "bounded")},
+    )
+
+
+def check_edits(label: str, edits: list, acked: int) -> None:
+    """A gapless prefix of the writer's edits that covers every ack."""
+    if edits != list(range(len(edits))):
+        raise AssertionError(f"{label}: not a gapless prefix: {edits[:20]}")
+    if len(edits) < acked:
+        raise AssertionError(f"{label}: {acked - len(edits)} acked edits lost")
+
+
+def still_writable(repo, url: str, label: str) -> None:
+    repo.change(url, lambda d: d["edits"].append(-1))
+    deadline = time.monotonic() + 60
+    while -1 not in (repo.doc(url) or {}).get("edits", []):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: the recovered repo took no write")
+        time.sleep(0.01)
+
+
+def reopen_killed(path: str, url: str, acked: int) -> dict:
+    """Phase 3h (b): Repo(path) on the card, timed until the killed
+    writer's doc reads (t_recover_ms); recovery ran, its report was
+    persisted, the doc holds every acked edit, and the repo takes a
+    write."""
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.storage import scrub
+
+    t0 = time.perf_counter()
+    repo = Repo(path=path)
+    try:
+        t_open_ms = (time.perf_counter() - t0) * 1e3
+        report = repo.back.recovery_report
+        edits = list(repo.open(url).value(timeout=60).get("edits", []))
+        t_recover_ms = (time.perf_counter() - t0) * 1e3
+        if report is None:
+            raise AssertionError("phase 3h (b): recovery did not run")
+        if scrub.last_report(path) is None:
+            raise AssertionError("phase 3h (b): no persisted report")
+        if repo.back.device.type != "cuda":
+            raise AssertionError(f"phase 3h (b): on {repo.back.device}")
+        check_edits("phase 3h (b)", edits, acked)
+        still_writable(repo, url, "phase 3h (b)")
+    finally:
+        repo.close()
+    return dict(t_recover_ms=t_recover_ms, t_repo_open_ms=t_open_ms,
+                t_scrub_ms=report["t_recover_ms"],
+                **crash_counters(report, acked, edits))
+
+
+def crash_corpus_path(ck, root: str, urls: list, rows: dict) -> dict:
+    """Phase 3h (c): (a)'s kill inside a copy of phase 3d's corpus, then
+    Repo(path) on the card: the journal's ledger bounds the scan
+    (feeds_skipped >= the corpus's feeds less the writer's dirty ones)
+    and the writer's doc holds every ack (t_recover_ms: Repo(path) until
+    it reads); then open_many + fetch_bulk_summaries over the corpus (the
+    pipelined default route), launch counts set to 0 before the open and
+    read after it: pack_prefix and materialize_wire once a slab, every
+    summary byte-equal to phase 3d's open before the kill;
+    then the own-repo ClockStore's union and dominated through the mirror
+    on the card == numpy over the sqlite rows recovery left."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.storage import scrub
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    n_feeds = len(scrub.feed_names_on_disk(os.path.join(root, "feeds")))
+    url, acked = kill_writer(root)
+    doc_ids = [validate_doc_url(u) for u in urls]
+    t0 = time.perf_counter()
+    repo = Repo(path=root)
+    try:
+        back = repo.back
+        t_repo_open_ms = (time.perf_counter() - t0) * 1e3
+        report = back.recovery_report
+        if report is None:
+            raise AssertionError("phase 3h (c): recovery did not run")
+        wal = report["wal"]
+        skipped = report.get("feeds_skipped", 0)
+        if not wal["bounded"] or skipped < n_feeds - wal["dirty_feeds"]:
+            raise AssertionError(f"phase 3h (c): the scan was not bounded: "
+                                 f"{n_feeds} feeds, {skipped} skipped, "
+                                 f"wal {wal}")
+        edits = list(repo.open(url).value(timeout=60).get("edits", []))
+        t_recover_ms = (time.perf_counter() - t0) * 1e3
+        check_edits("phase 3h (c)", edits, acked)
+
+        for k in ck.launches:
+            ck.launches[k] = 0
+        t1 = time.perf_counter()
+        repo.open_many(urls)
+        summ = back.fetch_bulk_summaries()
+        torch.cuda.synchronize()
+        t_open_many_ms = (time.perf_counter() - t1) * 1e3
+        launches = {k: ck.launches[k] for k in BULK}
+        stats = dict(back.last_bulk_stats)
+        slabs = math.ceil(len(urls) / 4096)
+        if any(v != slabs for v in launches.values()):
+            raise AssertionError(f"phase 3h (c): bulk kernels {launches}, "
+                                 f"expected {slabs} each; stats {stats}")
+        got = summary_rows(summ, doc_ids)
+        bad = sum(1 for d in doc_ids if got[d] != rows[d])
+        if bad:
+            raise AssertionError(f"phase 3h (c): {bad} summaries differ "
+                                 "from the open before the kill")
+
+        # the own-repo clock store through the mirror, against numpy
+        back._stores.flush_now()
+        for k in ck.launches:
+            ck.launches[k] = 0
+        union = back.clocks.union_query(back.id)
+        sql_rows = back.db.query(
+            "SELECT doc_id, actor_id, seq FROM clocks WHERE repo_id=?",
+            (back.id,))
+        docs = sorted({d for d, _a, _s in sql_rows})
+        actors = sorted({a for _d, a, _s in sql_rows})
+        di = {d: i for i, d in enumerate(docs)}
+        ai = {a: j for j, a in enumerate(actors)}
+        mat = np.zeros((len(docs), len(actors)), np.int64)
+        for d, a, s in sql_rows:
+            mat[di[d], ai[a]] = s
+        want_union = {a: int(v) for a, v in zip(actors, mat.max(axis=0))
+                      if v > 0}
+        if union != want_union:
+            raise AssertionError("phase 3h (c): mirror union != sqlite")
+        # a query that splits the docs: the union over the first half of
+        # the actors (most docs have one actor of their own), one less
+        # than it on every third of those, 0 on the rest
+        half = len(actors) // 2
+        qrow = np.zeros(len(actors), np.int64)
+        qrow[:half] = mat.max(axis=0)[:half]
+        qrow[:half:3] -= 1
+        query = {a: int(v) for a, v in zip(actors, qrow)}
+        dominated = back.clocks.dominated_query(back.id, query)
+        want_dom = sorted(d for d in docs
+                          if (mat[di[d]] <= qrow).all())
+        if sorted(dominated) != want_dom or not want_dom:
+            raise AssertionError(
+                f"phase 3h (c): mirror dominated {len(dominated)} docs != "
+                f"sqlite's {len(want_dom)}")
+        # the scatter runs where the mirror still buffers writes
+        clock_launches = {k: ck.launches[k] for k in
+                          ("clock_scatter", "clock_union", "clock_pair")}
+        if min(clock_launches["clock_union"], clock_launches["clock_pair"]) < 1:
+            raise AssertionError(f"phase 3h (c): the clock queries did not "
+                                 f"run on the mirror: {clock_launches}")
+        still_writable(repo, url, "phase 3h (c)")
+    finally:
+        repo.close()
+    return dict(t_recover_ms=t_recover_ms, t_repo_open_ms=t_repo_open_ms,
+                t_scrub_ms=report["t_recover_ms"],
+                t_open_many_ms=t_open_many_ms, n_feeds=n_feeds,
+                docs=len(urls), launches=launches,
+                clock_launches=clock_launches, clock_docs=len(docs),
+                clock_actors=len(actors), dominated=len(want_dom),
+                **crash_counters(report, acked, edits))
+
+
+def powercut_path(root: str) -> dict:
+    """Phase 3h (d): a CrashRecorder over a port workload at HM_FSYNC=1
+    (one doc, an edit acked after each durability flush), three prefixes
+    materialized under powercut=True and each reopened on the card: the
+    journal replays (storage.wal.replayed above 0 on at least one) and
+    no acked edit is lost."""
+    from hypermerge_tpu_torch import telemetry
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.storage import faults
+
+    work = os.path.join(root, "work")
+    rec = faults.CrashRecorder(work)
+    acked = []
+    with env_vars(HM_FSYNC="1"):
+        with faults.activate(recorder=rec):
+            repo = Repo(path=work)
+            url = repo.create({"edits": []})
+            for i in range(CRASH["powercut_edits"]):
+                repo.change(url, lambda d, i=i: d["edits"].append(i))
+                repo.back.live.flush_now()
+                repo.back._stores.flush_now()
+                repo.back.durability.flush_now()  # the durable ack
+                acked.append((len(rec.events), i + 1))
+        repo.close()  # after the recording: the cut is in its events
+        points = [acked[0], acked[len(acked) // 2], acked[-1]]
+        out = []
+        for k, want in points:
+            dst = os.path.join(root, f"cut{k}")
+            rec.materialize(dst, k, powercut=True)
+            replayed0 = telemetry.snapshot().get("storage.wal.replayed", 0)
+            t0 = time.perf_counter()
+            repo = Repo(path=dst)
+            try:
+                edits = list(repo.open(url).value(timeout=60)
+                             .get("edits", []))
+                t_ms = (time.perf_counter() - t0) * 1e3
+                report = repo.back.recovery_report
+                if report is None:
+                    raise AssertionError(f"phase 3h (d) cut {k}: no recovery")
+                check_edits(f"phase 3h (d) cut {k}", edits, want)
+            finally:
+                repo.close()
+            replayed = (telemetry.snapshot().get("storage.wal.replayed", 0)
+                        - replayed0)
+            out.append(dict(event=k, of=len(rec.events), acked=want,
+                            recovered_edits=len(edits),
+                            acked_lost=max(0, want - len(edits)),
+                            replayed=replayed, t_recover_ms=t_ms))
+    if not any(p["replayed"] > 0 for p in out):
+        raise AssertionError(f"phase 3h (d): the journal never replayed {out}")
+    return dict(prefixes=out)
+
+
+def crash_path(ck, root: str, corpus: str, urls: list, rows: dict) -> dict:
+    """Phase 3h: (a) + (b) in an empty directory, (c) in `corpus` (a copy
+    of phase 3d's corpus), (d) the power cuts. Returns the numbers."""
+    card = card_line()
+    empty = os.path.join(root, "empty")
+    os.makedirs(empty)
+    url, acked = kill_writer(empty)
+    b = reopen_killed(empty, url, acked)
+    log(f"phase 3h (b) kill after {acked} acks, reopen on the card: "
+        + json.dumps(b) + f" [{card}]")
+    c = crash_corpus_path(ck, corpus, urls, rows)
+    log(f"phase 3h (c) kill inside phase 3d's corpus, reopen + open_many on "
+        f"the card: " + json.dumps(c) + f" [{card}]")
+    d = powercut_path(os.path.join(root, "powercut"))
+    log("phase 3h (d) power cuts reopened on the card: " + json.dumps(d)
+        + f" [{card}]")
+    log(f"phase 3h check: recovery ran, acked_lost 0 ({b['acked_lost']}, "
+        f"{c['acked_lost']}, {[p['acked_lost'] for p in d['prefixes']]}), "
+        f"feeds_skipped {c['feeds_skipped']} of {c['n_feeds']}, every "
+        f"corpus summary == the open before the kill, pack_prefix / "
+        f"materialize_wire {c['launches']}, the mirror's union/dominated "
+        f"== sqlite's rows, the journal replayed on a power cut")
+    return dict(card=card, kill=b, corpus=c, powercut=d)
+
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -3940,7 +4290,11 @@ def main() -> int:
                           urls, rows, cards, "peer ranks")
             else:
                 log(f"phase 3e peer ranks: not run ({n_cards} GPU visible)")
-        del refs, rows
+            # phase 3h's real repo: a copy of phase 3d's corpus (never
+            # hard links: the writer and recovery write through them)
+            crash_corpus = os.path.join(root, "crash-corpus")
+            shutil.copytree(read_root, crash_corpus)
+        del refs
         elapsed("phases 3d-3e")
         with tempfile.TemporaryDirectory(prefix="hm-live-") as live_root:
             live_launches, live_numbers, _captured = live_path(ck, live_root)
@@ -3949,6 +4303,12 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="hm-open-") as open_root:
             open_counts, open_numbers = pipeline_path(ck, open_root)
         elapsed("phase 3g")
+        with tempfile.TemporaryDirectory(prefix="hm-crash-") as crash_root:
+            crash_numbers = crash_path(ck, crash_root, crash_corpus, urls,
+                                       rows)
+        shutil.rmtree(crash_corpus)
+        del rows
+        elapsed("phase 3h")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -4054,6 +4414,7 @@ def main() -> int:
     log("read_mix " + json.dumps(read_numbers))
     log("live " + json.dumps(live_numbers))
     log("pipeline_open " + json.dumps(open_numbers))
+    log("crash " + json.dumps(crash_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

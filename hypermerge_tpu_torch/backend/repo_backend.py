@@ -29,12 +29,17 @@ does.
 Incremental changes on bulk-loaded docs go through the live apply
 engine (backend/live.py, `self.live`; HM_LIVE=0 keeps the host-OpSet
 twin), as in the reference.
+A file-backed repo keeps the reference's durability: the shared
+write-ahead journal (storage/wal.py, on unless HM_WAL=0) and recovery on
+open (storage/scrub.py): a directory left with its `repo.dirty` marker
+is recovered before the clock mirror attaches and before any doc opens
+(`recovery_report`; HM_RECOVER=0 skips it, keeps the crashed marker and
+journal, and runs the session journal-less), and the marker carries the
+journal's session stamp that bounds the next recovery's scan.
 Not ported yet; the port behaves as the reference with the switch off:
-the write-ahead journal (HM_WAL=0) and crash recovery (a directory left with its
-`repo.dirty` marker raises NotImplementedError instead of opening
-unrecovered), the service plane (HM_SERVICE=0: no admission control),
-and the network, file server and hyperfile store (their entry points
-raise NotImplementedError).
+the service plane (HM_SERVICE=0: no admission control, so nothing paces
+the journal's acks), and the network, file server and hyperfile store
+(their entry points raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -149,20 +154,8 @@ class RepoBackend:
             sig_fn = memory_sig_storage_fn
             db_path = ":memory:"
             self._dirty_marker = None
+            was_dirty = False
         else:
-            # crash detection: the marker exists for exactly the life
-            # of a session that may write; close() removes it after
-            # every flusher drained. Present at open = the previous
-            # session crashed, and the reference would run whole-repo
-            # recovery (storage/scrub.py), which the port lacks.
-            self._dirty_marker = os.path.join(path, "repo.dirty")
-            if os.path.exists(self._dirty_marker):
-                raise NotImplementedError(
-                    f"{self._dirty_marker} is present: the previous "
-                    "session did not close cleanly, and crash recovery "
-                    "(storage/scrub.py) is not ported; open the directory "
-                    "with hypermerge_tpu once to recover it"
-                )
             storage_fn = file_storage_fn(
                 os.path.join(path, "feeds"), durability=self.durability
             )
@@ -170,6 +163,12 @@ class RepoBackend:
             sig_fn = file_sig_storage_fn(os.path.join(path, "feeds"))
             os.makedirs(path, exist_ok=True)
             db_path = os.path.join(path, "repo.db")
+            # crash detection: the marker exists for exactly the life
+            # of a session that may write; close() removes it after
+            # every flusher drained. Present at open = the previous
+            # session crashed -> run whole-repo recovery below.
+            self._dirty_marker = os.path.join(path, "repo.dirty")
+            was_dirty = os.path.exists(self._dirty_marker)
         # corpus slab handle (storage/slab.py) when file-backed: the
         # backend owns its lifecycle (compaction on close)
         self._col_slab = getattr(cache_fn, "slab", None)
@@ -188,12 +187,69 @@ class RepoBackend:
             for p in self.key_store.all_pairs().values()
             if p.secret_key
         }
-        if self._dirty_marker is not None:
+        # whole-repo crash recovery (storage/scrub.py): replay the
+        # journal, audit/truncate torn tails, repair the sig chains,
+        # reset sidecars that ran ahead, clamp the sqlite clock rows to
+        # what the feeds hold. Runs BEFORE the clock mirror attaches (it
+        # seeds from the clamped rows) and before any doc opens.
+        self.recovery_report: Optional[Dict] = None
+        recovery_skipped = False
+        if was_dirty and os.environ.get("HM_RECOVER", "1") != "0":
+            from ..storage.scrub import recover_repo
+
+            self.recovery_report = recover_repo(self)
+        elif was_dirty:
+            recovery_skipped = True
+        # shared group-commit journal (storage/wal.py): created AFTER
+        # recovery consumed the crashed session's journal. With
+        # recovery explicitly skipped (HM_RECOVER=0) the crashed
+        # journal must survive for a manual recovery pass, so this
+        # session runs journal-less and durable appends take the legacy
+        # per-feed path. Same when recovery RAN but a replayed feed's
+        # fsync failed: the old journal is the only durable copy of
+        # those records, and a fresh WriteAheadLog at the same path
+        # would truncate it.
+        wal_rep = (self.recovery_report or {}).get("wal") or {}
+        replay_incomplete = bool(wal_rep.get("replay_sync_failed"))
+        if not memory and not recovery_skipped and not replay_incomplete:
+            from ..storage.wal import WriteAheadLog, wal_enabled
+
+            if wal_enabled():
+                try:
+                    self.durability.attach_wal(
+                        WriteAheadLog(
+                            os.path.join(path, "wal.log"),
+                            self.durability.tier,
+                        )
+                    )
+                except OSError as e:
+                    log("repo:backend", f"no write-ahead journal: {e}")
+        if recovery_skipped and self._dirty_marker is not None:
+            # the preserved stamp bounds a FUTURE recovery's scan to
+            # the crashed session's dirty ledger — sound only while
+            # that ledger covers all damage. The first journal-less
+            # feed write of THIS session breaks that: invalidate the
+            # stamp then (not at open — a read-only session must leave
+            # it byte-for-byte intact).
+            self.durability.journalless_write_cb = (
+                self._invalidate_recovery_stamp
+            )
+        if self._dirty_marker is not None and not recovery_skipped:
             from ..storage.faults import io_fsync, io_open
 
-            # the marker must be DURABLE, or a power cut could erase
-            # the evidence of a crash
+            # the marker must be DURABLE: if a power cut erased it,
+            # reopen would silently skip recovery — and tier 0 depends
+            # on recovery-on-open to reconcile clocks with feeds. Its
+            # CONTENT is the journal's session id (the generation
+            # stamp): recovery bounds its scan to the journal's dirty
+            # ledger only when marker and journal header agree. With
+            # recovery explicitly skipped (HM_RECOVER=0) the CRASHED
+            # session's marker+stamp must survive untouched.
             with io_open(self._dirty_marker, "wb") as fh:
+                if self.durability.wal is not None:
+                    fh.write(
+                        self.durability.wal.session.encode("utf-8")
+                    )
                 io_fsync(fh)
             self._fsync_dir(path)
         if os.environ.get("HM_CLOCK_MIRROR", "1") != "0":
@@ -311,6 +367,36 @@ class RepoBackend:
                 os.close(fd)
         except OSError:
             pass
+
+    def _invalidate_recovery_stamp(self) -> None:
+        """First feed write of a journal-less HM_RECOVER=0 session
+        (storage/durability.py journalless_write_cb): the crashed
+        session's marker+journal were preserved for a manual recovery,
+        but this session's writes are OUTSIDE that journal's dirty
+        ledger — append a suffix so the stamp stops matching the
+        journal header. A crash of THIS session then recovers with
+        the full sidecar scan (and still replays the old journal,
+        which is session-match independent) instead of trusting a
+        ledger that never saw the new damage. The marker itself — the
+        crash evidence — survives."""
+        if self._dirty_marker is None:
+            return
+        from ..storage.faults import io_fsync, io_open
+
+        try:
+            prev = b""
+            try:
+                with open(self._dirty_marker, "rb") as fh:
+                    prev = fh.read()
+            except OSError:
+                pass
+            if prev.endswith(b"+journalless"):
+                return
+            with io_open(self._dirty_marker, "wb") as fh:
+                fh.write(prev + b"+journalless")
+                io_fsync(fh)
+        except OSError as e:
+            log("repo:backend", f"stamp invalidation failed: {e}")
 
     # ------------------------------------------------------------------
     # wiring

@@ -6,11 +6,19 @@ src/SqlDatabase.ts:11-22, src/migrations/0001_initial_schema.sql — tables
 Clocks/Keys/Cursors/Feeds). Python's stdlib sqlite3 replaces the
 better-sqlite3 native addon.
 
-The reference journals every statement into a crash recorder when one is
-active (storage/faults.py CrashRecorder) and times each commit into its
-lock-order checker's blocking-debt counters. The port keeps both seams
-with the reference's call shapes: `active_recorder()` returns None (no
-recorder is ported yet) and `lockdep.blocking` is a no-op context.
+Crash model: sqlite's own journal makes each commit atomic and durable;
+for the simulated crash tests (storage/faults.py CrashRecorder) every
+statement is journaled per-connection into the active recorder and lands
+in its event log as one batch per commit — a crash between statements of
+a transaction drops the whole transaction, exactly sqlite's semantics,
+and the batches are the ones the reference hands its recorder. Clock and
+cursor rows committed ahead of unfsynced feed bytes are the one skew
+sqlite cannot prevent; recovery-on-open (storage/scrub.py) reconciles
+them back to feed reality, and HM_FSYNC>=1 prevents the skew outright
+(the store flusher's durability barrier syncs feeds before committing).
+Each commit runs inside `lockdep.blocking("sqlite_commit")`, the
+reference's seam for its lock-order checker, which the port keeps as a
+no-op context.
 """
 
 from __future__ import annotations

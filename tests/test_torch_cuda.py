@@ -1141,3 +1141,57 @@ def test_live_tick_launches_on_the_card(cuda, tmp_path, monkeypatch):
         finally:
             repo.close()
     assert values["0"] == values[str(2**31 - 1)]
+
+
+def test_recovered_copy_opens_on_the_card(cuda, tmp_path, monkeypatch):
+    """A writer killed mid-session leaves its marker and journal in a
+    corpus of single-writer docs (every doc on the pack's prefix route);
+    a copy recovered and opened on the card gives the recovery report and
+    the summaries of a copy recovered and opened on the CPU, through the
+    pack and slab kernels."""
+    import shutil
+
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    monkeypatch.setenv("HM_FSYNC", "1")
+    src = tmp_path / "src"
+    urls = make_corpus(str(src), 16, 256, sign=False)
+    writer = Repo(path=str(src), device="cpu")
+    url = writer.create({"edits": []})
+    for i in range(12):
+        writer.change(url, lambda d, i=i: d["edits"].append(i))
+    writer.back.live.flush_now()
+    writer.back._stores.flush_now()
+    writer.back._cache_syncs.flush_now()
+    writer.back.durability.flush_now()
+    del writer  # a crash: the marker and the journal stay behind
+    urls.append(url)
+    ids = [validate_doc_url(u) for u in urls]
+    rows = {}
+    for name, device in (("cpu", "cpu"), ("cuda", None)):
+        shutil.copytree(src, tmp_path / name)  # a copy: recovery writes
+        before = dict(ck.launches)
+        repo = Repo(path=str(tmp_path / name), device=device)
+        try:
+            rep = dict(repo.back.recovery_report)
+            assert rep.pop("t_recover_ms") >= 0
+            assert rep["wal"]["bounded"] == 1, rep["wal"]
+            assert rep["feeds_skipped"] >= 16, rep
+            repo.open_many(urls)
+            summ = repo.back.fetch_bulk_summaries()
+            got = {}
+            for d in ids:
+                arrays, j = summ.arrays(d)
+                got[d] = {k: np.asarray(v[j]).tobytes()
+                          for k, v in arrays.items()}
+                got[d]["doc"] = summ.doc(d)
+            rows[name] = (rep, got, repo.doc(url))
+            if name == "cuda":
+                for k in ("pack_prefix", "materialize_wire"):
+                    assert ck.launches[k] > before[k], k
+        finally:
+            repo.close()
+    assert rows["cuda"] == rows["cpu"]
+    assert rows["cuda"][2] == {"edits": list(range(12))}

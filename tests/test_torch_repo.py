@@ -13,8 +13,9 @@ backend and storage beneath it) against the JAX package's, on the CPU.
   the summary memo after `close_doc` and a second `open_many`.
 - A corpus the port's `make_corpus` wrote opens in the reference to the
   same state, with the corpus slab and with per-feed `.cols2` files.
-- A directory left with its `repo.dirty` marker raises (the port has no
-  crash recovery), and a clean close removes the marker.
+- A directory left with its `repo.dirty` marker is recovered on open,
+  with the reference's recovery report on a copy of it, and a clean close
+  removes the marker.
 - The host library (native/): blocks and change frames one package
   packed, the other unpacks, byte for byte; parallel first builds are
   atomic.
@@ -244,24 +245,33 @@ def test_port_corpus_opens_in_reference(tmp_path, ref_env, monkeypatch, slab):
 # the crash marker
 
 
-def test_dirty_directory_raises(tmp_path, ref_env):
+def test_dirty_directory_recovers(tmp_path, ref_env):
     path = str(tmp_path / "repo")
     r = Repo(path=path, device="cpu")
     url = r.create({"x": 1})
+    r.change(url, lambda d: d.__setitem__("y", [1, 2]))
     assert os.path.exists(os.path.join(path, "repo.dirty"))
     r.close()
     assert not os.path.exists(os.path.join(path, "repo.dirty"))
-    # a crash leaves the marker behind
+    # a crash leaves the marker behind: the port recovers on open, and
+    # its report equals the reference's on a copy
     open(os.path.join(path, "repo.dirty"), "wb").close()
-    with pytest.raises(NotImplementedError, match="recovery"):
-        Repo(path=path, device="cpu")
-    # the reference recovers the directory; then the port opens it
-    RefRepo(path=path).close()
+    shutil.copytree(path, tmp_path / "ref")
+    ref = RefRepo(path=str(tmp_path / "ref"))
     r = Repo(path=path, device="cpu")
     try:
-        assert r.doc(url) == {"x": 1}
+        got, want = r.back.recovery_report, ref.back.recovery_report
+        assert got is not None and want is not None
+        got.pop("t_recover_ms")
+        want.pop("t_recover_ms")
+        assert got == want
+        assert got["feeds"] >= 1 and got["wal"]["present"] == 0
+        assert r.doc(url) == {"x": 1, "y": [1, 2]}
+        assert plain(r.doc(url)) == plain(ref.doc(url))
     finally:
+        ref.close()
         r.close()
+    assert not os.path.exists(os.path.join(path, "repo.dirty"))
 
 
 # ---------------------------------------------------------------------------

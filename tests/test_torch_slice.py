@@ -204,8 +204,9 @@ def test_port_imports_no_jax_and_requires_a_device():
     `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
     `pack_clocks`, `ClockStore`, `Repo` (whose `repo`, `serve` and
     `backend.live` modules import without jax too; it reads on the CPU,
-    with its live engine on) and `make_mesh` (parallel/, which reduces
-    over CPU ranks). Every module of the port's bench (`bench_torch/`)
+    with its live engine on, and recovers a crashed directory on open
+    through the port's storage/faults.py, wal.py and scrub.py) and
+    `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
     and its harness hook (`graft_entry`) imports without jax as well."""
     code = textwrap.dedent(
         """
@@ -221,6 +222,9 @@ def test_port_imports_no_jax_and_requires_a_device():
             if m.name != "bench_torch.__main__":
                 importlib.import_module(m.name)
         import hypermerge_tpu_torch.graft_entry
+        # durability: the fault harness, the journal and recovery
+        for name in ("faults", "wal", "scrub"):
+            assert f"hypermerge_tpu_torch.storage.{name}" in sys.modules, name
         bad = [m for m in sys.modules
                if m == "hypermerge_tpu" or m.startswith("hypermerge_tpu.")]
         assert not bad, bad
@@ -318,6 +322,20 @@ def test_port_imports_no_jax_and_requires_a_device():
             assert r.read(url, {"kind": "lookup", "path": ["a"]}) == 1
         finally:
             r.close()
+        # a crashed file-backed repo recovers on open with the port alone
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            r = Repo(path=d, device="cpu")
+            url = r.create({"a": 1})
+            r.back.live.flush_now()
+            r.back._stores.flush_now()
+            del r  # no close: the marker and the journal stay
+            r = Repo(path=d, device="cpu")
+            try:
+                assert r.back.recovery_report is not None
+                assert r.doc(url) == {"a": 1}
+            finally:
+                r.close()
         assert "hypermerge_tpu" not in sys.modules
         print("ok")
         """
