@@ -148,13 +148,17 @@ prints a result):
         tick batch equal to the plain version on the CPU; the engine's
         stats and the first-edit latency and burst rate printed;
      g. the pipelined cold open (backend/pipeline.py) at bench.py's
-        primary size: `make_corpus` writes 10,240 docs x 1,024 ops once
-        (no .sig, as in d); slabs of 4,096 (three); fresh copies of it
+        primary shape: `make_corpus` writes 10,240 docs x 1,024 ops once
+        (no .sig, as in d); slabs of 4,096 (two whole, a ragged third);
+        fresh copies of it (a copy of its database, its feed files
+        hard-linked, as the bench's `coldopen` makes them: an open
+        writes only the database)
         opened by `Repo(path)` + `open_many` + `fetch_bulk_summaries`
         under three routes — (a) HM_PIPELINE=0, (b) HM_PIPELINE=1 with
         the device pack (the default), (c) HM_PIPELINE=1 HM_DEVICE_PACK=0
-        (the native host pack) — each twice, the second time under
-        torch.profiler; every open's summaries byte-equal to the first;
+        (the native host pack) — once each, then route b once more
+        under torch.profiler; every open's summaries byte-equal to the
+        first;
         launch counts set to 0 before each open and read after:
         pack_prefix once a slab on a and b and never on c,
         materialize_wire once a slab on every route, `host_args` on c
@@ -186,6 +190,29 @@ prints a result):
         replays (`storage.wal.replayed` above 0) and `acked_lost` is 0;
         each part's numbers printed with the card's name and power limit,
         and a `crash` JSON line;
+     i. the network slice (net/, the backend's network hooks,
+        `Repo.set_swarm`): (a) BASELINE configs[1] as bench.py's
+        `_config2_convergence` sends it — two `Repo(memory=True)` on the
+        card, each with a `TcpSwarm()` (encrypted and authenticated, the
+        defaults), B dialing A, 10 docs created on A and opened on B, 50
+        rounds of appends on A and every fifth round on B — once at the
+        engine's defaults and once with the live cutovers at 0 and a
+        500 ms tick (B's ticks of more than 8 ops on the card): every doc
+        on B holds all 60 edits and equals A's, each side's values equal
+        the plain replay of the changes it holds (bench_torch/reference.py
+        `replay_value`), each connection's proven
+        identity is the other repo, materialize_live launched on the
+        second run; wall time, both sides' live-engine stats, the
+        replication and wire counters and the transport crypto (native
+        libsodium or chacha) printed; (b) a late replica: A holds a signed
+        corpus of 128 docs x 1,024 ops (phase d's shape, cut in docs: the
+        pure-Python crypto) in `Repo(path)` and opens it; B, a fresh
+        `Repo(path)` on the card over TcpSwarm, `open_many`s every url
+        and replication pulls every feed in signed chunks; B closed and
+        reopened, `open_many` + `fetch_bulk_summaries` with launch counts
+        set to 0 before and read after (pack_prefix and materialize_wire
+        launched), every summary byte-equal to A's open; the pull's and
+        the reopen's times printed; a `net` JSON line;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -328,11 +355,12 @@ LIVE_TRACE = dict(n_docs=1, n_ops=259_778, ops_per_change=1, text_frac=1.0,
                   seed=3, edits=256, chunk=32, tick_ms=None, bucket=262144)
 LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
                   seed=0, edits=128, chunk=128, tick_ms=3000, bucket=32768)
-# the pipelined cold open (phase 3g): bench.py's primary size, 10,240 docs
-# x 1,024 ops in slabs of 4,096 (three slabs), under three routes: (a) the
-# serial twin, (b) the streaming pipeline with the device pack (the
-# port's default), (c) the pipeline with the native host pack
-BENCH_OPEN = dict(n_docs=10240, n_ops=1024, slab=4096, runs=2)
+# the pipelined cold open (phase 3g): bench.py's primary shape, 10,240 docs
+# x 1,024 ops in slabs of 4,096 (two whole slabs and a ragged third), under
+# three routes, one open each: (a) the serial twin, (b) the streaming
+# pipeline with the device pack (the port's default), (c) the pipeline with
+# the native host pack; then one more open of route b under torch.profiler
+BENCH_OPEN = dict(n_docs=10240, n_ops=1024, slab=4096)
 OPEN_ROUTES = {
     "a": dict(HM_PIPELINE="0", HM_DEVICE_PACK="1"),
     "b": dict(HM_PIPELINE="1", HM_DEVICE_PACK="1"),
@@ -3263,7 +3291,9 @@ def bench_open(ck, path, urls, doc_ids, route, profiled=False):
     from hypermerge_tpu_torch.repo import Repo
 
     with env_vars(HM_BULK_SLAB=BENCH_OPEN["slab"], **OPEN_ROUTES[route]):
+        t0 = time.perf_counter()
         repo = Repo(path=path)
+        t_repo = time.perf_counter() - t0
         try:
             for k in ck.launches:
                 ck.launches[k] = 0
@@ -3290,9 +3320,15 @@ def bench_open(ck, path, urls, doc_ids, route, profiled=False):
                 numbers, host_args_calls = capture(ck, "host_args", walled)
             launches = {k: v for k, v in ck.launches.items() if v}
             stats = dict(repo.back.last_bulk_stats)
+            t0 = time.perf_counter()
             rows = summary_rows(box["summ"], doc_ids)
+            t_rows = time.perf_counter() - t0
         finally:
+            t0 = time.perf_counter()
             repo.close()
+            t_close = time.perf_counter() - t0
+    # the host steps around the timed open
+    numbers.update(t_repo_s=t_repo, t_rows_s=t_rows, t_close_s=t_close)
     numbers.update(route=route, launches=launches,
                    host_args=len(host_args_calls),
                    pipeline=stats["pipeline"], fast=stats["fast"],
@@ -3301,17 +3337,21 @@ def bench_open(ck, path, urls, doc_ids, route, profiled=False):
 
 
 def pipeline_path(ck, root):
-    """Phase 3g, the pipelined cold open at bench.py's primary size:
-    `make_corpus` writes 10,240 docs x 1,024 ops once (no .sig, as in
-    3d); each route of OPEN_ROUTES opens a fresh copy of it twice, the
-    second time under torch.profiler (the device idle share over the
-    open). Every open's summaries are byte-equal to the first
+    """Phase 3g, the pipelined cold open at bench.py's primary shape:
+    `make_corpus` writes BENCH_OPEN's docs x 1,024 ops once (no .sig, as
+    in 3d); each route of OPEN_ROUTES opens a fresh copy of it once
+    (bench_torch's `fresh_copy`: the database copied, the feed files
+    hard-linked, since a full copy took 32-35 s a run on the card's
+    host), and route b once more under torch.profiler (the device idle
+    share over the default route's open; its wall is not compared with
+    the unprofiled opens'). Every open's summaries are byte-equal to the
     serial open's; pack_prefix launches once a slab on routes a and b
     and never on c, materialize_wire once a slab on every route, and
     host_args runs on route c alone; the pipeline stat is 1 on b and c.
-    Returns (route b's first launch counts, the numbers)."""
+    Returns (route b's unprofiled launch counts, the numbers)."""
     import shutil
 
+    from bench_torch.coldopen import fresh_copy
     from hypermerge_tpu_torch.ops.corpus import make_corpus
     from hypermerge_tpu_torch.utils.ids import validate_doc_url
 
@@ -3326,13 +3366,19 @@ def pipeline_path(ck, root):
         f"{cfg['slab']}; os.cpu_count()={os.cpu_count()}")
     want_rows = None
     out, main_counts = [], None
-    runs = [(r, i, i > 0) for i in range(cfg["runs"]) for r in OPEN_ROUTES]
+    runs = [(r, 0, False) for r in OPEN_ROUTES] + [("b", 1, True)]
     for route, run, profiled in runs:
         path = os.path.join(root, f"open-{route}{run}")
-        shutil.copytree(src, path)
+        t0 = time.perf_counter()
+        fresh_copy(src, path)
+        t_copy = time.perf_counter() - t0
+        t0 = time.perf_counter()
         numbers, rows = bench_open(ck, path, urls, doc_ids, route, profiled)
+        t_run = time.perf_counter() - t0
+        t0 = time.perf_counter()
         shutil.rmtree(path)
-        numbers["run"] = run
+        numbers.update(run=run, t_copy_s=t_copy, t_run_s=t_run,
+                       t_rmtree_s=time.perf_counter() - t0)
         if want_rows is None:
             want_rows = rows
         bad = sum(1 for d in doc_ids if rows[d] != want_rows[d])
@@ -3681,6 +3727,290 @@ def crash_path(ck, root: str, corpus: str, urls: list, rows: dict) -> dict:
         f"materialize_wire {c['launches']}, the mirror's union/dominated "
         f"== sqlite's rows, the journal replayed on a power cut")
     return dict(card=card, kill=b, corpus=c, powercut=d)
+
+
+# the network slice (phase 3i): (a) BASELINE configs[1] as bench.py's
+# _config2_convergence sends it (2 repos x 10 docs, 50 rounds of appends on
+# A and, every fifth round, on B, over TcpSwarm), once at the engine's
+# defaults and once with the live cutovers at 0 and a 500 ms tick window,
+# so that B's ticks of more than 8 ops take the kernel; (b) a late replica
+# pulling a signed corpus of phase 3d's shape over TcpSwarm, then reopened.
+# The pull's doc count is cut from 3d's 2,048 to 128: without libsodium on
+# the card's host the transport runs utils/chacha.py (about 1 MB/s) and the
+# corpus signs in pure Python, about 0.6 s and 0.4 s a doc there
+NET = dict(n_docs=10, n_edits=50, pull_docs=128, pull_ops=1024,
+           timeout_s=300)
+NET_KERNEL_ENV = dict(HM_LIVE_INC_BUDGET="0", HM_DEVICE_MIN_CELLS="0",
+                      HM_LIVE_TICK_MS="500")
+
+
+def live_stats(repo) -> dict:
+    """bench.py `_live_stats` for one repo: the live engine's stats, with
+    docs and changes a tick."""
+    out = {k: round(v, 6) for k, v in repo.back.live.stats.items()}
+    if out.get("ticks"):
+        out["docs_per_tick"] = round(out["tick_docs"] / out["ticks"], 2)
+        out["changes_per_tick"] = round(out["tick_changes"] / out["ticks"],
+                                        2)
+    return out
+
+
+def net_counters() -> dict:
+    """The process's net.* telemetry counters (frames and bytes on the
+    wire, replication frames, cursor gossip)."""
+    from hypermerge_tpu_torch import telemetry
+
+    return {k: v for k, v in telemetry.snapshot().items()
+            if k.startswith("net.")}
+
+
+def transport_crypto() -> str:
+    """Which X25519 / ChaCha20-Poly1305 net/secure.py runs: the native
+    library's libsodium entries, else utils/chacha.py."""
+    from hypermerge_tpu_torch import native
+
+    if native.x25519_base(b"\x09" * 32) is not None:
+        return "native libsodium"
+    return "chacha (pure Python)"
+
+
+def wait_for(what: str, fn, timeout_s: float) -> float:
+    """Poll fn until it is true; the seconds it took. Raises after
+    timeout_s."""
+    t0 = time.perf_counter()
+    while not fn():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"phase 3i: {what} not within {timeout_s} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def check_pinned(ra, rb, label: str) -> None:
+    """Each side's connection to the other is encrypted and authenticated:
+    the transport-proven identity is the other repo's id."""
+    for me, other in ((ra, rb), (rb, ra)):
+        (peer,) = me.back.network.peers.values()
+        if peer.connection.peer_identity != other.back.id:
+            raise AssertionError(f"phase 3i {label}: the connection is not "
+                                 "authenticated as the other repo")
+
+
+def held_changes(repo, url: str) -> list:
+    """Every change `repo` holds of a doc: each actor's feed up to the
+    doc's clock."""
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    back = repo.back
+    clock = back.docs[validate_doc_url(url)].clock
+    out = []
+    for actor_id, seq in clock.items():
+        out.extend(back._get_or_create_actor(actor_id).changes_in_window(
+            0, seq))
+    return out
+
+
+def config2_run(ck, label: str, env: dict) -> dict:
+    """Phase 3i (a), one run: BASELINE configs[1] between two port repos on
+    the card over encrypted, authenticated TcpSwarm (bench.py
+    `_config2_run`), the launch counts set to 0 just before the edits and
+    read after both sides converged. Every doc on B holds all 60 edits and
+    equals A's, and each side's value equals the plain replay of the
+    changes it holds (bench_torch/reference.py `replay_value`, which
+    orders the list by the RGA rule without the program's engines or
+    kernels). Returns the numbers."""
+    from bench_torch.reference import replay_value
+    import torch
+
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    cfg = NET
+    with env_vars(**env):
+        ra, rb = Repo(memory=True), Repo(memory=True)
+        sa, sb = TcpSwarm(), TcpSwarm()
+        try:
+            for r in (ra, rb):
+                if r.back.device.type != "cuda":
+                    raise AssertionError(f"phase 3i: on {r.back.device}")
+            ra.set_swarm(sa)
+            rb.set_swarm(sb)
+            sb.connect(sa.address)
+            urls = [ra.create({"edits": []}) for _ in range(cfg["n_docs"])]
+            handles = [rb.open(u) for u in urls]
+            for h in handles:
+                h.value(timeout=cfg["timeout_s"])
+            check_pinned(ra, rb, label)
+            net0 = net_counters()
+            for k in ck.launches:
+                ck.launches[k] = 0
+            t0 = time.perf_counter()
+            n = cfg["n_edits"]
+            for i in range(n):
+                for u in urls:
+                    ra.change(u, lambda d, i=i: d["edits"].append(i))
+                if i % 5 == 0:
+                    for h in handles:
+                        h.change(lambda d, i=i: d["edits"].append(1000 + i))
+            want = n + (n + 4) // 5
+            t_b = wait_for("B's convergence", lambda: all(
+                len((h.value() or {}).get("edits", [])) >= want
+                for h in handles), cfg["timeout_s"])
+            wait_for("A's convergence", lambda: all(
+                len(ra.doc(u)["edits"]) >= want for u in urls),
+                cfg["timeout_s"])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.launches.items() if v}
+            bad = [u for u in urls if ra.doc(u) != rb.doc(u)
+                   or len(rb.doc(u)["edits"]) != want]
+            if bad:
+                raise AssertionError(f"phase 3i {label}: {len(bad)} docs "
+                                     "differ between A and B")
+            unplain = [(side, u) for side, r in (("A", ra), ("B", rb))
+                       for u in urls if plain_value(r.doc(u))
+                       != replay_value(held_changes(r, u))]
+            if unplain:
+                raise AssertionError(f"phase 3i {label}: {len(unplain)} "
+                                     "docs differ from the plain replay of "
+                                     f"their changes: {unplain[:4]}")
+            stats = {"a": live_stats(ra), "b": live_stats(rb)}
+            repl = {"a": ra.back.network.replication.stats,
+                    "b": rb.back.network.replication.stats}
+        finally:
+            ra.close()
+            rb.close()
+            sa.destroy()
+            sb.destroy()
+    net1 = net_counters()
+    return dict(
+        label=label, env=env, docs=cfg["n_docs"], edits_a_doc=want,
+        wall_s=wall, b_converged_s=t_b, launches=launches, live=stats,
+        replication=repl,
+        net={k: v - net0.get(k, 0) for k, v in net1.items()},
+    )
+
+
+def pull_path(ck, root: str) -> dict:
+    """Phase 3i (b): a late replica pulls a corpus. A holds a signed
+    corpus of phase 3d's shape (NET["pull_docs"] single-writer docs x
+    1,024 ops, `make_corpus`) in `Repo(path)` on the card and opens it
+    (its own open: the summaries B is held to). B, a fresh `Repo(path)`
+    on the card, joins over TcpSwarm and opens every doc's url
+    (`open_many`: no writer actor is minted, so the docs stay
+    single-writer); replication pulls every feed in signed chunks until
+    each doc's clock covers its 64 changes. Then B is closed and
+    reopened, and `open_many` + `fetch_bulk_summaries` runs on the card
+    with the launch counts set to 0 just before and read just after:
+    pack_prefix and materialize_wire launched, every summary byte-equal
+    to A's open. Returns the numbers."""
+    import torch
+
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    cfg = NET
+    n, n_ops = cfg["pull_docs"], cfg["pull_ops"]
+    n_changes = n_ops // 16  # make_corpus's 16 ops a change
+    src, dst = os.path.join(root, "a"), os.path.join(root, "b")
+    t0 = time.perf_counter()
+    urls = make_corpus(src, n, n_ops, sign=True)
+    t_corpus = time.perf_counter() - t0
+    ids = [validate_doc_url(u) for u in urls]
+    ra = Repo(path=src)
+    rb = None
+    sa, sb = TcpSwarm(), TcpSwarm()
+    try:
+        ra.open_many(urls)
+        want = summary_rows(ra.back.fetch_bulk_summaries(), ids)
+        ra.set_swarm(sa)
+        rb = Repo(path=dst)
+        rb.set_swarm(sb)
+        sb.connect(sa.address)
+        net0 = net_counters()
+        t0 = time.perf_counter()
+        rb.open_many(urls)
+        rb.back.fetch_bulk_summaries()
+
+        def pulled():
+            docs = rb.back.docs
+            return all(
+                d in docs and sum(docs[d].clock.values()) >= n_changes
+                for d in ids)
+
+        t_pull = wait_for("the pull", pulled, cfg["timeout_s"])
+        check_pinned(ra, rb, "(b)")
+        repl = {"a": ra.back.network.replication.stats,
+                "b": rb.back.network.replication.stats}
+        live_b = live_stats(rb)
+    finally:
+        if rb is not None:
+            rb.close()
+        ra.close()
+        sa.destroy()
+        sb.destroy()
+    net1 = net_counters()
+    for k in ck.launches:
+        ck.launches[k] = 0
+    t0 = time.perf_counter()
+    rb = Repo(path=dst)
+    try:
+        rb.open_many(urls)
+        rows = summary_rows(rb.back.fetch_bulk_summaries(), ids)
+        torch.cuda.synchronize()
+        t_reopen = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.launches.items() if v}
+        stats = dict(rb.back.last_bulk_stats)
+    finally:
+        rb.close()
+    bad = sum(1 for d in ids if rows[d] != want[d])
+    if bad or stats.get("fast") != n:
+        raise AssertionError(f"phase 3i (b): {bad} summaries differ from A's "
+                             f"open; stats {stats}")
+    for k in BULK:
+        if not launches.get(k):
+            raise AssertionError(f"phase 3i (b): {k} never launched in the "
+                                 f"reopen: {launches}")
+    return dict(
+        docs=n, ops_a_doc=n_ops, signed=True, t_corpus_s=t_corpus,
+        t_pull_s=t_pull, t_reopen_s=t_reopen, launches=launches,
+        replication=repl, live_b=live_b,
+        net={k: v - net0.get(k, 0) for k, v in net1.items()},
+        reopen_stats={k: stats.get(k) for k in ("docs", "fast", "pipeline",
+                                                "t_io", "t_pack")},
+    )
+
+
+def net_path(ck, root: str) -> dict:
+    """Phase 3i: (a) config 2 at the defaults, then over the live
+    cutovers (materialize_live must launch on the card); (b) the pull.
+    Returns (the launch counts of (a)'s kernel run and (b)'s reopen
+    summed, the numbers)."""
+    card = card_line()
+    crypto = transport_crypto()
+    runs = [config2_run(ck, "defaults", {}),
+            config2_run(ck, "kernel route", NET_KERNEL_ENV)]
+    for r in runs:
+        log(f"phase 3i (a) config 2 {r['label']}: " + json.dumps(r)
+            + f" [{card}]")
+    if not runs[1]["launches"].get("materialize_live"):
+        raise AssertionError("phase 3i (a): materialize_live never launched "
+                             f"on the card: {runs[1]['launches']}")
+    pull = pull_path(ck, root)
+    log("phase 3i (b) pull + reopen: " + json.dumps(pull) + f" [{card}]")
+    counts = dict(runs[1]["launches"])
+    for k, v in pull["launches"].items():
+        counts[k] = counts.get(k, 0) + v
+    log(f"phase 3i check: config 2 converged at the defaults in "
+        f"{runs[0]['wall_s']:.3f} s and over the kernel route in "
+        f"{runs[1]['wall_s']:.3f} s (materialize_live "
+        f"{runs[1]['launches'].get('materialize_live')}), every doc equal "
+        f"on both sides and to the plain replay; {pull['docs']} docs pulled in "
+        f"{pull['t_pull_s']:.3f} s and reopened in {pull['t_reopen_s']:.3f} "
+        f"s, every summary == A's open, {pull['launches']}; transport "
+        f"crypto: {crypto}; connections authenticated")
+    return counts, dict(card=card, crypto=crypto, config2=runs, pull=pull)
 
 
 def doc_entry_call(ck, args, A, K):
@@ -4309,6 +4639,10 @@ def main() -> int:
         shutil.rmtree(crash_corpus)
         del rows
         elapsed("phase 3h")
+        # a fresh directory: 3h's killed writer must not reach the corpus
+        with tempfile.TemporaryDirectory(prefix="hm-net-") as net_root:
+            net_counts, net_numbers = net_path(ck, net_root)
+        elapsed("phase 3i")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -4385,6 +4719,10 @@ def main() -> int:
     counts.update({k: read_counts[k] for k in SERVE})
     counts.update({k: mesh_counts[k] for k in MESH})
     counts["materialize_live"] = live_launches
+    # the network slice's launches (3i (a)'s kernel run, (b)'s reopen) join
+    # the counts, and stand beside them
+    for k, v in net_counts.items():
+        counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
               "clock_union_min": [2, CONFIG5["n_docs"] // 2],
@@ -4408,6 +4746,8 @@ def main() -> int:
             **{k: r[k] for k in EXTRA_READINGS if k in r},
             **({"sidecar_slice_launches": sidecar_counts[name]}
                if name in BULK else {}),
+            **({"net_slice_launches": net_counts[name]}
+               if name in net_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
@@ -4415,6 +4755,7 @@ def main() -> int:
     log("live " + json.dumps(live_numbers))
     log("pipeline_open " + json.dumps(open_numbers))
     log("crash " + json.dumps(crash_numbers))
+    log("net " + json.dumps(net_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -36,14 +36,20 @@ is recovered before the clock mirror attaches and before any doc opens
 (`recovery_report`; HM_RECOVER=0 skips it, keeps the crashed marker and
 journal, and runs the session journal-less), and the marker carries the
 journal's session stamp that bounds the next recovery's scan.
+The network hooks are the reference's: `set_swarm` attaches a Network
+(net/network.py: TcpSwarm or LoopbackSwarm transports, replication,
+cursor gossip), and every hook stays behind `self.network is not None`,
+so a repo with no swarm runs as before. Changes that arrive from a peer
+apply through the live engine's tick on the device, as local ones do.
 Not ported yet; the port behaves as the reference with the switch off:
 the service plane (HM_SERVICE=0: no admission control, so nothing paces
-the journal's acks), and the network, file server and hyperfile store
-(their entry points raise NotImplementedError).
+the journal's acks), and the file server and hyperfile store (their
+entry points raise NotImplementedError).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -106,6 +112,13 @@ def _start_host_copy(wire):
         copied.append(event)
         row += part.shape[0]
     return host, copied
+
+
+# actor id -> discovery id is a pure hash of an immutable key: memoize
+# it for the telemetry payload's per-poll sweep over every doc's actors
+_discovery_id_cached = functools.lru_cache(maxsize=65536)(
+    keymod.discovery_id
+)
 
 
 def _merge_store_marks(old, new):
@@ -273,6 +286,7 @@ class RepoBackend:
         self._pending_ready: Dict[str, set] = {}
         self.to_frontend: Queue = Queue("backend:toFrontend")
         self._query_handlers: Dict[str, Callable] = {}
+        self.network = None  # attached by set_swarm (net/network.py)
         self.meta = Metadata(self.feeds, self.key_store)
         self._closed = False
         # bulk-load state: deferred per-actor work (one executemany / one
@@ -305,6 +319,11 @@ class RepoBackend:
         self.last_bulk_stats: Dict[str, int] = {}
         from ..utils.debounce import Debouncer
 
+        # cursor/clock gossip is a latest-state broadcast: debounce it
+        # so a burst of local changes to one doc costs one frame (10 ms)
+        self._gossip = Debouncer(
+            self._flush_gossip, window_s=0.010, name="gossip",
+        )
         # inbound-sync application is idempotent window-polling: under
         # edit load many small extensions coalesce into one
         # _sync_changes pass per actor
@@ -397,6 +416,32 @@ class RepoBackend:
                 io_fsync(fh)
         except OSError as e:
             log("repo:backend", f"stamp invalidation failed: {e}")
+
+    def hydrate_feeds(self) -> int:
+        """Open every feed the repo has on record (the feeds table) so
+        a repo ANNOUNCES and SERVES all its docs without waiting for a
+        doc open. Persisted secret keys re-bind writability exactly as
+        in _get_or_create_actor; opening a feed is storage-light (no
+        CRDT materialization). Returns the number of feeds on record."""
+        n = 0
+        for pk in self.feed_info.all_public_ids():
+            pair = self._actor_keys.get(pk)
+            if pair is not None:
+                self.feeds.create(pair)
+            else:
+                self.feeds.open_feed(pk)
+            n += 1
+        return n
+
+    def identity_seed(self) -> Optional[bytes]:
+        """The repo's static ed25519 seed for transport authentication
+        (net/secure.py auth frames), or None for readonly repos."""
+        from ..utils import base58
+
+        pair = self.key_store.get_or_create("self.repo")
+        if pair.secret_key is None:
+            return None
+        return base58.decode(pair.secret_key)
 
     # ------------------------------------------------------------------
     # wiring
@@ -528,6 +573,7 @@ class RepoBackend:
         for actor_id in clock:
             actor = self._get_or_create_actor(actor_id)
             self._sync_changes(actor)
+        self._gossip_cursor(doc)
 
     def close_doc(self, doc_id: str) -> None:
         with self._lock:
@@ -1612,6 +1658,8 @@ class RepoBackend:
         with self._lock:
             self.actors[actor.id] = actor
         self._save_feed_info(feed)
+        if self.network is not None:
+            self.network.announce_feed(feed)
         return actor
 
     def _peek_actor(self, actor_id: str) -> Optional[Actor]:
@@ -1671,6 +1719,8 @@ class RepoBackend:
             with self._lock:
                 self.actors[actor_id] = actor
             self._save_feed_info(feed)
+            if self.network is not None:
+                self.network.announce_feed(feed)
         return actor
 
     def _sync_changes(self, actor: Actor) -> None:
@@ -1711,6 +1761,32 @@ class RepoBackend:
             # a False return only means the GLOBAL queue didn't drain;
             # this doc's rows may have landed — the loop re-checks
             self._stores.flush_now(timeout=min(remaining, 1.0))
+
+    def _overlay_pending_rows(self, doc_id: str, cursor, clock, pend=None):
+        """Overlay rows still inside the store debouncer onto values
+        read back from the store, so advertisement paths (gossip,
+        discovery) are read-your-writes: a gossip flush racing ahead of
+        the store flush must NOT advertise a stale cursor — a peer that
+        believes the stale seq never requests the newer blocks, and if
+        no later change re-gossips, replication stalls permanently.
+        Multi-doc callers pass one `pend` snapshot for the whole loop
+        (pending() copies the dict under the debouncer cv each call)."""
+        if pend is None:
+            pend = self._stores.pending()
+        if not pend:
+            return cursor, clock
+        cursor = dict(cursor)
+        clock = dict(clock)
+        for key, val in pend.items():
+            if key[0] == "c" and key[1] == doc_id:
+                for actor, seq in val.items():
+                    if seq > clock.get(actor, 0):
+                        clock[actor] = seq
+            elif key[0] == "u" and key[1] == doc_id:
+                actor = key[2]
+                if val > cursor.get(actor, 0):
+                    cursor[actor] = val
+        return cursor, clock
 
     def _mark_clock_row(self, doc: DocBackend) -> None:
         """Queue the doc's (in-memory, authoritative) clock for the
@@ -1796,6 +1872,7 @@ class RepoBackend:
                     doc.id, event["patch"].to_json(), doc.history_len
                 )
             )
+            self._gossip_cursor(doc)
         elif t == "RemotePatch":
             self._mark_clock_row(doc)
             self.to_frontend.push(
@@ -1803,6 +1880,11 @@ class RepoBackend:
                     doc.id, event["patch"].to_json(), doc.history_len
                 )
             )
+            # our applied clock advanced: re-gossip so peers BEYOND the
+            # source learn it too (relay re-serving — a passive middle
+            # repo must propagate actor knowledge, reference
+            # src/RepoBackend.ts:394-427). Monotone, so it terminates.
+            self._gossip_cursor(doc)
         elif t == "ActorId":
             self.to_frontend.push(
                 msgs.actor_id_msg(doc.id, event["actorId"])
@@ -1947,6 +2029,40 @@ class RepoBackend:
         payload = telemetry.query_payload()
         if self.serve is not None:
             payload["serve"] = self.serve.residency_report()
+        if self.network is not None:
+            # DHT introspection (DhtSwarm.discovery_report: node id,
+            # bucket occupancy, records, joined posture) for
+            # tools/meta.py --dht and the tools/ls.py header
+            dht = self.network.discovery_report()
+            if dht is not None:
+                payload["dht"] = dht
+            # per-doc swarm view for the tools/ls.py peers=/announce=
+            # columns: connected peers replicating each open doc, and
+            # whether the doc's feeds are joined (announced/looked-up).
+            # Built entirely from the cursor MIRROR + memoized
+            # discovery ids: Telemetry is polled ~1/s by tools/top.py,
+            # and a per-doc SQL query + per-actor sha1 would put
+            # O(docs x peers) work on every poll of a fleet daemon.
+            docs_net: Dict[str, Any] = {}
+            joined = self.network.joined
+            repl = self.network.replication
+            # docs on RECORD, not just open ones: a fleet daemon
+            # (hydrate_feeds) serves docs no frontend ever opened
+            doc_ids = set(self.docs.keys())
+            doc_ids.update(self.clocks.all_doc_ids(self.id))
+            for doc_id in doc_ids:
+                dids = [
+                    _discovery_id_cached(a)
+                    for a in self.cursors.get(self.id, doc_id)
+                ]
+                peers: set = set()
+                for d in dids:
+                    peers.update(repl.peers_with_feed(d))
+                docs_net[doc_id] = {
+                    "peers": len(peers),
+                    "announced": any(d in joined for d in dids),
+                }
+            payload["net"] = {"docs": docs_net}
         return payload
 
     def handle_query(self, query_id: int, query: Dict[str, Any]) -> None:
@@ -1999,10 +2115,147 @@ class RepoBackend:
             self.to_frontend.push(msgs.reply_msg(query_id, None))
 
     # ------------------------------------------------------------------
-    # peer messaging, files: not ported (no network, no file store)
+    # peer messaging + gossip (net/network.py)
 
     def send_doc_message(self, doc_id: str, contents: Any) -> None:
-        """Ephemeral doc messages go to peers; the port has none."""
+        if self.network is not None:
+            self.network.broadcast_doc_message(doc_id, contents)
+
+    def deliver_doc_message(self, doc_id: str, contents: Any) -> None:
+        """Inbound ephemeral message from a peer."""
+        self.to_frontend.push(msgs.doc_message_fwd_msg(doc_id, contents))
+
+    def on_cursor_message(
+        self,
+        peer,
+        doc_id: str,
+        cursors: clockmod.Clock,
+        clocks: clockmod.Clock,
+    ) -> None:
+        """Peer told us which actors (and how far) a doc includes: expand
+        our cursor, gate rendering on their clock, open missing feeds
+        (reference src/RepoBackend.ts:394-427). The peer's clock is
+        recorded under the SENDER's id — our own clock row only ever
+        reflects changes we actually applied (else we'd advertise state we
+        can't supply to third parties)."""
+        before = self.cursors.get(self.id, doc_id)
+        if self._store_debounce:
+            # hot ingest path (a fleet doc gossips one actor per
+            # peer): merge the write-through MIRROR now, ride the
+            # debounced flusher for the sqlite rows — one executemany
+            # per window instead of O(actors) per inbound frame
+            after = self.cursors.merge_mem(self.id, doc_id, cursors)
+            for a, s in cursors.items():
+                self._stores.mark(("u", doc_id, a), s)
+            self._stores.mark(("r", peer.id, doc_id), dict(clocks))
+        else:
+            after = self.cursors.update(self.id, doc_id, cursors)
+            self.clocks.update(peer.id, doc_id, clocks)
+        doc = self.docs.get(doc_id)
+        if doc is not None:
+            doc.update_minimum_clock(clocks)
+        for actor_id in cursors:
+            actor = self._get_or_create_actor(actor_id)
+            self._sync_changes(actor)
+        if after != before:
+            # our cursor EXPANDED from remote knowledge: relay it to
+            # the other peers (strictly monotone — no gossip loop)
+            self._gossip.mark(doc_id)
+
+    def on_discovery(self, public_id: str, peer) -> None:
+        """A feed shared with `peer` was discovered: send our cursor +
+        clock for every doc that includes that actor (reference
+        src/RepoBackend.ts:374-392)."""
+        pend = self._stores.pending()  # one snapshot for the loop
+        for doc_id in self.cursors.docs_with_actor(self.id, public_id):
+            # an open doc's in-memory clock is authoritative (and
+            # fresher than its debounced store row); the store read is
+            # the cold-doc fallback only — discovery fires once per
+            # (feed, peer) and a fleet doc has O(peers) feeds, so a
+            # SQL query here lands on the hottest wiring path
+            doc = self.docs.get(doc_id)
+            clock = (
+                dict(doc.clock) if doc is not None
+                else self.clocks.get(self.id, doc_id)
+            )
+            cursor, clock = self._overlay_pending_rows(
+                doc_id,
+                self.cursors.get(self.id, doc_id),
+                clock,
+                pend=pend,
+            )
+            self.network.send_cursor_to(peer, doc_id, cursor, clock)
+
+    def send_sweep_cursors(self, peer, public_ids) -> None:
+        """Anti-entropy cursor repair (ReplicationManager.on_sweep):
+        re-send our cursor+clock for every doc sharing an actor with
+        `peer` — ONE cursor frame per doc per sweep, iterated doc-side
+        (O(docs) store reads) rather than feed-side (a fleet doc
+        carries one placeholder actor per peer, so per-feed iteration
+        is O(peers) SQL per sweep). Idempotent latest-state: this is
+        what bounds the staleness of a bounded-fanout cursor gossip
+        the peer wasn't sampled into (net/discovery/gossip.py)."""
+        if self.network is None or self._closed:
+            return
+        pks = set(public_ids)
+        pend = self._stores.pending()
+        doc_ids = set(self.docs.keys())
+        doc_ids.update(self.clocks.all_doc_ids(self.id))
+        for doc_id in doc_ids:
+            cursor = self.cursors.get(self.id, doc_id)
+            if not pks.intersection(cursor):
+                continue
+            doc = self.docs.get(doc_id)
+            clock = (
+                dict(doc.clock) if doc is not None
+                else self.clocks.get(self.id, doc_id)
+            )
+            cursor, clock = self._overlay_pending_rows(
+                doc_id, cursor, clock, pend=pend,
+            )
+            self.network.send_cursor_to(peer, doc_id, cursor, clock)
+
+    def _gossip_cursor(self, doc: DocBackend) -> None:
+        # without a swarm the flush would drop the mark anyway: skip the
+        # debouncer on the patch path
+        if self.network is not None:
+            self._gossip.mark(doc.id)
+
+    def _flush_gossip(self, doc_ids) -> None:
+        if self.network is None or self._closed:
+            return
+        pend = self._stores.pending()  # one snapshot for the loop
+        for doc_id in doc_ids:
+            # an open doc's in-memory clock is fresher than its store
+            # row (clock rows flush debounced — _flush_store_rows)
+            doc = self.docs.get(doc_id)
+            clock = (
+                doc.clock if doc is not None
+                else self.clocks.get(self.id, doc_id)
+            )
+            cursor, clock = self._overlay_pending_rows(
+                doc_id, self.cursors.get(self.id, doc_id), clock,
+                pend=pend,
+            )
+            self.network.gossip_cursor(doc_id, cursor, clock)
+
+    def _announce_file_feed(self, feed) -> None:
+        """File feeds replicate like any feed (reference
+        src/ReplicationManager.ts:71-89): persist + join + announce so
+        peers holding (or wanting) the file can sync it."""
+        self._save_feed_info(feed)
+        if self.network is not None:
+            self.network.announce_feed(feed)
+
+    def _forget_file_feed(self, feed) -> None:
+        """Undo _announce_file_feed for a speculative remote open that
+        fetched nothing (the FeedStore entry is already removed)."""
+        self.feed_info.delete(feed.public_key)
+        if self.network is not None:
+            self.network.leave(feed.discovery_id)
+
+    # files: not ported (no hyperfile store; the two hooks above are
+    # what its FileStore calls, ROADMAP.md Queue 1 item 3)
 
     def start_file_server(self, path: str) -> None:
         raise NotImplementedError(
@@ -2010,9 +2263,11 @@ class RepoBackend:
         )
 
     def set_swarm(self, swarm, join_options=None) -> None:
-        raise NotImplementedError(
-            "the network (net/) is not ported to hypermerge_tpu_torch"
-        )
+        from ..net.network import Network
+
+        if self.network is None:
+            self.network = Network(self)
+        self.network.set_swarm(swarm, join_options)
 
     # ------------------------------------------------------------------
 
@@ -2042,9 +2297,12 @@ class RepoBackend:
             self.serve.close()  # drains: in-flight reads answer first
         if self.live is not None:
             self.live.close()  # drains: final tick patches still emit
+        self._gossip.close()
         self._syncs.close()
         self._cache_syncs.close()  # drains: sidecars durable on close
         self._stores.close()  # drains AFTER patch sources: last rows land
+        if self.network is not None:
+            self.network.close()
         self.feeds.close()
         # final group fsync while files exist; a FAILED final sync
         # leaves the crash marker in place

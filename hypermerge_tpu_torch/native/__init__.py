@@ -2,7 +2,8 @@
 port's copy of hypermerge_tpu/native/__init__.py.
 
 The library carries ed25519 and BLAKE2b merkle roots (utils/crypto.py),
-brotli block frames (storage/block.py: blocks the reference wrote can be
+the transport crypto, X25519 and ChaCha20-Poly1305-IETF (net/secure.py,
+whose fallback is utils/chacha.py), brotli block frames (storage/block.py: blocks the reference wrote can be
 "BR"-framed, so the port needs the same decoder), the columnar pack
 entries (ops/columnar.py's host pack route, ops/pack_kernels.py's
 marshal) and the binary change codec (crdt/codec.py). Every capability
@@ -101,6 +102,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hm_ed25519_verify.argtypes = [buf, buf, size, buf]
     lib.hm_merkle_root.restype = ctypes.c_int
     lib.hm_merkle_root.argtypes = [buf, size, buf]
+    lib.hm_x25519_base.restype = ctypes.c_int
+    lib.hm_x25519_base.argtypes = [buf, buf]
+    lib.hm_x25519.restype = ctypes.c_int
+    lib.hm_x25519.argtypes = [buf, buf, buf]
+    lib.hm_aead_encrypt.restype = ctypes.c_long
+    lib.hm_aead_encrypt.argtypes = [buf, buf, buf, size, buf]
+    lib.hm_aead_decrypt.restype = ctypes.c_long
+    lib.hm_aead_decrypt.argtypes = [buf, buf, buf, size, buf]
     lib.hm_compress_bound.restype = size
     lib.hm_compress_bound.argtypes = [size]
     lib.hm_compress.restype = ctypes.c_long
@@ -264,6 +273,56 @@ def merkle_root(leaves: bytes) -> Optional[bytes]:
     if lib.hm_merkle_root(leaves, len(leaves) // 32, out) != 0:
         return None
     return out.raw
+
+
+def x25519_base(sk: bytes) -> Optional[bytes]:
+    lib = _sodium()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(32)
+    if lib.hm_x25519_base(sk, out) != 0:
+        return None
+    return out.raw
+
+
+def x25519(sk: bytes, pk: bytes) -> Optional[bytes]:
+    lib = _sodium()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(32)
+    if lib.hm_x25519(sk, pk, out) != 0:
+        return None
+    return out.raw
+
+
+def aead_encrypt(key: bytes, nonce: bytes, msg: bytes) -> Optional[bytes]:
+    lib = _sodium()
+    if lib is None:
+        return None
+    out = ctypes.create_string_buffer(len(msg) + 16)
+    n = lib.hm_aead_encrypt(key, nonce, msg, len(msg), out)
+    if n < 0:
+        return None
+    return out.raw[:n]
+
+
+_AEAD_FAIL = object()
+
+
+def aead_decrypt(key: bytes, nonce: bytes, ct: bytes):
+    """None = native unavailable; _AEAD_FAIL = authentication failed."""
+    lib = _sodium()
+    if lib is None:
+        return None
+    if len(ct) < 16:
+        return _AEAD_FAIL
+    out = ctypes.create_string_buffer(max(len(ct) - 16, 1))
+    n = lib.hm_aead_decrypt(key, nonce, ct, len(ct), out)
+    if n == -2:
+        return None
+    if n < 0:
+        return _AEAD_FAIL
+    return out.raw[:n]
 
 
 def compress(codec: int, data: bytes, quality: int = 5) -> Optional[bytes]:

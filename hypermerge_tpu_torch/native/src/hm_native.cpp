@@ -1,11 +1,11 @@
 // hm_native: the host C++ layer of hypermerge_tpu_torch — the port's
 // copy of hypermerge_tpu/native/src/hm_native.cpp, cut to what the port
-// calls: ed25519 keypairs/signatures and BLAKE2b merkle roots (libsodium),
-// brotli block frames (libbrotli), the columnar pack entries (the bulk
-// cold open's host pack route and the device pack's marshal) and the
-// binary change-frame codec. The reference's zlib codec (Python's zlib
-// module reads and writes "ZL" blocks) and its transport crypto (the
-// port has no network) are left out.
+// calls: ed25519 keypairs/signatures, BLAKE2b merkle roots and the
+// transport crypto, X25519 and ChaCha20-Poly1305-IETF (libsodium), brotli
+// block frames (libbrotli), the columnar pack entries (the bulk cold
+// open's host pack route and the device pack's marshal) and the binary
+// change-frame codec. The reference's zlib codec is left out (Python's
+// zlib module reads and writes "ZL" blocks).
 //
 // libsodium and libbrotli are dlopen'd at init, so the build needs no
 // headers and no libraries beyond libdl. Every entry point degrades:
@@ -36,6 +36,20 @@ typedef int (*fn_generichash)(unsigned char *, size_t, const unsigned char *,
                               unsigned long long, const unsigned char *,
                               size_t);
 
+typedef int (*fn_scalarmult)(unsigned char *, const unsigned char *,
+                             const unsigned char *);
+typedef int (*fn_scalarmult_base)(unsigned char *, const unsigned char *);
+typedef int (*fn_aead_encrypt)(unsigned char *, unsigned long long *,
+                               const unsigned char *, unsigned long long,
+                               const unsigned char *, unsigned long long,
+                               const unsigned char *, const unsigned char *,
+                               const unsigned char *);
+typedef int (*fn_aead_decrypt)(unsigned char *, unsigned long long *,
+                               unsigned char *, const unsigned char *,
+                               unsigned long long, const unsigned char *,
+                               unsigned long long, const unsigned char *,
+                               const unsigned char *);
+
 typedef int (*fn_brotli_compress)(int, int, int, size_t, const uint8_t *,
                                   size_t *, uint8_t *);
 typedef int (*fn_brotli_decompress)(size_t, const uint8_t *, size_t *,
@@ -46,6 +60,10 @@ static fn_sign_seed_keypair p_seed_keypair = nullptr;
 static fn_sign_detached p_sign = nullptr;
 static fn_sign_verify_detached p_verify = nullptr;
 static fn_generichash p_generichash = nullptr;
+static fn_scalarmult p_scalarmult = nullptr;
+static fn_scalarmult_base p_scalarmult_base = nullptr;
+static fn_aead_encrypt p_aead_encrypt = nullptr;
+static fn_aead_decrypt p_aead_decrypt = nullptr;
 static fn_brotli_compress p_br_compress = nullptr;
 static fn_brotli_decompress p_br_decompress = nullptr;
 static fn_brotli_bound p_br_bound = nullptr;
@@ -73,8 +91,16 @@ int hm_init(void) {
     p_verify = (fn_sign_verify_detached)dlsym(
         sodium, "crypto_sign_verify_detached");
     p_generichash = (fn_generichash)dlsym(sodium, "crypto_generichash");
+    p_scalarmult = (fn_scalarmult)dlsym(sodium, "crypto_scalarmult");
+    p_scalarmult_base =
+        (fn_scalarmult_base)dlsym(sodium, "crypto_scalarmult_base");
+    p_aead_encrypt = (fn_aead_encrypt)dlsym(
+        sodium, "crypto_aead_chacha20poly1305_ietf_encrypt");
+    p_aead_decrypt = (fn_aead_decrypt)dlsym(
+        sodium, "crypto_aead_chacha20poly1305_ietf_decrypt");
     if (init && init() >= 0 && p_seed_keypair && p_sign && p_verify &&
-        p_generichash)
+        p_generichash && p_scalarmult && p_scalarmult_base &&
+        p_aead_encrypt && p_aead_decrypt)
       caps |= CAP_SODIUM;
   }
 
@@ -178,6 +204,49 @@ int hm_merkle_root(const uint8_t *leaves, size_t n, uint8_t out[32]) {
   memcpy(out, level, 32);
   delete[] level;
   return 0;
+}
+
+// -------------------------------------------------------------------
+// X25519 + ChaCha20-Poly1305-IETF — the transport-encryption primitives
+// (net/secure.py builds the kx handshake and per-direction nonce
+// counters on top; reference: noise-peer wrapping every PeerConnection,
+// src/PeerConnection.ts:36).
+
+int hm_x25519_base(const uint8_t sk[32], uint8_t pk[32]) {
+  if (!(hm_init() & CAP_SODIUM))
+    return -2;
+  return p_scalarmult_base(pk, sk) == 0 ? 0 : -1;
+}
+
+int hm_x25519(const uint8_t sk[32], const uint8_t pk[32], uint8_t out[32]) {
+  if (!(hm_init() & CAP_SODIUM))
+    return -2;
+  return p_scalarmult(out, sk, pk) == 0 ? 0 : -1;
+}
+
+// out must hold len + 16 bytes; returns ciphertext length or <0
+long hm_aead_encrypt(const uint8_t key[32], const uint8_t nonce[12],
+                     const uint8_t *msg, size_t len, uint8_t *out) {
+  if (!(hm_init() & CAP_SODIUM))
+    return -2;
+  unsigned long long outlen = 0;
+  if (p_aead_encrypt(out, &outlen, msg, (unsigned long long)len, nullptr, 0,
+                     nullptr, nonce, key) != 0)
+    return -1;
+  return (long)outlen;
+}
+
+// out must hold len - 16 bytes; returns plaintext length, -1 on auth
+// failure, -2 if unavailable
+long hm_aead_decrypt(const uint8_t key[32], const uint8_t nonce[12],
+                     const uint8_t *ct, size_t len, uint8_t *out) {
+  if (!(hm_init() & CAP_SODIUM))
+    return -2;
+  unsigned long long outlen = 0;
+  if (p_aead_decrypt(out, &outlen, nullptr, ct, (unsigned long long)len,
+                     nullptr, 0, nonce, key) != 0)
+    return -1;
+  return (long)outlen;
 }
 
 // -------------------------------------------------------------------

@@ -8,9 +8,11 @@ moved across a thread/process boundary without API changes (the
 reference's stated design goal, README.md:160-184).
 
 The backend runs its kernels on `device`: cuda unless the caller asks for
-"cpu" (device.resolve raises when no GPU is present). The network, the
-file server and hyperfiles are not ported: their entry points raise
-NotImplementedError.
+"cpu" (device.resolve raises when no GPU is present). `set_swarm`
+attaches a peer swarm (net/: TcpSwarm over encrypted, authenticated TCP,
+or the in-process LoopbackSwarm); changes that arrive from a peer apply
+through the live engine's tick on that device. The file server and
+hyperfiles are not ported: their entry points raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -124,7 +126,11 @@ class Repo:
         )
 
     def set_swarm(self, swarm, join_options=None) -> None:
-        """Attach a peer swarm: not ported (raises)."""
+        """Attach a peer swarm. `join_options` sets the repo's swarm
+        posture (net/swarm.JoinOptions — announce and/or lookup;
+        reference src/Repo.ts:20 setSwarm(swarm, joinOptions)).
+        Raises NotImplementedError under HM_FAULT (net/faults.py is not
+        ported yet)."""
         self.back.set_swarm(swarm, join_options)
 
     def start_file_server(self, path: str) -> None:

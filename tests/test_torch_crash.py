@@ -25,10 +25,11 @@ against the JAX package's on a copy of the same directory, on the CPU.
   a reopen, an unsigned tail sealed, the marker surviving a power cut,
   a dry run reporting what a repair would do, and the per-doc verdicts.
 
-The crash cases that need the network (`test_crash_recover_reconverges_
-with_clean_twin`, the two anti-entropy cases, and the worker-process
-kill `test_worker_sigkill_midburst_acked_lost_zero`) wait for the port
-of net/. Tolerance: exact.
+The crash cases that need the network: `test_crash_recover_reconverges_
+with_clean_twin` runs on the port in tests/test_torch_net.py; the two
+anti-entropy cases and the worker-process kill
+`test_worker_sigkill_midburst_acked_lost_zero` wait for net/faults.py
+and the hub (ROADMAP.md Queue 1 items 1(b) and 1(d)). Tolerance: exact.
 """
 
 import os

@@ -1195,3 +1195,57 @@ def test_recovered_copy_opens_on_the_card(cuda, tmp_path, monkeypatch):
             repo.close()
     assert rows["cuda"] == rows["cpu"]
     assert rows["cuda"][2] == {"edits": list(range(12))}
+
+
+def test_two_repos_converge_over_loopback_on_the_card(cuda, monkeypatch):
+    """Two port repos on the card share 3 docs over LoopbackSwarm, both
+    writing. Each of A's changes carries 12 ops, and with the live
+    cutovers at 0 (HM_LIVE_INC_BUDGET, HM_DEVICE_MIN_CELLS) every tick of
+    more than 8 ops goes to the kernel: B applies A's changes through
+    materialize_live on its card. Both sides converge to equal values
+    holding every edit once."""
+    import time
+
+    from hypermerge_tpu_torch.net.swarm import LoopbackHub, LoopbackSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    monkeypatch.setenv("HM_LIVE_INC_BUDGET", "0")
+    monkeypatch.setenv("HM_DEVICE_MIN_CELLS", "0")
+    hub = LoopbackHub()
+    ra, rb = Repo(memory=True), Repo(memory=True)
+    try:
+        assert ra.back.device.type == rb.back.device.type == "cuda"
+        ra.set_swarm(LoopbackSwarm(hub))
+        rb.set_swarm(LoopbackSwarm(hub))
+        urls = [ra.create({"edits": []}) for _ in range(3)]
+        handles = [rb.open(u) for u in urls]
+        for h in handles:
+            assert h.value(timeout=60) is not None
+        before = ck.launches["materialize_live"]
+        want = {u: [] for u in urls}
+        for r in range(4):
+            for u in urls:
+                vals = [100 * r + j for j in range(12)]
+                ra.change(u, lambda d, vals=vals: [
+                    d["edits"].append(v) for v in vals])
+                want[u] += vals
+            u = urls[r % 3]
+            handles[r % 3].change(lambda d, r=r: d["edits"].append(-1 - r))
+            want[u].append(-1 - r)
+
+        def converged():
+            for u in urls:
+                a, b = ra.doc(u), rb.doc(u)
+                if a != b or sorted(b["edits"]) != sorted(want[u]):
+                    return False
+            return True
+
+        deadline = time.monotonic() + 60
+        while not converged():
+            assert time.monotonic() < deadline, "no convergence in 60 s"
+            time.sleep(0.02)
+        assert ck.launches["materialize_live"] > before
+        assert rb.back.live.stats["device_dispatches"] > 0
+    finally:
+        ra.close()
+        rb.close()

@@ -20,7 +20,8 @@ backend and storage beneath it) against the JAX package's, on the CPU.
   packed, the other unpacks, byte for byte; parallel first builds are
   atomic.
 - The Repo scenarios of tests/test_repo.py on the port, and the entry
-  points the port leaves out raise NotImplementedError.
+  points the port leaves out raise NotImplementedError (set_swarm only
+  under HM_FAULT, whose fault-injection swarm is not ported).
 
 The reference runs with HM_LIVE=0 HM_PIPELINE=0 HM_WAL=0 HM_SERVICE=0;
 the port runs with device="cpu". Tolerance: exact.
@@ -423,9 +424,21 @@ def test_persistence_and_bulk_cold_start(tmp_path):
         r.close()
 
 
+def _swarm_under_hm_fault(r):
+    # set_swarm itself is ported; the fault-injection swarm it would
+    # wrap under HM_FAULT (net/faults.py) is not
+    from hypermerge_tpu_torch.net.swarm import LoopbackHub, LoopbackSwarm
+
+    os.environ["HM_FAULT"] = "seed=7,drop=0.1"
+    try:
+        r.set_swarm(LoopbackSwarm(LoopbackHub()))
+    finally:
+        del os.environ["HM_FAULT"]
+
+
 @pytest.mark.parametrize("call", [
     lambda r: r.files,
-    lambda r: r.set_swarm(object()),
+    _swarm_under_hm_fault,
     lambda r: r.start_file_server("/nonexistent/sock"),
 ], ids=["files", "set_swarm", "start_file_server"])
 def test_unported_entry_points_raise(repo, call):

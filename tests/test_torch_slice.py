@@ -205,8 +205,9 @@ def test_port_imports_no_jax_and_requires_a_device():
     `pack_clocks`, `ClockStore`, `Repo` (whose `repo`, `serve` and
     `backend.live` modules import without jax too; it reads on the CPU,
     with its live engine on, and recovers a crashed directory on open
-    through the port's storage/faults.py, wal.py and scrub.py) and
-    `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
+    through the port's storage/faults.py, wal.py and scrub.py, and shares
+    a doc with a second Repo over the port's TcpSwarm: net/ and its
+    crypto) and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
     and its harness hook (`graft_entry`) imports without jax as well."""
     code = textwrap.dedent(
         """
@@ -225,6 +226,13 @@ def test_port_imports_no_jax_and_requires_a_device():
         # durability: the fault harness, the journal and recovery
         for name in ("faults", "wal", "scrub"):
             assert f"hypermerge_tpu_torch.storage.{name}" in sys.modules, name
+        # the network: transport, crypto and replication
+        for name in ("net", "net.duplex", "net.connection", "net.peer",
+                     "net.secure", "net.swarm", "net.resilience",
+                     "net.discovery", "net.discovery.gossip",
+                     "net.replication", "net.network", "net.tcp",
+                     "utils.mapset", "utils.chacha"):
+            assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
         bad = [m for m in sys.modules
                if m == "hypermerge_tpu" or m.startswith("hypermerge_tpu.")]
         assert not bad, bad
@@ -336,6 +344,21 @@ def test_port_imports_no_jax_and_requires_a_device():
                 assert r.doc(url) == {"a": 1}
             finally:
                 r.close()
+        # two repos share a doc over encrypted, authenticated TCP
+        from hypermerge_tpu_torch.net.tcp import TcpSwarm
+        ra, rb = Repo(memory=True, device="cpu"), Repo(memory=True, device="cpu")
+        sa, sb = TcpSwarm(), TcpSwarm()
+        try:
+            ra.set_swarm(sa)
+            rb.set_swarm(sb)
+            sb.connect(sa.address)
+            url = ra.create({"net": 1})
+            assert rb.open(url).value(timeout=30) == {"net": 1}
+        finally:
+            ra.close()
+            rb.close()
+            sa.destroy()
+            sb.destroy()
         assert "hypermerge_tpu" not in sys.modules
         print("ok")
         """
