@@ -195,17 +195,19 @@ prints a result):
         `_config2_convergence` sends it — two `Repo(memory=True)` on the
         card, each with a `TcpSwarm()` (encrypted and authenticated, the
         defaults), B dialing A, 10 docs created on A and opened on B, 50
-        rounds of appends on A and every fifth round on B — once at the
-        engine's defaults and once with the live cutovers at 0 and a
-        500 ms tick (B's ticks of more than 8 ops on the card): every doc
-        on B holds all 60 edits and equals A's, each side's values equal
+        rounds of appends on A and every fifth round on B, then a paste on
+        A (one change a doc appending 16 edits, so that B ticks more than
+        8 ops whatever the delivery timing) — once at the engine's
+        defaults and once with the live cutovers at 0 and a 500 ms tick
+        (B's ticks of more than 8 ops on the card): every doc on B holds
+        all 76 edits and equals A's, each side's values equal
         the plain replay of the changes it holds (bench_torch/reference.py
         `replay_value`), each connection's proven
         identity is the other repo, materialize_live launched on the
         second run; wall time, both sides' live-engine stats, the
         replication and wire counters and the transport crypto (native
         libsodium or chacha) printed; (b) a late replica: A holds a signed
-        corpus of 128 docs x 1,024 ops (phase d's shape, cut in docs: the
+        corpus of 64 docs x 1,024 ops (phase d's shape, cut in docs: the
         pure-Python crypto) in `Repo(path)` and opens it; B, a fresh
         `Repo(path)` on the card over TcpSwarm, `open_many`s every url
         and replication pulls every feed in signed chunks; B closed and
@@ -3733,12 +3735,19 @@ def crash_path(ck, root: str, corpus: str, urls: list, rows: dict) -> dict:
 # _config2_convergence sends it (2 repos x 10 docs, 50 rounds of appends on
 # A and, every fifth round, on B, over TcpSwarm), once at the engine's
 # defaults and once with the live cutovers at 0 and a 500 ms tick window,
-# so that B's ticks of more than 8 ops take the kernel; (b) a late replica
+# so that B's ticks of more than 8 ops take the kernel. Both runs close with
+# a paste: one change a doc on A that appends NET["paste"] edits. Without
+# it, whether B ever ticks more than 8 ops depends on delivery timing: when
+# delivery keeps up with A, B's own edits every fifth round catch each doc
+# up 5 changes at a time inline, and the kernel route launched nothing (seen
+# on the card). A change of 16 ops takes the kernel wherever it lands;
+# (b) a late replica
 # pulling a signed corpus of phase 3d's shape over TcpSwarm, then reopened.
-# The pull's doc count is cut from 3d's 2,048 to 128: without libsodium on
+# The pull's doc count is cut from 3d's 2,048 to 64: without libsodium on
 # the card's host the transport runs utils/chacha.py (about 1 MB/s) and the
-# corpus signs in pure Python, about 0.6 s and 0.4 s a doc there
-NET = dict(n_docs=10, n_edits=50, pull_docs=128, pull_ops=1024,
+# corpus signs in pure Python, about 0.6 s and 0.4 s a doc there (128 docs
+# until phase 3j joined the script and pushed it past 750 s of its 1,200)
+NET = dict(n_docs=10, n_edits=50, paste=16, pull_docs=64, pull_ops=1024,
            timeout_s=300)
 NET_KERNEL_ENV = dict(HM_LIVE_INC_BUDGET="0", HM_DEVICE_MIN_CELLS="0",
                       HM_LIVE_TICK_MS="500")
@@ -3774,25 +3783,26 @@ def transport_crypto() -> str:
     return "chacha (pure Python)"
 
 
-def wait_for(what: str, fn, timeout_s: float) -> float:
+def wait_for(what: str, fn, timeout_s: float, phase: str = "3i") -> float:
     """Poll fn until it is true; the seconds it took. Raises after
     timeout_s."""
     t0 = time.perf_counter()
     while not fn():
         if time.perf_counter() - t0 > timeout_s:
-            raise AssertionError(f"phase 3i: {what} not within {timeout_s} s")
+            raise AssertionError(f"phase {phase}: {what} not within "
+                                 f"{timeout_s} s")
         time.sleep(0.01)
     return time.perf_counter() - t0
 
 
-def check_pinned(ra, rb, label: str) -> None:
+def check_pinned(ra, rb, label: str, phase: str = "3i") -> None:
     """Each side's connection to the other is encrypted and authenticated:
     the transport-proven identity is the other repo's id."""
     for me, other in ((ra, rb), (rb, ra)):
         (peer,) = me.back.network.peers.values()
         if peer.connection.peer_identity != other.back.id:
-            raise AssertionError(f"phase 3i {label}: the connection is not "
-                                 "authenticated as the other repo")
+            raise AssertionError(f"phase {phase} {label}: the connection is "
+                                 "not authenticated as the other repo")
 
 
 def held_changes(repo, url: str) -> list:
@@ -3812,9 +3822,10 @@ def held_changes(repo, url: str) -> list:
 def config2_run(ck, label: str, env: dict) -> dict:
     """Phase 3i (a), one run: BASELINE configs[1] between two port repos on
     the card over encrypted, authenticated TcpSwarm (bench.py
-    `_config2_run`), the launch counts set to 0 just before the edits and
-    read after both sides converged. Every doc on B holds all 60 edits and
-    equals A's, and each side's value equals the plain replay of the
+    `_config2_run`) and then A's paste (one change a doc appending
+    NET["paste"] edits), the launch counts set to 0 just before the edits
+    and read after both sides converged. Every doc on B holds all 76 edits
+    and equals A's, and each side's value equals the plain replay of the
     changes it holds (bench_torch/reference.py `replay_value`, which
     orders the list by the RGA rule without the program's engines or
     kernels). Returns the numbers."""
@@ -3825,6 +3836,11 @@ def config2_run(ck, label: str, env: dict) -> dict:
     from hypermerge_tpu_torch.repo import Repo
 
     cfg = NET
+
+    def paste(d):
+        for j in range(cfg["paste"]):
+            d["edits"].append(2000 + j)
+
     with env_vars(**env):
         ra, rb = Repo(memory=True), Repo(memory=True)
         sa, sb = TcpSwarm(), TcpSwarm()
@@ -3851,7 +3867,9 @@ def config2_run(ck, label: str, env: dict) -> dict:
                 if i % 5 == 0:
                     for h in handles:
                         h.change(lambda d, i=i: d["edits"].append(1000 + i))
-            want = n + (n + 4) // 5
+            for u in urls:
+                ra.change(u, paste)
+            want = n + (n + 4) // 5 + cfg["paste"]
             t_b = wait_for("B's convergence", lambda: all(
                 len((h.value() or {}).get("edits", [])) >= want
                 for h in handles), cfg["timeout_s"])
@@ -4011,6 +4029,315 @@ def net_path(ck, root: str) -> dict:
         f"s, every summary == A's open, {pull['launches']}; transport "
         f"crypto: {crypto}; connections authenticated")
     return counts, dict(card=card, crypto=crypto, config2=runs, pull=pull)
+
+
+# the churn slice (phase 3j): (a) bench.py `_config_churn` uncut — two card
+# repos over TcpSwarm, B's swarm a FaultSwarm whose seeded plan kills and
+# heals the link twice in the burst, on the thread stack and on the shared
+# loop (HM_NET_ASYNC=1); (b) the same shape on the loop under HM_FAULT, which
+# wraps both swarms and ticks them on a wall clock; (c) bench.py
+# `_config_swarm` at its defaults: 16 repos joined through one DHT node
+# alone, the 3 churned ones killed and healed in the burst. All under the
+# live cutovers of phase 3i, so remote ticks of more than 8 ops (the bursts
+# after a resync) take the kernel
+CHURN = dict(n_docs=6, n_edits=40, seed=10, timeout_s=120,
+             events=[(1, "kill"), (2, "heal"), (3, "kill"), (4, "heal")])
+CHURN_ENV = dict(HM_REDIAL_BASE_MS="50", HM_REDIAL_MAX_S="1")
+HM_FAULT_SPEC = "seed=3,kill@4,heal@7,tick=50"
+FLEET = dict(n_peers=16, n_edits=24, fanout=4, seed=19, join_timeout_s=120,
+             timeout_s=180)
+FLEET_ENV = dict(HM_REDIAL_BASE_MS="50", HM_REDIAL_MAX_S="1",
+                 HM_DHT_ANNOUNCE_S="0.5", HM_DHT_LOOKUP_S="0.5",
+                 HM_GOSSIP_FANOUT=str(FLEET["fanout"]),
+                 HM_GOSSIP_RESHUFFLE_S="0.5", HM_NET_PING_S="0")
+
+
+def check_replay(label: str, repos, urls) -> None:
+    """Every repo's value of every doc equals the plain replay of the
+    changes it holds (bench_torch/reference.py `replay_value`)."""
+    from bench_torch.reference import replay_value
+
+    bad = [(i, u) for i, r in enumerate(repos) for u in urls
+           if plain_value(r.doc(u)) != replay_value(held_changes(r, u))]
+    if bad:
+        raise AssertionError(f"phase 3j {label}: {len(bad)} values differ "
+                             f"from the plain replay of their changes: "
+                             f"{bad[:4]}")
+
+
+def on_card(label: str, repos) -> None:
+    for r in repos:
+        if r.back.device.type != "cuda":
+            raise AssertionError(f"phase 3j {label}: on {r.back.device}")
+
+
+def churn_run(ck, label: str, env: dict) -> dict:
+    """Phase 3j (a) or (b), one run: `_config_churn`'s burst (A appends to
+    each doc every round, B every fifth) between two card repos over
+    encrypted, authenticated TcpSwarm. Without HM_FAULT in `env`, B's
+    swarm is a FaultSwarm with CHURN's plan, ticked at each quarter of the
+    burst and then healed; with it, Network wraps both swarms and their
+    tickers run the spec. The launch counts are set to 0 just before the
+    burst and read after both sides converged. Every doc holds 48 edits on
+    both sides, A equals B, each equals the plain replay; B's supervisor
+    reconnected and replication resynced. On the loop the net.aio.conns
+    gauge rose by 2 or more and returns to its start after the close."""
+    import torch
+
+    from hypermerge_tpu_torch.net.faults import FaultPlan, FaultSwarm
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    cfg = CHURN
+    aio = env.get("HM_NET_ASYNC") == "1"
+    by_env = "HM_FAULT" in env
+    with env_vars(**env):
+        net0 = net_counters()
+        t_run = time.perf_counter()
+        ra, rb = Repo(memory=True), Repo(memory=True)
+        sa, sb = TcpSwarm(), TcpSwarm()
+        plan = None if by_env else FaultPlan(seed=cfg["seed"],
+                                             events=cfg["events"])
+        try:
+            on_card(label, (ra, rb))
+            if aio != (sa._async and sb._async):
+                raise AssertionError(f"phase 3j {label}: the transport is "
+                                     "not the one HM_NET_ASYNC asks for")
+            ra.set_swarm(sa)
+            rb.set_swarm(sb if by_env else FaultSwarm(sb, plan))
+            fa, fb = ra.back.network.swarm, rb.back.network.swarm
+            if by_env:
+                if not (isinstance(fa, FaultSwarm)
+                        and isinstance(fb, FaultSwarm)):
+                    raise AssertionError(f"phase 3j {label}: HM_FAULT did "
+                                         "not wrap both swarms")
+                plan = fb.plan
+            fb.connect(sa.address)
+            urls = [ra.create({"edits": []}) for _ in range(cfg["n_docs"])]
+            handles = [rb.open(u) for u in urls]
+            for h in handles:
+                h.value(timeout=cfg["timeout_s"])
+            conns_up = net_counters().get("net.aio.conns", 0)
+            for k in ck.launches:
+                ck.launches[k] = 0
+            t0 = time.perf_counter()
+            n = cfg["n_edits"]
+            quarter = max(1, n // 4)
+            for i in range(n):
+                for u in urls:
+                    ra.change(u, lambda d, i=i: d["edits"].append(i))
+                if i % 5 == 0:
+                    for h in handles:
+                        h.change(lambda d, i=i: d["edits"].append(1000 + i))
+                if not by_env and i % quarter == quarter - 1:
+                    fb.tick()  # the kill / heal schedule fires mid-burst
+            if by_env:
+                last = max(t for t, _ev in plan.events)
+                wait_for("the spec's heal", lambda: plan.tick >= last,
+                         cfg["timeout_s"], phase="3j")
+            else:
+                while plan.tick < len(cfg["events"]):
+                    fb.tick()  # healed for the convergence wait
+            want = n + (n + 4) // 5
+            t_b = wait_for(f"{label}: B's convergence", lambda: all(
+                len((h.value() or {}).get("edits", [])) >= want
+                for h in handles), cfg["timeout_s"], phase="3j")
+            wait_for(f"{label}: A's convergence", lambda: all(
+                len(ra.doc(u)["edits"]) >= want for u in urls),
+                cfg["timeout_s"], phase="3j")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.launches.items() if v}
+            bad = [u for u in urls if ra.doc(u) != rb.doc(u)
+                   or len(rb.doc(u)["edits"]) != want]
+            if bad:
+                raise AssertionError(f"phase 3j {label}: {len(bad)} docs "
+                                     "differ between A and B")
+            check_replay(label, (ra, rb), urls)
+            check_pinned(ra, rb, label, phase="3j")
+            repl = {"a": ra.back.network.replication.stats,
+                    "b": rb.back.network.replication.stats}
+            churn = {
+                "reconnects": fb.supervisor.stats["reconnects"],
+                "resyncs": repl["a"]["resyncs"] + repl["b"]["resyncs"],
+                "t_resync_ms": (repl["a"]["t_resync_ms"]
+                                + repl["b"]["t_resync_ms"]),
+                "frames_dropped_injected": fb.stats[
+                    "frames_dropped_injected"],
+                "plan_ticks": plan.tick,
+            }
+            stats = {"a": live_stats(ra), "b": live_stats(rb)}
+        finally:
+            ra.close()
+            rb.close()
+            sa.destroy()
+            sb.destroy()
+        net1 = net_counters()
+        # the loop's busy time is read against this: set-up, the
+        # handshakes, the opens and the burst, up to the close
+        run_s = time.perf_counter() - t_run
+        conns = None
+        if aio:
+            conns = {"start": net0.get("net.aio.conns", 0), "up": conns_up}
+            conns["closed_s"] = wait_for(
+                f"{label}: net.aio.conns back to its start",
+                lambda: net_counters().get("net.aio.conns", 0)
+                <= conns["start"], 30, phase="3j")
+    if churn["reconnects"] < 1 or churn["resyncs"] < 1:
+        raise AssertionError(f"phase 3j {label}: no reconnect or no resync "
+                             f"after the kill: {churn}")
+    if not launches.get("materialize_live"):
+        raise AssertionError(f"phase 3j {label}: materialize_live never "
+                             f"launched on the card: {launches}")
+    net = {k: v - net0.get(k, 0) for k, v in net1.items()
+           if k != "net.aio.conns"}
+    if aio:
+        if conns["up"] - conns["start"] < 2:
+            raise AssertionError(f"phase 3j {label}: net.aio.conns {conns}")
+        if not net.get("net.aio.loop_busy_ms", 0) > 0:
+            raise AssertionError(f"phase 3j {label}: the loop never ran")
+    return dict(
+        label=label, env=env, docs=cfg["n_docs"], edits_a_doc=want,
+        wall_s=wall, run_s=run_s, b_converged_s=t_b, launches=launches,
+        churn=churn,
+        live=stats, replication=repl, aio_conns=conns,
+        loop_busy_ms=net.get("net.aio.loop_busy_ms"), net=net,
+    )
+
+
+def fleet_run(ck) -> dict:
+    """Phase 3j (c): `_config_swarm` at its defaults. 16 card repos, each
+    on a DhtSwarm bootstrapped off one DhtNode, no connect() anywhere;
+    peers 1-3 wrapped in FaultSwarms (seed 19 + i: kill, heal) ticked at
+    one and two thirds of repo 0's 24 edits. The launch counts are set to
+    0 just before the edits and read after every peer converged. Every
+    peer reads {"edits": [0..23]}, bit-identical as sorted JSON and equal
+    to the plain replay; a peer's replication frames stay within
+    4 x fanout + 8 an edit."""
+    import torch
+
+    from hypermerge_tpu_torch import telemetry
+    from hypermerge_tpu_torch.net.discovery import DhtNode, DhtSwarm
+    from hypermerge_tpu_torch.net.faults import FaultPlan, FaultSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    cfg = FLEET
+    n, n_edits = cfg["n_peers"], cfg["n_edits"]
+    with env_vars(**NET_KERNEL_ENV, **FLEET_ENV):
+        boot = DhtNode()
+        repos, swarms, faulted = [], [], []
+        try:
+            n_churn = max(1, n // 5)
+            for i in range(n):
+                repos.append(Repo(memory=True))
+                sw = DhtSwarm(bootstrap=[boot.address])
+                if 0 < i <= n_churn:  # never the creator
+                    sw = FaultSwarm(sw, FaultPlan(
+                        seed=cfg["seed"] + i,
+                        events=[(1, "kill"), (2, "heal")]))
+                    faulted.append(sw)
+                swarms.append(sw)
+                repos[-1].set_swarm(sw)
+            on_card("(c)", repos)
+            t0 = time.perf_counter()
+            url = repos[0].create({"edits": []})
+            handles = [r.open(url) for r in repos[1:]]
+            for h in handles:
+                h.value(timeout=cfg["join_timeout_s"])
+            t_join = time.perf_counter() - t0
+            frames0 = [r.back.network.replication.stats["frames_tx"]
+                       for r in repos]
+            snap0 = telemetry.snapshot()
+            for k in ck.launches:
+                ck.launches[k] = 0
+            t0 = time.perf_counter()
+            third = max(1, n_edits // 3)
+            for i in range(n_edits):
+                repos[0].change(url, lambda d, i=i: d["edits"].append(i))
+                if i in (third, 2 * third):
+                    for fs in faulted:
+                        fs.tick()  # kill, then heal
+            for fs in faulted:
+                while fs.plan.tick < 2:
+                    fs.tick()
+            want = list(range(n_edits))
+            wait_for("(c): every peer's convergence", lambda: all(
+                (h.value() or {}).get("edits") == want for h in handles),
+                cfg["timeout_s"], phase="3j")
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.launches.items() if v}
+            blobs = {json.dumps(plain_value(r.doc(url)), sort_keys=True)
+                     for r in repos}
+            if blobs != {json.dumps({"edits": want}, sort_keys=True)}:
+                raise AssertionError(f"phase 3j (c): {len(blobs)} distinct "
+                                     "values across the fleet")
+            check_replay("(c)", repos, [url])
+            amp = [(r.back.network.replication.stats["frames_tx"] - f0)
+                   / n_edits for r, f0 in zip(repos, frames0)]
+            snap1 = telemetry.snapshot()
+
+            def delta(k):
+                return snap1.get(k, 0) - snap0.get(k, 0)
+
+            numbers = dict(
+                peers=n, churned=len(faulted), fanout=cfg["fanout"],
+                edits=n_edits, t_join_s=t_join, wall_s=wall,
+                frame_amp_max=max(amp), frame_amp_mean=sum(amp) / len(amp),
+                lookups=delta("dht.lookups"),
+                lookup_hops_mean=delta("dht.lookup_hops")
+                / max(delta("dht.lookups"), 1),
+                reconnects=sum(sw.supervisor.stats["reconnects"]
+                               for sw in swarms),
+                resyncs=sum(r.back.network.replication.stats["resyncs"]
+                            for r in repos),
+                launches=launches,
+                device_dispatches=sum(r.back.live.stats["device_dispatches"]
+                                      for r in repos),
+            )
+        finally:
+            for r in repos:
+                r.close()
+            for sw in swarms:
+                sw.destroy()
+            boot.close()
+    if numbers["frame_amp_max"] > 4 * cfg["fanout"] + 8:
+        raise AssertionError(f"phase 3j (c): frames a peer an edit above "
+                             f"4 x fanout + 8: {numbers}")
+    return numbers
+
+
+def chaos_path(ck) -> tuple:
+    """Phase 3j: (a) the churn run on the thread stack and on the loop,
+    (b) the same under HM_FAULT, (c) the DHT fleet. Returns (the launch
+    counts of the four runs summed, the numbers)."""
+    card = card_line()
+    base = dict(NET_KERNEL_ENV, **CHURN_ENV)
+    runs = [churn_run(ck, "(a) threads", dict(base, HM_NET_ASYNC="0")),
+            churn_run(ck, "(a) loop", dict(base, HM_NET_ASYNC="1")),
+            churn_run(ck, "(b) HM_FAULT", dict(base, HM_NET_ASYNC="1",
+                                               HM_FAULT=HM_FAULT_SPEC))]
+    for r in runs:
+        log(f"phase 3j {r['label']}: " + json.dumps(r) + f" [{card}]")
+    fleet = fleet_run(ck)
+    log("phase 3j (c) DHT fleet: " + json.dumps(fleet) + f" [{card}]")
+    counts = {}
+    for launches in [r["launches"] for r in runs] + [fleet["launches"]]:
+        for k, v in launches.items():
+            counts[k] = counts.get(k, 0) + v
+    log("phase 3j check: " + "; ".join(
+        f"{r['label']} converged in {r['wall_s']:.3f} s (reconnects "
+        f"{r['churn']['reconnects']}, resyncs {r['churn']['resyncs']}, "
+        f"materialize_live {r['launches'].get('materialize_live')}"
+        + (f", loop busy {r['loop_busy_ms']:.1f} ms of the run's "
+           f"{r['run_s'] * 1e3:.1f}" if r["aio_conns"] else "") + ")"
+        for r in runs)
+        + f"; (c) {fleet['peers']} peers joined in {fleet['t_join_s']:.3f} s "
+        f"and converged in {fleet['wall_s']:.3f} s, frame amp max "
+        f"{fleet['frame_amp_max']:.2f}, launches {fleet['launches']}; every "
+        "value equal on all sides and to the plain replay")
+    return counts, dict(card=card, crypto=transport_crypto(), churn=runs,
+                        fleet=fleet)
 
 
 def doc_entry_call(ck, args, A, K):
@@ -4643,6 +4970,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="hm-net-") as net_root:
             net_counts, net_numbers = net_path(ck, net_root)
         elapsed("phase 3i")
+        chaos_counts, chaos_numbers = chaos_path(ck)
+        elapsed("phase 3j")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -4723,6 +5052,9 @@ def main() -> int:
     # the counts, and stand beside them
     for k, v in net_counts.items():
         counts[k] += v
+    # and so do the churn slice's (3j's four runs)
+    for k, v in chaos_counts.items():
+        counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
               "clock_union_min": [2, CONFIG5["n_docs"] // 2],
@@ -4748,6 +5080,8 @@ def main() -> int:
                if name in BULK else {}),
             **({"net_slice_launches": net_counts[name]}
                if name in net_counts else {}),
+            **({"chaos_slice_launches": chaos_counts[name]}
+               if name in chaos_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
@@ -4756,6 +5090,7 @@ def main() -> int:
     log("pipeline_open " + json.dumps(open_numbers))
     log("crash " + json.dumps(crash_numbers))
     log("net " + json.dumps(net_numbers))
+    log("chaos " + json.dumps(chaos_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -7,14 +7,7 @@ cursor/clock gossip and ephemeral doc messages ride the "Msgs" channel
 (reference channel 'HypermergeMessages', src/RepoBackend.ts:113), feed
 sync rides "Replication" (net/replication.py).
 
-The port's copy of hypermerge_tpu/net/network.py. HM_FAULT (the
-reference's fault-injection swarm, net/faults.py) is not ported yet:
-set_swarm raises NotImplementedError under it (ROADMAP.md Queue 1 item
-1(b)). The DHT hooks (`set_need_hook`, `set_seed_hook`,
-`discovery_report`, the `via` / `seed` join options of HM_DHT_PUSH_SEED)
-are wired as in the reference; only a DhtSwarm consumes them (item
-1(c)), so TcpSwarm and LoopbackSwarm ignore them, as they do in the
-reference.
+The port's copy of hypermerge_tpu/net/network.py.
 """
 
 from __future__ import annotations
@@ -100,14 +93,16 @@ class Network:
     ) -> None:
         if self.swarm is not None:
             raise RuntimeError("swarm already set")
-        if os.environ.get("HM_FAULT"):
-            # the reference wraps the swarm in a seeded FaultSwarm
-            # (net/faults.py) here; without it the soak would run
-            # fault-free while claiming otherwise
-            raise NotImplementedError(
-                "HM_FAULT needs net/faults.py, which is not ported to "
-                "hypermerge_tpu_torch yet (ROADMAP.md Queue 1 item 1(b))"
-            )
+        fault_spec = os.environ.get("HM_FAULT")
+        if fault_spec:
+            # fault-injection soak mode: every connection of every
+            # swarm rides a seeded FaultDuplex (net/faults.py), ticks
+            # advanced on a wall-clock timer
+            from .faults import FaultSwarm, parse_fault_spec
+
+            swarm = FaultSwarm(swarm, parse_fault_spec(fault_spec))
+            swarm.start_ticker()
+            log("network", f"HM_FAULT active: {fault_spec}")
         self.swarm = swarm
         # the repo's swarm posture (reference Network.ts:22 — every
         # join uses it; server-ish repos announce, clients look up)

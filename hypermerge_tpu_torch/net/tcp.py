@@ -12,11 +12,7 @@ src/SwarmInterface.ts).
 reference's hyperswarm; `connect` is the bootstrap primitive a discovery
 implementation would call.
 
-The port's copy of hypermerge_tpu/net/tcp.py, with the thread-per-
-connection stack only: the reference's HM_NET_ASYNC=1 twin multiplexes
-every connection onto net/aio.py's loop, which is not ported yet
-(ROADMAP.md Queue 1 item 1(b)), so the constructor raises
-NotImplementedError under that switch.
+The port's copy of hypermerge_tpu/net/tcp.py.
 """
 
 from __future__ import annotations
@@ -84,7 +80,7 @@ def _ping_misses() -> int:
 
 
 def _accept_pool_n() -> int:
-    """Cap on concurrent inbound-handshake workers: an
+    """Cap on concurrent inbound-handshake workers (legacy stack): an
     accept storm parks behind this pool instead of spawning a thread
     per accepted socket. Each slot is held at most the 10s handshake
     deadline."""
@@ -475,14 +471,6 @@ class TcpSwarm(Swarm):
         port: int = 0,
         identity: Optional[bytes] = None,
     ) -> None:
-        if os.environ.get("HM_NET_ASYNC", "0") == "1":
-            # the reference's shared-loop transport twin (net/aio.py)
-            # is not ported: refuse rather than run thread-per-connection
-            # under a switch that asks for the other stack
-            raise NotImplementedError(
-                "HM_NET_ASYNC=1 needs net/aio.py, which is not ported to "
-                "hypermerge_tpu_torch yet (ROADMAP.md Queue 1 item 1(b))"
-            )
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._server.bind((host, port))
@@ -497,20 +485,39 @@ class TcpSwarm(Swarm):
         self._banned_ids: set = set()  # proven peer identities
         self._banned_addrs: set = set()  # outbound dial addresses
         self._banned_hosts: set = set()  # anonymous-peer fallback
-        self.supervisor = SessionSupervisor(
-            dial=self._dial,
-            deliver=self._deliver_outbound,
-            banned=lambda addr: (
-                addr in self._banned_addrs
-                or addr[0] in self._banned_hosts
-            ),
-        )
-        # bounded inbound-handshake pool: an accept storm queues here
-        # instead of spawning a thread per accept
-        self._accept_cv = make_condition("net.tcp.accept")
-        self._accept_q: deque = deque()
-        self._accept_idle = 0
-        self._accept_workers = 0
+        # transport twin selector: =1 multiplexes every connection of
+        # the process onto the shared net/aio.py loop (bit-compatible
+        # on the wire with the =0 thread-per-connection stack)
+        self._async = os.environ.get("HM_NET_ASYNC", "0") == "1"
+        self._loop = None
+        if self._async:
+            from .aio import get_loop
+
+            self._loop = get_loop()
+            self.supervisor = SessionSupervisor(
+                dial=self._dial_async,
+                deliver=self._deliver_outbound,
+                banned=lambda addr: (
+                    addr in self._banned_addrs
+                    or addr[0] in self._banned_hosts
+                ),
+                connector=self._loop,
+            )
+        else:
+            self.supervisor = SessionSupervisor(
+                dial=self._dial,
+                deliver=self._deliver_outbound,
+                banned=lambda addr: (
+                    addr in self._banned_addrs
+                    or addr[0] in self._banned_hosts
+                ),
+            )
+            # bounded inbound-handshake pool (legacy stack): an accept
+            # storm queues here instead of spawning a thread per accept
+            self._accept_cv = make_condition("net.tcp.accept")
+            self._accept_q: deque = deque()
+            self._accept_idle = 0
+            self._accept_workers = 0
         self._accepter = threading.Thread(
             target=self._accept_loop, daemon=True
         )
@@ -532,6 +539,11 @@ class TcpSwarm(Swarm):
                 sock, _addr = self._server.accept()
             except OSError:
                 break
+            if self._async:
+                # the handshake runs as loop callbacks — nothing to
+                # park a thread on; checks resume in _inbound_ready
+                self._accept_async(sock)
+                continue
             # handshake per connection off the listener thread, but
             # BOUNDED: an accept storm (or a dialer that stalls inside
             # the 10s handshake window) queues here instead of
@@ -567,6 +579,56 @@ class TcpSwarm(Swarm):
                     sock.close()
                 except OSError:
                     pass
+
+    def _accept_async(self, sock: socket.socket) -> None:
+        """Inbound path under HM_NET_ASYNC=1: the same checks as
+        _handle_inbound, split around the loop-driven handshake."""
+        from .aio import AioDuplex
+
+        try:
+            peer_host = sock.getpeername()[0]
+        except OSError:
+            peer_host = None
+        if peer_host is not None and peer_host in self._banned_hosts:
+            log("net:tcp", f"refusing inbound from banned host {peer_host}")
+            sock.close()
+            return
+        ident = self._identity
+        AioDuplex(
+            sock,
+            is_client=False,
+            identity=ident,
+            on_ready=lambda d, exc: self._inbound_ready(d, exc, ident),
+        )
+
+    def _inbound_ready(self, duplex, exc, ident) -> None:
+        """Dispatch-worker continuation of _accept_async (fires once
+        per accepted connection when its handshake settles)."""
+        if exc is not None:
+            return  # the duplex is already tearing itself down
+        if ident is None and self._identity is not None:
+            # set_identity landed mid-handshake: this connection went
+            # through anonymously and would bypass identity pinning —
+            # drop it; the dialer retries into the authenticated path
+            log("net:tcp", "dropping pre-identity inbound connection")
+            duplex.close()
+            return
+        if (
+            duplex.peer_identity is not None
+            and duplex.peer_identity in self._banned_ids
+        ):
+            log(
+                "net:tcp",
+                f"refusing inbound redial from banned peer "
+                f"{duplex.peer_identity[:6]}",
+            )
+            duplex.close()
+            return
+        self._track(duplex)
+        if not duplex.closed and self._cb is not None:
+            details = ConnectionDetails(client=False)
+            details._on_ban = lambda: self._record_ban(duplex)
+            self._cb(duplex, details)
 
     def _track(self, duplex: TcpDuplex) -> None:
         """Track a live duplex; closed duplexes LEAVE the list (a
@@ -664,6 +726,43 @@ class TcpSwarm(Swarm):
         self._track(duplex)
         return duplex
 
+    def _dial_async(self, address: Tuple[str, int], cb) -> None:
+        """Async-mode dial primitive (supervisor connector mode): a
+        non-blocking connect + loop-driven handshake; `cb(duplex, exc)`
+        fires exactly once on a dispatch worker."""
+        from .aio import AioDuplex
+
+        address = tuple(address)
+
+        def ready(duplex, exc) -> None:
+            if exc is not None:
+                duplex.close()
+                cb(None, OSError(f"handshake failed: {exc}"))
+                return
+            if (
+                duplex.peer_identity is not None
+                and duplex.peer_identity in self._banned_ids
+            ):
+                duplex.close()
+                self._banned_addrs.add(address)  # stop the session too
+                cb(None, OSError("peer identity is banned"))
+                return
+            self._track(duplex)
+            cb(duplex, None)
+
+        def dialed(sock, exc) -> None:  # loop thread: keep it cheap
+            if exc is not None:
+                cb(None, exc)
+                return
+            AioDuplex(
+                sock,
+                is_client=True,
+                identity=self._identity,
+                on_ready=ready,
+            )
+
+        self._loop.dial(address, dial_timeout_s(), dialed)
+
     def _deliver_outbound(
         self, duplex: TcpDuplex, details: ConnectionDetails
     ) -> None:
@@ -708,17 +807,18 @@ class TcpSwarm(Swarm):
             self._server.close()
         except OSError:
             pass
-        # wake parked handshake workers (they see _destroyed and exit)
-        # and refuse the sockets still queued behind them
-        with self._accept_cv:
-            pending = list(self._accept_q)
-            self._accept_q.clear()
-            self._accept_cv.notify_all()
-        for sock in pending:
-            try:
-                sock.close()
-            except OSError:
-                pass
+        if not self._async:
+            # wake parked handshake workers (they see _destroyed and
+            # exit) and refuse the sockets still queued behind them
+            with self._accept_cv:
+                pending = list(self._accept_q)
+                self._accept_q.clear()
+                self._accept_cv.notify_all()
+            for sock in pending:
+                try:
+                    sock.close()
+                except OSError:
+                    pass
         with self._dlock:
             live = list(self._duplexes)
         for d in live:

@@ -128,9 +128,9 @@ class Repo:
     def set_swarm(self, swarm, join_options=None) -> None:
         """Attach a peer swarm. `join_options` sets the repo's swarm
         posture (net/swarm.JoinOptions — announce and/or lookup;
-        reference src/Repo.ts:20 setSwarm(swarm, joinOptions)).
-        Raises NotImplementedError under HM_FAULT (net/faults.py is not
-        ported yet)."""
+        reference src/Repo.ts:20 setSwarm(swarm, joinOptions)). Under
+        HM_FAULT the swarm is wrapped in a seeded FaultSwarm
+        (net/faults.py)."""
         self.back.set_swarm(swarm, join_options)
 
     def start_file_server(self, path: str) -> None:

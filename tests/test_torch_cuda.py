@@ -1249,3 +1249,81 @@ def test_two_repos_converge_over_loopback_on_the_card(cuda, monkeypatch):
     finally:
         ra.close()
         rb.close()
+
+
+def test_two_repos_reconverge_through_kill_and_heal_on_the_card(
+        cuda, monkeypatch):
+    """Two port repos on the card over the shared-loop transport
+    (HM_NET_ASYNC=1), B's swarm wrapped in a seeded FaultSwarm whose plan
+    kills the link mid-burst and heals it. With the live cutovers at 0
+    every remote tick of more than 8 ops goes to the kernel. The
+    supervised redial resyncs B, and both sides converge to the state an
+    unfaulted LoopbackSwarm pair reaches on the same edits, with
+    materialize_live launched on the card."""
+    import time
+
+    from hypermerge_tpu_torch.net.faults import FaultPlan, FaultSwarm
+    from hypermerge_tpu_torch.net.swarm import LoopbackHub, LoopbackSwarm
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    for k, v in (("HM_LIVE_INC_BUDGET", "0"), ("HM_DEVICE_MIN_CELLS", "0"),
+                 ("HM_LIVE_TICK_MS", "500"), ("HM_NET_ASYNC", "1"),
+                 ("HM_REDIAL_BASE_MS", "20"), ("HM_REDIAL_MAX_S", "0.25")):
+        monkeypatch.setenv(k, v)
+
+    def script(ra, rb, url, lo, hi):
+        for i in range(lo, hi):
+            vals = [100 * i + j for j in range(12)]
+            ra.change(url, lambda d, vals=vals: [
+                d["a"].append(v) for v in vals])
+            rb.change(url, lambda d, i=i: d["b"].append(i))
+
+    def wait(fn, what):
+        deadline = time.monotonic() + 60
+        while not fn():
+            assert time.monotonic() < deadline, f"{what} not in 60 s"
+            time.sleep(0.02)
+
+    hub = LoopbackHub()
+    twin = [Repo(memory=True), Repo(memory=True)]
+    try:
+        for r in twin:
+            r.set_swarm(LoopbackSwarm(hub))
+        url = twin[0].create({"a": [], "b": []})
+        assert twin[1].open(url).value(timeout=60) is not None
+        script(*twin, url, 0, 12)
+        wait(lambda: len(twin[0].doc(url)["b"]) == 12
+             and twin[0].doc(url) == twin[1].doc(url), "the twin")
+        want = twin[0].doc(url)
+    finally:
+        for r in twin:
+            r.close()
+
+    plan = FaultPlan(seed=11, events=[(1, "kill"), (2, "heal")])
+    ra, rb = Repo(memory=True), Repo(memory=True)
+    sa, fb = TcpSwarm(), FaultSwarm(TcpSwarm(), plan)
+    try:
+        assert ra.back.device.type == rb.back.device.type == "cuda"
+        assert sa._async and fb.inner._async
+        ra.set_swarm(sa)
+        rb.set_swarm(fb)
+        fb.connect(sa.address)
+        url = ra.create({"a": [], "b": []})
+        assert rb.open(url).value(timeout=60) is not None
+        before = ck.launches["materialize_live"]
+        script(ra, rb, url, 0, 4)
+        fb.tick()  # kill
+        wait(lambda: plan.down, "the kill")
+        script(ra, rb, url, 4, 8)
+        fb.tick()  # heal: the supervised redial goes through
+        script(ra, rb, url, 8, 12)
+        wait(lambda: ra.doc(url) == want and rb.doc(url) == want,
+             "convergence")
+        assert rb.back.network.replication.stats["resyncs"] >= 1
+        assert ck.launches["materialize_live"] > before
+    finally:
+        ra.close()
+        rb.close()
+        sa.destroy()
+        fb.destroy()

@@ -16,8 +16,9 @@ network hooks and `Repo.set_swarm`), on the CPU.
   a port Repo and a reference Repo converge to equal values over a
   TcpSwarm pair, one from each package (encrypted and authenticated, and
   again under HM_TCP_PLAINTEXT=1).
-- The switches whose modules are not ported yet (HM_FAULT: net/faults.py;
-  HM_NET_ASYNC=1: net/aio.py) raise NotImplementedError.
+- HM_FAULT (net/faults.py) and HM_NET_ASYNC=1 (net/aio.py) are held to
+  the reference in tests/test_torch_chaos.py, the DHT in
+  tests/test_torch_discovery.py.
 
 Tolerance: exact.
 """
@@ -1365,23 +1366,6 @@ def test_port_and_reference_converge_over_tcp(monkeypatch, net, plaintext):
     finally:
         rr.close()
         sr.destroy()
-
-
-def test_hm_fault_raises_in_set_swarm(monkeypatch, net):
-    """HM_FAULT asks for the fault-injection swarm (net/faults.py, not
-    ported yet): set_swarm refuses instead of running fault-free."""
-    monkeypatch.setenv("HM_FAULT", "seed=7,drop=0.1")
-    r = net.repo()
-    with pytest.raises(NotImplementedError, match="HM_FAULT"):
-        r.set_swarm(LoopbackSwarm(LoopbackHub()))
-
-
-def test_hm_net_async_raises_in_tcp_swarm(monkeypatch):
-    """HM_NET_ASYNC=1 asks for the shared-loop transport (net/aio.py,
-    not ported yet): TcpSwarm refuses before it binds a socket."""
-    monkeypatch.setenv("HM_NET_ASYNC", "1")
-    with pytest.raises(NotImplementedError, match="HM_NET_ASYNC"):
-        TcpSwarm()
 
 
 def test_repo_without_swarm_has_no_network(net):

@@ -424,23 +424,10 @@ def test_persistence_and_bulk_cold_start(tmp_path):
         r.close()
 
 
-def _swarm_under_hm_fault(r):
-    # set_swarm itself is ported; the fault-injection swarm it would
-    # wrap under HM_FAULT (net/faults.py) is not
-    from hypermerge_tpu_torch.net.swarm import LoopbackHub, LoopbackSwarm
-
-    os.environ["HM_FAULT"] = "seed=7,drop=0.1"
-    try:
-        r.set_swarm(LoopbackSwarm(LoopbackHub()))
-    finally:
-        del os.environ["HM_FAULT"]
-
-
 @pytest.mark.parametrize("call", [
     lambda r: r.files,
-    _swarm_under_hm_fault,
     lambda r: r.start_file_server("/nonexistent/sock"),
-], ids=["files", "set_swarm", "start_file_server"])
+], ids=["files", "start_file_server"])
 def test_unported_entry_points_raise(repo, call):
     with pytest.raises(NotImplementedError):
         call(repo)

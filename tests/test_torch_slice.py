@@ -226,12 +226,14 @@ def test_port_imports_no_jax_and_requires_a_device():
         # durability: the fault harness, the journal and recovery
         for name in ("faults", "wal", "scrub"):
             assert f"hypermerge_tpu_torch.storage.{name}" in sys.modules, name
-        # the network: transport, crypto and replication
+        # the network: transport, crypto, replication, fault injection,
+        # the shared-loop transport and the DHT
         for name in ("net", "net.duplex", "net.connection", "net.peer",
                      "net.secure", "net.swarm", "net.resilience",
                      "net.discovery", "net.discovery.gossip",
                      "net.replication", "net.network", "net.tcp",
-                     "utils.mapset", "utils.chacha"):
+                     "net.faults", "net.aio", "net.discovery.dht",
+                     "net.discovery.swarm", "utils.mapset", "utils.chacha"):
             assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
         bad = [m for m in sys.modules
                if m == "hypermerge_tpu" or m.startswith("hypermerge_tpu.")]
