@@ -207,7 +207,7 @@ prints a result):
         second run; wall time, both sides' live-engine stats, the
         replication and wire counters and the transport crypto (native
         libsodium or chacha) printed; (b) a late replica: A holds a signed
-        corpus of 64 docs x 1,024 ops (phase d's shape, cut in docs: the
+        corpus of 32 docs x 1,024 ops (phase d's shape, cut in docs: the
         pure-Python crypto) in `Repo(path)` and opens it; B, a fresh
         `Repo(path)` on the card over TcpSwarm, `open_many`s every url
         and replication pulls every feed in signed chunks; B closed and
@@ -215,6 +215,41 @@ prints a result):
         set to 0 before and read after (pack_prefix and materialize_wire
         launched), every summary byte-equal to A's open; the pull's and
         the reopen's times printed; a `net` JSON line;
+     j. churn (net/faults.py, net/aio.py, net/discovery/), under 3i's
+        live cutovers: (a) bench.py `_config_churn` uncut, two card repos
+        over TcpSwarm with B's swarm a seeded FaultSwarm killed and healed
+        twice in the burst, on the thread stack and on the shared loop
+        (HM_NET_ASYNC=1); (b) the same on the loop under HM_FAULT; (c)
+        bench.py `_config_swarm` cut to 10 card repos (from 16) joined
+        through one DHT node; every value equal on all sides and to the
+        plain replay,
+        materialize_live launched; a `chaos` JSON line;
+     k. the hub (net/ipc.py), every process a port process: the daemon
+        `python -m hypermerge_tpu_torch.net.ipc <repo> <sock> --hub` on
+        the card by default, with HM_WORKERS=2 worker daemons and
+        durable acks (HM_FSYNC=1, HM_ACK_DURABLE=1, HM_WAL_MS=30: bench.py
+        `_writer_daemon_env`); (a) bench.py `_config_writers` at 8
+        writers: 8 writer processes on `connect_frontend`, each making
+        200 ack-paced edits to its own doc and then a paste of 16 keys;
+        a fresh observer connection reads every doc equal to its
+        writer's sequence; the hub's merged telemetry (`workers.<i>.*`,
+        the summed journal appends and live-engine counters); the daemon
+        stopped and restarted over the same repo (HM_WAL_MS=3,
+        HM_WORKER_RESPAWN_MS=100, for (b)), and one `open_many` of every
+        doc through it, which each worker opens as a bulk load on the
+        card; (b) on that daemon, bench.py `_config_writers_hotdoc` (8
+        writers x 60 edits on one doc, every digest bit-identical), then
+        tests/test_wal.py's worker kill: the doc's worker SIGKILLed after
+        8 observer-acked edits, respawned, a new connection reads every
+        acked edit (acked_lost 0) and writes; the time to respawn and to
+        the first read; then each shard repo opened here by
+        `Repo(path)`, `open_many` + `fetch_bulk_summaries` with the
+        launch counts set to 0 just before and read just after
+        (pack_prefix and materialize_wire launched), every value equal
+        to the observer's; each worker's /proc/<pid>/cmdline names the
+        port's module and the device, and its maps show libcuda (and,
+        after the restarted daemon's open, the built pack_prefix and
+        doc_kernel libraries); a `hub` JSON line;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -3743,11 +3778,12 @@ def crash_path(ck, root: str, corpus: str, urls: list, rows: dict) -> dict:
 # on the card). A change of 16 ops takes the kernel wherever it lands;
 # (b) a late replica
 # pulling a signed corpus of phase 3d's shape over TcpSwarm, then reopened.
-# The pull's doc count is cut from 3d's 2,048 to 64: without libsodium on
+# The pull's doc count is cut from 3d's 2,048 to 32: without libsodium on
 # the card's host the transport runs utils/chacha.py (about 1 MB/s) and the
 # corpus signs in pure Python, about 0.6 s and 0.4 s a doc there (128 docs
-# until phase 3j joined the script and pushed it past 750 s of its 1,200)
-NET = dict(n_docs=10, n_edits=50, paste=16, pull_docs=64, pull_ops=1024,
+# until phase 3j joined the script and pushed it past 750 s of its 1,200;
+# 64 until phase 3k joined it)
+NET = dict(n_docs=10, n_edits=50, paste=16, pull_docs=32, pull_ops=1024,
            timeout_s=300)
 NET_KERNEL_ENV = dict(HM_LIVE_INC_BUDGET="0", HM_DEVICE_MIN_CELLS="0",
                       HM_LIVE_TICK_MS="500")
@@ -4036,15 +4072,17 @@ def net_path(ck, root: str) -> dict:
 # heals the link twice in the burst, on the thread stack and on the shared
 # loop (HM_NET_ASYNC=1); (b) the same shape on the loop under HM_FAULT, which
 # wraps both swarms and ticks them on a wall clock; (c) bench.py
-# `_config_swarm` at its defaults: 16 repos joined through one DHT node
-# alone, the 3 churned ones killed and healed in the burst. All under the
+# `_config_swarm`, cut from its 16 repos to FLEET["n_peers"] (16 until
+# phase 3k joined the script: the join's Python crypto took 58-87 s at 16),
+# joined through one DHT node alone, the n // 5 churned ones killed and
+# healed in the burst. All under the
 # live cutovers of phase 3i, so remote ticks of more than 8 ops (the bursts
 # after a resync) take the kernel
 CHURN = dict(n_docs=6, n_edits=40, seed=10, timeout_s=120,
              events=[(1, "kill"), (2, "heal"), (3, "kill"), (4, "heal")])
 CHURN_ENV = dict(HM_REDIAL_BASE_MS="50", HM_REDIAL_MAX_S="1")
 HM_FAULT_SPEC = "seed=3,kill@4,heal@7,tick=50"
-FLEET = dict(n_peers=16, n_edits=24, fanout=4, seed=19, join_timeout_s=120,
+FLEET = dict(n_peers=10, n_edits=24, fanout=4, seed=19, join_timeout_s=120,
              timeout_s=180)
 FLEET_ENV = dict(HM_REDIAL_BASE_MS="50", HM_REDIAL_MAX_S="1",
                  HM_DHT_ANNOUNCE_S="0.5", HM_DHT_LOOKUP_S="0.5",
@@ -4206,9 +4244,10 @@ def churn_run(ck, label: str, env: dict) -> dict:
 
 
 def fleet_run(ck) -> dict:
-    """Phase 3j (c): `_config_swarm` at its defaults. 16 card repos, each
-    on a DhtSwarm bootstrapped off one DhtNode, no connect() anywhere;
-    peers 1-3 wrapped in FaultSwarms (seed 19 + i: kill, heal) ticked at
+    """Phase 3j (c): `_config_swarm`, cut to FLEET["n_peers"] card repos
+    (its default: 16), each on a DhtSwarm bootstrapped off one DhtNode, no
+    connect() anywhere; peers 1 to n // 5 wrapped in FaultSwarms (seed
+    19 + i: kill, heal) ticked at
     one and two thirds of repo 0's 24 edits. The launch counts are set to
     0 just before the edits and read after every peer converged. Every
     peer reads {"edits": [0..23]}, bit-identical as sorted JSON and equal
@@ -4338,6 +4377,562 @@ def chaos_path(ck) -> tuple:
         "value equal on all sides and to the plain replay")
     return counts, dict(card=card, crypto=transport_crypto(), churn=runs,
                         fleet=fleet)
+
+
+# the hub slice (phase 3k): bench.py's many-writer plane on the sharded hub
+# (`_config_writers` at its 8-writer point, `_config_writers_hotdoc`, and
+# tests/test_wal.py's worker kill), every process a port process: the daemon
+# `python -m hypermerge_tpu_torch.net.ipc <repo> <sock> --hub` (the card by
+# default), HM_WORKERS=2 worker daemons it spawns, and writer processes on
+# `connect_frontend`, in `_writer_daemon_env`'s environment (durable acks
+# over the group-commit journal). Local edits resolve in the live engine's
+# `apply_local` and never enter its tick, so the workers' kernels are those
+# of a reopened shard: the daemon is restarted over the writers' repo and
+# every doc read through one `open_many`, which each worker opens on the
+# card (pack_prefix, the slab's one launch); (b) runs on that daemon; then
+# each shard is opened in this process
+HUB = dict(writers=8, edits=200, paste=16, hot_writers=8, hot_edits=60,
+           kill_edits=8, timeout_s=180)
+HUB_ENV = dict(HM_FSYNC="1", HM_ACK_DURABLE="1", HM_WAL_MS="30",
+               HM_WORKERS="2")
+# the restarted daemon serves (a)'s `open_many`, the hot doc's herd and the
+# kill, at tests/test_wal.py's interactive latency (bench.py's daemon env
+# yields HM_WAL_MS to the caller's)
+KILL_ENV = dict(HUB_ENV, HM_WAL_MS="3", HM_WORKER_RESPAWN_MS="100")
+HUB_MODULE = "hypermerge_tpu_torch.net.ipc"
+HUB_COUNTERS = ("storage.wal.appends", "storage.wal.fsyncs",
+                "live.local_changes", "live.device_dispatches",
+                "live.kernel_runs", "live.ticks", "live.adopted",
+                "pipeline.slabs", "slab.h2d_bytes")
+# bench.py `_WRITER_CHILD` on the port: one doc, `edits` ack-paced edits
+# (the frontend keeps one request in flight; the durable echo, whose
+# history index the handle reports, releases the next), then the paste: one
+# change setting `paste` keys
+HUB_WRITER = r"""
+import json, sys, threading, time
+
+sock, w, n_edits, paste = sys.argv[1], *map(int, sys.argv[2:5])
+from hypermerge_tpu_torch.net.ipc import connect_frontend
+
+front, close = connect_frontend(sock)
+url = front.create({"w": w, "n": -1})
+h = front.open(url)
+h.value(timeout=120)
+latest, goal, done = [0], [None], threading.Event()
+
+def on_state(_state, index):
+    latest[0] = max(latest[0], index)
+    if goal[0] is not None and latest[0] >= goal[0]:
+        done.set()
+
+h.subscribe(on_state)
+print(json.dumps({"url": url}), flush=True)
+sys.stdin.readline()  # the coordinator's "go"
+base = latest[0]
+goal[0] = base + n_edits
+t0 = time.perf_counter()
+for i in range(n_edits):
+    front.change(url, lambda d, _i=i: d.__setitem__("n", _i))
+ok = done.wait(timeout=120)
+secs = time.perf_counter() - t0
+goal[0] = base + n_edits + 1
+done.clear()
+
+def paste_fn(d):
+    for k in range(paste):
+        d["p%d" % k] = 100 * w + k
+
+front.change(url, paste_fn)
+ok = done.wait(timeout=120) and ok
+print(json.dumps({"url": url, "secs": secs, "acked": ok}), flush=True)
+close()
+"""
+# bench.py `_HOTDOC_CHILD` on the port: ack-paced edits of its own keys in
+# one shared doc, then the convergence barrier and a canonical JSON digest
+HUB_HOT_WRITER = r"""
+import hashlib, json, sys, time
+
+sock, url = sys.argv[1], sys.argv[2]
+idx, n_edits, n_writers = map(int, sys.argv[3:6])
+from hypermerge_tpu_torch.net.ipc import connect_frontend
+
+front, close = connect_frontend(sock)
+h = front.open(url)
+
+def val():
+    try:
+        return h.value(timeout=0.2)
+    except TimeoutError:
+        return None
+
+deadline = time.time() + 120
+while time.time() < deadline:
+    v = val()
+    if v is not None and "edits" in v:
+        break
+    time.sleep(0.02)
+else:
+    raise SystemExit("shared doc never materialized")
+print("ready", flush=True)
+sys.stdin.readline()  # the coordinator's "go"
+t0 = time.perf_counter()
+for i in range(n_edits):
+    key = "%d.%d" % (idx, i)
+    front.change(url, lambda d, _k=key, _i=i: d["edits"].__setitem__(_k, _i))
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        v = val()
+        if v is not None and key in v["edits"]:
+            break
+        time.sleep(0.001)
+secs = time.perf_counter() - t0
+want = n_writers * n_edits
+deadline = time.time() + 180
+v = None
+while time.time() < deadline:
+    v = val()
+    if v is not None and len(v.get("edits", {})) >= want:
+        break
+    time.sleep(0.02)
+blob = json.dumps(v, sort_keys=True, separators=(",", ":"))
+print(json.dumps({
+    "secs": secs,
+    "acked": v is not None and len(v.get("edits", {})) >= want,
+    "digest": hashlib.sha256(blob.encode("utf-8")).hexdigest(),
+}), flush=True)
+close()
+"""
+
+
+def hub_child_env(env: dict) -> dict:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return dict(os.environ, PYTHONPATH=here, **env)
+
+
+def start_hub(root: str, repo: str, env: dict, device=None) -> dict:
+    """The daemon in a process group of its own (a hub and the workers it
+    spawns), its standard error in a file, its output lines gathered by a
+    thread; returns once it printed "backend ready" and both workers'
+    "worker <i> pid <pid>" lines."""
+    import threading
+
+    sock = os.path.join(root, f"hub{len(os.listdir(root))}.sock")
+    err_path = sock + ".err"
+    args = [sys.executable, "-m", HUB_MODULE, repo, sock, "--hub"]
+    if device is not None:
+        args += ["--device", device]
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            args, stdout=subprocess.PIPE, stderr=err, text=True,
+            env=hub_child_env(env), start_new_session=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+    lines: list = []
+    threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline,
+                                                      "")),
+                     daemon=True).start()
+    hub = dict(proc=proc, sock=sock, err=err_path, lines=lines)
+    n = int(env["HM_WORKERS"])
+    t0 = time.perf_counter()
+    while len(worker_pids(hub)) < n:
+        if proc.poll() is not None or time.perf_counter() - t0 > 240:
+            raise AssertionError(f"phase 3k: the hub did not come up: "
+                                 f"{lines} {hub_err(hub)}")
+        time.sleep(0.02)
+    hub["t_up_s"] = time.perf_counter() - t0
+    hub["pids"] = worker_pids(hub)
+    return hub
+
+
+def worker_pids(hub: dict) -> dict:
+    """The workers' pids by shard, the latest spawn of each."""
+    pids = {}
+    for line in list(hub["lines"]):
+        parts = line.split()
+        if parts[:1] == ["worker"] and parts[2:3] == ["pid"]:
+            pids[int(parts[1])] = int(parts[3])
+    return pids
+
+
+def hub_err(hub: dict) -> str:
+    with open(hub["err"]) as f:
+        return f.read()[-2000:]
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether a process is still running (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def stop_hub(hub: dict) -> None:
+    """SIGTERM to the hub, as bench.py stops its daemon; each worker sees
+    its hub connection close and closes its repo. Waits for every worker
+    pid to end; whatever is left of the group is then killed."""
+    import signal
+
+    proc = hub["proc"]
+    try:
+        if proc.poll() is None:
+            proc.terminate()
+            proc.wait(timeout=30)
+        t0 = time.perf_counter()
+        while any(pid_alive(p) for p in hub["pids"].values()):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError("phase 3k: a worker did not close after "
+                                     "its hub stopped")
+            time.sleep(0.02)
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if proc.poll() is None:
+            proc.wait(timeout=30)
+
+
+def worker_proof(hub: dict, device, kernels=()) -> dict:
+    """Reads of each worker's /proc/<pid>/cmdline and maps: the port's
+    module with the device on its command line; on the card, libcuda and
+    the built library of each of `kernels` mapped. Returns what was read."""
+    from hypermerge_tpu_torch.kernels import _build
+
+    want_dev = device or "cuda"
+    out = {}
+    for i, pid in hub["pids"].items():
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            argv = f.read().decode().split("\0")
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+        if HUB_MODULE not in argv or "--device" not in argv or argv[
+                argv.index("--device") + 1] != want_dev:
+            raise AssertionError(f"phase 3k: worker {i} is not the port's "
+                                 f"module on {want_dev}: {argv}")
+        libs = [str(_build.target(k)) for k in kernels] if device is None \
+            else []
+        mapped = {"libcuda": "libcuda" in maps,
+                  **{os.path.basename(p): p in maps for p in libs}}
+        if device is None and not all(mapped.values()):
+            raise AssertionError(f"phase 3k: worker {i} maps {mapped}")
+        out[i] = dict(pid=pid, argv=argv[1:], mapped=mapped)
+    return out
+
+
+def hub_wait(what: str, fn, timeout_s: float = HUB["timeout_s"]) -> float:
+    return wait_for(what, fn, timeout_s, phase="3k")
+
+
+def handle_value(h):
+    try:
+        return h.value(timeout=0.2)
+    except TimeoutError:
+        return None
+
+
+def hub_telemetry(front) -> dict:
+    """The hub's merged Telemetry reply: the workers block and the summed
+    counters phase 3k reads."""
+    got = []
+    front.telemetry(got.append)
+    hub_wait("the telemetry reply", lambda: got, 30)
+    p = got[0]
+    c = p["counters"]
+    return dict(workers=p["workers"],
+                counters={k: c.get(k, 0) for k in HUB_COUNTERS},
+                per_worker={k: v for k, v in c.items()
+                            if k.startswith("workers.")})
+
+
+def writers_run(root: str, device=None) -> dict:
+    """Phase 3k (a), the writers: HUB["writers"] processes, each on its own
+    doc, HUB["edits"] ack-paced edits and the paste; then a fresh observer
+    reads every doc, and the merged telemetry. Returns the numbers, the
+    repo and every doc's value."""
+    from hypermerge_tpu_torch.net.ipc import connect_frontend
+
+    cfg = HUB
+    repo = os.path.join(root, "writers")
+    hub = start_hub(root, repo, HUB_ENV, device)
+    writers = []
+    try:
+        proof = worker_proof(hub, device)
+        writers = [subprocess.Popen(
+            [sys.executable, "-c", HUB_WRITER, hub["sock"], str(w),
+             str(cfg["edits"]), str(cfg["paste"])],
+            env=hub_child_env(HUB_ENV), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for w in range(cfg["writers"])]
+        urls = []
+        for w in writers:
+            line = w.stdout.readline()
+            if not line:
+                raise AssertionError(f"phase 3k (a): a writer failed: "
+                                     f"{w.stderr.read()[-1000:]}")
+            urls.append(json.loads(line)["url"])
+        for w in writers:  # every doc open: release the herd
+            w.stdin.write("go\n")
+            w.stdin.flush()
+        outs = [json.loads(w.stdout.readline() or "{}") for w in writers]
+        if not all(o.get("acked") for o in outs):
+            raise AssertionError(f"phase 3k (a): writers not acked: {outs}")
+        want = {u: dict({"w": w, "n": cfg["edits"] - 1},
+                        **{f"p{k}": 100 * w + k for k in range(cfg["paste"])})
+                for w, u in enumerate(urls)}
+        # a fresh observer connection reads every doc
+        front, close = connect_frontend(hub["sock"])
+        try:
+            t0 = time.perf_counter()
+            handles = {u: front.open(u) for u in urls}
+            hub_wait("the observer's reads", lambda: all(
+                handle_value(h) == want[u] for u, h in handles.items()))
+            t_observe = time.perf_counter() - t0
+            tele = hub_telemetry(front)
+        finally:
+            close()
+        hub["pids"] = worker_pids(hub)
+    finally:
+        for w in writers:
+            if w.poll() is None:
+                w.kill()
+            w.wait(timeout=30)
+        stop_hub(hub)
+    wall = max(o["secs"] for o in outs)
+    shards = {}
+    from hypermerge_tpu_torch.net.ipc import _shard_of
+    for u in urls:
+        shards.setdefault(_shard_of(u[len("hypermerge:/"):], 2), []).append(u)
+    return dict(
+        repo=repo, want=want, shards=shards,
+        numbers=dict(
+            writers=cfg["writers"], edits=cfg["edits"], paste=cfg["paste"],
+            t_hub_up_s=hub["t_up_s"], writer_secs=[o["secs"] for o in outs],
+            durable_edits_per_s=cfg["writers"] * cfg["edits"] / wall,
+            t_observe_s=t_observe, telemetry=tele, workers=proof,
+            docs_a_shard={k: len(v) for k, v in shards.items()}),
+    )
+
+
+def reopen_run(hub: dict, run: dict, device=None) -> dict:
+    """Phase 3k (a), the reopen through the hub: on the daemon restarted
+    over the writers' repo, a reader's one `open_many` of every doc, which
+    each worker opens as a bulk load (on the card: pack_prefix and the
+    slab's one launch of doc_kernel.cu, whose libraries the workers' maps
+    must then show); every value equal to the observer's."""
+    from hypermerge_tpu_torch.net.ipc import connect_frontend
+
+    want = run["want"]
+    front, close = connect_frontend(hub["sock"])
+    try:
+        t0 = time.perf_counter()
+        handles = dict(zip(want, front.open_many(list(want))))
+        hub_wait("the reopened reads", lambda: all(
+            handle_value(h) == want[u] for u, h in handles.items()))
+        t_read = time.perf_counter() - t0
+        tele = hub_telemetry(front)
+    finally:
+        close()
+    proof = worker_proof(hub, device, kernels=("pack_prefix", "doc_kernel"))
+    return dict(t_hub_up_s=hub["t_up_s"], t_open_many_read_s=t_read,
+                telemetry=tele, workers=proof)
+
+
+def reopen_shards(ck, run: dict, device=None) -> tuple:
+    """Phase 3k (a), each shard repo opened in this process with the port's
+    `Repo(path)`: `open_many` + `fetch_bulk_summaries` with the launch
+    counts set to 0 just before and read just after; every doc's value
+    equal to the observer's. Returns (launches, the numbers)."""
+    from hypermerge_tpu_torch.repo import Repo
+
+    for k in ck.launches:
+        ck.launches[k] = 0
+    stats = {}
+    t0 = time.perf_counter()
+    for i, urls in sorted(run["shards"].items()):
+        repo = Repo(path=os.path.join(run["repo"], f"shard-{i}"),
+                    device=device)
+        try:
+            repo.open_many(urls)
+            repo.back.fetch_bulk_summaries()
+            got = {u: plain_value(repo.doc(u)) for u in urls}
+            stats[i] = {k: repo.back.last_bulk_stats.get(k)
+                        for k in ("docs", "fast", "pipeline")}
+        finally:
+            repo.close()
+        bad = [u for u in urls if got[u] != run["want"][u]]
+        if bad:
+            raise AssertionError(f"phase 3k (a): shard {i} reopened "
+                                 f"{len(bad)} docs unlike the observer")
+    launches = {k: v for k, v in ck.launches.items() if v}
+    return launches, dict(t_reopen_s=time.perf_counter() - t0, stats=stats)
+
+
+def hotdoc_kill_run(hub: dict, device=None) -> dict:
+    """Phase 3k (b): bench.py `_config_writers_hotdoc` (HUB["hot_writers"]
+    processes x HUB["hot_edits"] ack-paced edits on one shared doc, every
+    writer's canonical JSON digest bit-identical), then on the same daemon
+    tests/test_wal.py's `test_worker_sigkill_midburst_acked_lost_zero`:
+    HUB["kill_edits"] edits each acked by an observer's durable patch, the
+    doc's worker killed with SIGKILL, one more edit, the hub's respawn, and
+    a brand-new connection that reads every acked edit and writes."""
+    import signal
+
+    from hypermerge_tpu_torch.net.ipc import _shard_of, connect_frontend
+
+    cfg = HUB
+    writers, closers = [], []
+    try:
+        front, close = connect_frontend(hub["sock"])
+        closers.append(close)
+        url = front.create({"edits": {}})
+        got = []
+        front.materialize(url, 1, got.append)
+        hub_wait("the shared doc", lambda: got, 60)
+        writers = [subprocess.Popen(
+            [sys.executable, "-c", HUB_HOT_WRITER, hub["sock"], url, str(i),
+             str(cfg["hot_edits"]), str(cfg["hot_writers"])],
+            env=hub_child_env(KILL_ENV), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+            for i in range(cfg["hot_writers"])]
+        for w in writers:
+            if w.stdout.readline().strip() != "ready":
+                raise AssertionError(f"phase 3k (b): a hot writer failed: "
+                                     f"{w.stderr.read()[-1000:]}")
+        for w in writers:
+            w.stdin.write("go\n")
+            w.stdin.flush()
+        outs = [json.loads(w.stdout.readline() or "{}") for w in writers]
+        digests = {o.get("digest") for o in outs}
+        if not all(o.get("acked") for o in outs) or len(digests) != 1:
+            raise AssertionError(f"phase 3k (b): the hot doc diverged: "
+                                 f"{outs}")
+        hot_wall = max(o["secs"] for o in outs)
+        # the kill: an observer's value moves only on the durable patch
+        h = front.open(url)
+        obs, close_obs = connect_frontend(hub["sock"])
+        closers.append(close_obs)
+        hobs = obs.open(url)
+        n_hot = cfg["hot_writers"] * cfg["hot_edits"]
+        hub_wait("the observer", lambda: len(
+            (handle_value(hobs) or {}).get("edits", {})) >= n_hot, 60)
+        hub_wait("the writer's view", lambda: len(
+            (handle_value(h) or {}).get("edits", {})) >= n_hot, 60)
+
+        def acked_by_observer(key, timeout_s=10.0):
+            try:
+                hub_wait(f"the ack of {key}", lambda: (handle_value(hobs)
+                         or {}).get("edits", {}).get(key) == 1, timeout_s)
+                return True
+            except AssertionError:
+                return False
+
+        acked = [f"{i}.{j}" for i in range(cfg["hot_writers"])
+                 for j in range(cfg["hot_edits"])]
+        for i in range(cfg["kill_edits"]):
+            front.change(url, lambda d, k=f"k{i}": d["edits"].__setitem__(
+                k, 1))
+            if not acked_by_observer(f"k{i}"):
+                raise AssertionError(f"phase 3k (b): edit k{i} never acked")
+            acked.append(f"k{i}")
+        owner = _shard_of(url[len("hypermerge:/"):], 2)
+        victim = hub["pids"][owner]
+        t_kill = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)  # mid-burst: kill -9
+        front.change(url, lambda d: d["edits"].__setitem__("post-kill", 1))
+        post_kill = acked_by_observer("post-kill", 5.0)
+        if post_kill:
+            acked.append("post-kill")
+        hub_wait("the respawn", lambda: any("respawned" in ln
+                                            for ln in hub["lines"]), 120)
+        t_respawn = time.perf_counter() - t_kill
+        f2, close2 = connect_frontend(hub["sock"])
+        closers.append(close2)
+        h2 = f2.open(url)
+
+        def lost():
+            edits = (handle_value(h2) or {}).get("edits", {})
+            return [k for k in acked if k not in edits]
+
+        hub_wait("the recovered read", lambda: not lost(), 60)
+        t_first_read = time.perf_counter() - t_kill
+        acked_lost = len(lost())
+        f2.change(url, lambda d: d["edits"].__setitem__("fresh", 1))
+        hub_wait("the new writer's edit", lambda: (handle_value(h2) or {})
+                 .get("edits", {}).get("fresh") == 1, 60)
+        hub["pids"] = worker_pids(hub)
+        respawned = worker_proof(hub, device)
+        tele = hub_telemetry(f2)
+        if tele["workers"][str(owner)]["respawns"] != 1:
+            raise AssertionError(f"phase 3k (b): respawns {tele['workers']}")
+    finally:
+        for close in closers:
+            close()
+        for w in writers:
+            if w.poll() is None:
+                w.kill()
+            w.wait(timeout=30)
+    return dict(
+        hot_writers=cfg["hot_writers"], hot_edits=cfg["hot_edits"],
+        hot_edits_per_s=n_hot / hot_wall,
+        digest=digests.pop(), killed_worker=owner, killed_pid=victim,
+        respawned_pid=hub["pids"][owner], post_kill_acked=post_kill,
+        acked=len(acked), acked_lost=acked_lost, t_respawn_s=t_respawn,
+        t_first_read_s=t_first_read, telemetry=tele,
+        respawned_workers=respawned)
+
+
+def hub_path(ck) -> tuple:
+    """Phase 3k on the card: (a) the writers, the observer and the merged
+    telemetry; the daemon restarted, its `open_many`; (b) on it, the hot
+    doc and the worker kill; then each shard reopened in this process
+    (pack_prefix and materialize_wire must launch). Returns (the reopen's
+    launch counts, the numbers)."""
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="hm-hub-") as root:
+        t0 = time.perf_counter()
+        run = writers_run(root)
+        log("phase 3k (a) writers: " + json.dumps(run["numbers"])
+            + f" [{card}]")
+        # one restarted daemon serves (a)'s reads and then (b), at the
+        # kill's interactive latency
+        hub = start_hub(root, run["repo"], KILL_ENV)
+        try:
+            through_hub = reopen_run(hub, run)
+            log("phase 3k (a) restarted hub, open_many: "
+                + json.dumps(through_hub) + f" [{card}]")
+            hot = hotdoc_kill_run(hub)
+            log("phase 3k (b) hot doc + kill: " + json.dumps(hot)
+                + f" [{card}]")
+        finally:
+            stop_hub(hub)
+        launches, reopen = reopen_shards(ck, run)
+        log(f"phase 3k (a) shards reopened here: {json.dumps(reopen)}, "
+            f"launches {launches} [{card}]")
+        for k in BULK:
+            if not launches.get(k):
+                raise AssertionError(f"phase 3k (a): {k} never launched in "
+                                     f"the shards' reopen: {launches}")
+        wall = time.perf_counter() - t0
+    tele = run["numbers"]["telemetry"]
+    log(f"phase 3k check: {HUB['writers']} durable-ack writers through 2 "
+        f"card workers at {run['numbers']['durable_edits_per_s']:.1f} "
+        f"edits/s, every doc == its writer's sequence at the observer, "
+        f"through the restarted hub's open_many and in this process's "
+        f"reopen ({launches}); workers.*.edits "
+        f"{[w['edits'] for w in tele['workers'].values()]}, wal appends "
+        f"{tele['counters']['storage.wal.appends']}, live device_dispatches "
+        f"{tele['counters']['live.device_dispatches']}; hot doc "
+        f"{HUB['hot_writers']} x {HUB['hot_edits']} bit-identical, the "
+        f"killed worker respawned in {hot['t_respawn_s']:.3f} s, first read "
+        f"at {hot['t_first_read_s']:.3f} s, acked_lost {hot['acked_lost']}; "
+        f"phase wall {wall:.1f} s [{card}]")
+    return launches, dict(card=card, writers=run["numbers"],
+                          reopen_through_hub=through_hub,
+                          reopen_here=reopen, hotdoc_kill=hot)
 
 
 def doc_entry_call(ck, args, A, K):
@@ -4972,6 +5567,10 @@ def main() -> int:
         elapsed("phase 3i")
         chaos_counts, chaos_numbers = chaos_path(ck)
         elapsed("phase 3j")
+        # after every kernel was built (phase 1): the hub's workers load the
+        # built libraries and never compile
+        hub_counts, hub_numbers = hub_path(ck)
+        elapsed("phase 3k")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -5052,8 +5651,11 @@ def main() -> int:
     # the counts, and stand beside them
     for k, v in net_counts.items():
         counts[k] += v
-    # and so do the churn slice's (3j's four runs)
+    # and so do the churn slice's (3j's four runs) and the hub slice's
+    # (3k's shards reopened in this process)
     for k, v in chaos_counts.items():
+        counts[k] += v
+    for k, v in hub_counts.items():
         counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
@@ -5082,6 +5684,8 @@ def main() -> int:
                if name in net_counts else {}),
             **({"chaos_slice_launches": chaos_counts[name]}
                if name in chaos_counts else {}),
+            **({"hub_slice_launches": hub_counts[name]}
+               if name in hub_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
@@ -5091,6 +5695,7 @@ def main() -> int:
     log("crash " + json.dumps(crash_numbers))
     log("net " + json.dumps(net_numbers))
     log("chaos " + json.dumps(chaos_numbers))
+    log("hub " + json.dumps(hub_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -1327,3 +1327,79 @@ def test_two_repos_reconverge_through_kill_and_heal_on_the_card(
         rb.close()
         sa.destroy()
         fb.destroy()
+
+
+def test_hub_workers_on_the_card_converge_a_paste(cuda, tmp_path):
+    """A hub daemon with two workers (`python -m hypermerge_tpu_torch.net.ipc
+    ... --hub`, HM_WORKERS=2, no --device: the card) under durable acks: a
+    writer's paste of 16 keys reaches an observer connection, and each
+    worker is the port's module started with `--device cuda`, with the
+    CUDA driver (libcuda) mapped."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+
+    from hypermerge_tpu_torch.net.ipc import connect_frontend
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sock = str(tmp_path / "hub.sock")
+    env = dict(os.environ, PYTHONPATH=root, HM_WORKERS="2", HM_FSYNC="1",
+               HM_ACK_DURABLE="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hypermerge_tpu_torch.net.ipc",
+         str(tmp_path / "repo"), sock, "--hub"],
+        stdout=subprocess.PIPE, text=True, env=env, cwd=root,
+        start_new_session=True,
+    )
+    lines = []
+    threading.Thread(target=lambda: lines.extend(
+        iter(proc.stdout.readline, "")), daemon=True).start()
+
+    def wait(fn, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not fn():
+            assert proc.poll() is None, "the hub exited"
+            assert time.monotonic() < deadline, f"{what} not in {timeout} s"
+            time.sleep(0.02)
+
+    def value(h):
+        try:
+            return h.value(timeout=0.2)
+        except TimeoutError:
+            return None
+
+    closers = []
+    try:
+        wait(lambda: sum(ln.startswith("worker") for ln in lines) == 2,
+             "the workers")
+        for ln in lines[1:3]:
+            pid = int(ln.split()[3])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode().split("\0")
+            assert "hypermerge_tpu_torch.net.ipc" in argv, argv
+            assert argv[argv.index("--device") + 1] == "cuda", argv
+        front, close = connect_frontend(sock)
+        closers.append(close)
+        obs, close_obs = connect_frontend(sock)
+        closers.append(close_obs)
+        url = front.create({"n": 0})
+        want = {"n": 0, **{f"p{k}": k for k in range(16)}}
+
+        def paste(d):
+            for k in range(16):
+                d[f"p{k}"] = k
+
+        front.change(url, paste)
+        h = obs.open(url)
+        wait(lambda: value(h) == want, "the paste at the observer")
+        for ln in lines[1:3]:
+            with open(f"/proc/{int(ln.split()[3])}/maps") as f:
+                assert "libcuda" in f.read()
+    finally:
+        for close in closers:
+            close()
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=30)
