@@ -250,6 +250,39 @@ prints a result):
         port's module and the device, and its maps show libcuda (and,
         after the restarted daemon's open, the built pack_prefix and
         doc_kernel libraries); a `hub` JSON line;
+     l. the service plane (serve/overload.py): (a) a `Repo(path)` on a
+        copy of 3d's corpus under durable acks, `open_many` +
+        `fetch_bulk_summaries` (pack_prefix, materialize_wire), then
+        `{kind: len}` reads with the ladder pinned by HM_SERVICE_FORCE
+        (the controller rebuilt for each part as the backend builds it):
+        (i) healthy, 32 hot docs and 64 cold ones installed,
+        serve_counts launches equal to serve.dispatches; (ii) brownout,
+        64 more cold docs read one at a time from the host path, each
+        install deferred (service.deferred_installs and brownout_reads
+        64, the residency unchanged), hot reads still on serve_counts,
+        every answer equal to (i)'s or to host_read; (iii) shed with
+        quotas of 64 reads/s and a burst of 16, two tenants: each
+        tenant's admitted reads at most burst + rate x wall, every other
+        read a typed Overload with retry_after_s >= 0.1, service.
+        shed_reads equal to the refusals seen and to the report's
+        per-tenant sum, and a durable edit's ack at least
+        HM_SERVICE_ACK_STRETCH_MS later (median of 16) than under (i);
+        (iv) unforced at a 1 ms p99 SLO and 25 ms ticks, 8 reader
+        threads: the ladder climbs healthy -> brownout -> shed on the
+        tier's own p99 from the card, and steps back to healthy within
+        2 x HM_BROWNOUT_DOWN_TICKS idle ticks of the readers' stop;
+        (b) bench.py `_config_service` at its defaults (4 client
+        processes on `connect_frontend` running bench.py's
+        `_SERVICE_CHILD`, 48 docs, a ramp of 1 s rounds to 16 threads a
+        client, a 3 s storm at twice saturation with durable writers,
+        recovery probes, SLO 25 ms, quotas 64/16) against the daemon
+        `python -m hypermerge_tpu_torch.net.ipc <repo> <sock> --hub
+        --dht --dht-bootstrap ...` on the card (HM_WORKERS=0), with a
+        card `Repo` replicating through the DHT here: its five gates
+        (reads_never_error, acked_lost_zero, recovery_within_gate,
+        shed_order_ok, attributed) must hold, and the daemon's maps show
+        libcuda and the built serve_counts library; a `service` JSON
+        line;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -4935,6 +4968,826 @@ def hub_path(ck) -> tuple:
                           reopen_here=reopen, hotdoc_kill=hot)
 
 
+# the service slice (phase 3l): the service plane (serve/overload.py) on the
+# card. (a) in this process, a `Repo(path)` on a copy of phase 3d's corpus
+# under durable acks, read `{kind: len}` with the ladder pinned healthy,
+# brownout and shed (HM_SERVICE_FORCE; the controller rebuilt for each part
+# as the backend builds it), then driven by its own signals at a 1 ms SLO;
+# (b) bench.py `_config_service` at its defaults, every process a port
+# process: the hub daemon with the serve tier, the service plane, durable
+# group-commit acks and DHT membership on the card (HM_WORKERS=0: phase 3k
+# holds the sharded workers), 4 frontend processes running bench.py's
+# `_SERVICE_CHILD` on `connect_frontend`, and a card `Repo` replicating
+# through the DHT in this process
+SERVICE = dict(hot=32, cold=64, hot_rounds=4, readers=8, writes=16,
+               quota_reads_s=64, quota_burst=16, tenants=2,
+               threads_a_tenant=2, shed_s=1.0, slo_ms=1, tick_ms=25,
+               down_ticks=10, climb_max_s=5.0, hold_after_shed_s=0.25,
+               healthy_max_s=5.0)
+SERVICE_ENV = dict(HM_SERVICE="1", HM_FSYNC="1", HM_ACK_DURABLE="1")
+# bench.py `_config_service`'s defaults and daemon environment
+STORM = dict(clients=4, docs=48, ramp_s=1.0, hold_s=3.0, slo_ms=25.0,
+             gate_s=10.0, max_threads=16,
+             bounds=[0.0005, 0.001, 0.002, 0.005, 0.01, 0.02, 0.05, 0.1,
+                     0.25, 0.5, 1.0, 2.5])
+STORM_ENV = dict(HM_FSYNC="1", HM_ACK_DURABLE="1", HM_WAL_MS="30",
+                 HM_WORKERS="0", HM_SERVICE="1", HM_SERVICE_P99_SLO_MS="25.0",
+                 HM_SERVICE_TICK_MS="25", HM_QUOTA_READS_S="64",
+                 HM_QUOTA_BURST="16", HM_DHT_ANNOUNCE_S="0.5",
+                 HM_DHT_LOOKUP_S="0.5")
+# bench.py `_SERVICE_CHILD` on the port: one IPC connection (one tenant),
+# zipf-ish reads of `{kind: len}` with every 64th an open, and an ack-paced
+# durable writer on its own doc; one phase a command on standard input
+SERVICE_CHILD = r"""
+import bisect, json, random, sys, threading, time
+
+sock, idx = sys.argv[1], int(sys.argv[2])
+
+from hypermerge_tpu_torch.net.ipc import connect_frontend
+from hypermerge_tpu_torch.serve.overload import Overload
+
+front, close = connect_frontend(sock)
+setup = json.loads(sys.stdin.readline())
+read_urls = setup["read_urls"]
+own_url = setup["write_urls"][idx]
+BOUNDS = setup["bounds"]
+query = {"kind": "len", "path": []}
+
+w = [1.0 / (k + 1) ** 1.2 for k in range(len(read_urls))]
+cum, s = [], 0.0
+for x in w:
+    s += x
+    cum.append(s)
+
+h = front.open(own_url)
+
+def val(timeout=0.05):
+    try:
+        return h.value(timeout=timeout)
+    except TimeoutError:
+        return None
+
+deadline = time.time() + 60
+while time.time() < deadline:
+    if val() is not None:
+        break
+    time.sleep(0.02)
+else:
+    raise SystemExit("write doc never materialized")
+
+wseq = [0]
+wacked = [0]
+
+def hist_new():
+    return [0] * (len(BOUNDS) + 1)
+
+def hist_add(hist, dt):
+    hist[bisect.bisect_left(BOUNDS, dt)] += 1
+
+print("ready", flush=True)
+
+for line in sys.stdin:
+    cmd = json.loads(line)
+    if cmd.get("op") == "quit":
+        break
+    threads, secs = int(cmd["threads"]), float(cmd["secs"])
+    do_write = bool(cmd.get("writes"))
+    stop = time.time() + secs
+    out = {
+        "reads": 0, "shed": 0, "errors": 0, "opens": 0,
+        "rhist": hist_new(), "whist": hist_new(),
+        "writes": 0, "write_timeouts": 0,
+    }
+    lock = threading.Lock()
+
+    def reader(seed):
+        rng = random.Random((idx << 10) ^ seed)
+        n = shed = errs = opens = 0
+        hist = hist_new()
+        k = 0
+        while time.time() < stop:
+            u = read_urls[bisect.bisect_left(cum, rng.random() * s)]
+            k += 1
+            t0 = time.perf_counter()
+            try:
+                if k % 64 == 0:
+                    if front.open(u).value(timeout=60.0) is None:
+                        errs += 1
+                    else:
+                        opens += 1
+                    continue
+                v = front.read(u, query, timeout=60.0)
+                if v is None:
+                    errs += 1
+                else:
+                    n += 1
+                    hist_add(hist, time.perf_counter() - t0)
+            except Overload as e:
+                shed += 1
+                time.sleep(min(max(e.retry_after_s, 1e-3), 0.05))
+            except Exception:
+                errs += 1
+        with lock:
+            out["reads"] += n
+            out["shed"] += shed
+            out["errors"] += errs
+            out["opens"] += opens
+            for i, c in enumerate(hist):
+                out["rhist"][i] += c
+
+    def writer():
+        n = tmo = 0
+        hist = hist_new()
+        while time.time() < stop:
+            seq = wseq[0]
+            key = "c%d.%d" % (idx, seq)
+            t0 = time.perf_counter()
+            front.change(
+                own_url,
+                lambda d, _k=key, _s=seq: d["edits"].__setitem__(_k, _s),
+            )
+            wseq[0] += 1
+            lim = time.time() + 30
+            acked = False
+            while time.time() < lim:
+                v = val(timeout=0.02)
+                if v is not None and key in v.get("edits", {}):
+                    acked = True
+                    break
+                time.sleep(0.002)
+            if acked:
+                n += 1
+                hist_add(hist, time.perf_counter() - t0)
+                if seq == wacked[0]:
+                    wacked[0] = seq + 1
+            else:
+                tmo += 1
+                break
+        with lock:
+            out["writes"] += n
+            out["write_timeouts"] += tmo
+            for i, c in enumerate(hist):
+                out["whist"][i] += c
+
+    t0 = time.perf_counter()
+    ts = [threading.Thread(target=reader, args=(k,)) for k in range(threads)]
+    if do_write:
+        ts.append(threading.Thread(target=writer))
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    out["secs"] = time.perf_counter() - t0
+    out["acked"] = wacked[0]
+    print(json.dumps(out), flush=True)
+
+close()
+"""
+
+
+def service_controller(back, trace=None, **env):
+    """The backend's service plane rebuilt under `env`: the running
+    controller closed, then `RepoBackend._start_service` (a new controller
+    on the backend's own signals, its p99 window, the journal's ack pacer,
+    started). With `trace`, each of its ticks from then on appends (time,
+    state, signals); a tick before the wrap precedes every read."""
+    back.overload.close()
+    with env_vars(**env):
+        back._start_service()
+    ctl = back.overload
+    if trace is not None:
+        tick = ctl.tick
+
+        def traced(sig=None):
+            state = tick(sig)
+            trace.append((time.perf_counter(), state, ctl.report()["signals"]))
+            return state
+
+        ctl.tick = traced
+    return ctl
+
+
+def serve_delta(before, after) -> dict:
+    return {k: int(after.get("serve." + k, 0) - before.get("serve." + k, 0))
+            for k in ("dispatches", "installs", "fallbacks", "reads")}
+
+
+def service_reads(ck, repo, urls, threads=1, tenant=None):
+    """`{kind: len}` reads of `urls` on `threads` threads; returns (answers
+    by url, launches of the serve kernels, serve.* deltas)."""
+    from hypermerge_tpu_torch import telemetry
+
+    query = {"kind": "len", "path": []}
+    if tenant is not None:
+        query["tenant"] = tenant
+    got = [None] * len(urls)
+
+    def reader(n):
+        for i in range(n, len(urls), threads):
+            got[i] = repo.read(urls[i], dict(query))
+
+    before = {k: ck.launches[k] for k in SERVE}
+    snap0 = telemetry.snapshot()
+    run_threads(threads, reader)
+    snap1 = telemetry.snapshot()
+    launches = {k: ck.launches[k] - before[k] for k in SERVE}
+    answers = {}
+    for u, a in zip(urls, got):
+        if a is None or answers.setdefault(u, a) != a:
+            raise AssertionError(f"phase 3l: read of {u} answered {a}")
+    return answers, launches, serve_delta(snap0, snap1)
+
+
+def durable_acks(repo, url, tag, n) -> list:
+    """`n` ack-paced durable edits of `url`: each one's seconds from the
+    change until the repo's handle shows it (the durable echo)."""
+    h = repo.open(url)
+    out = []
+    for i in range(n):
+        key = f"{tag}{i}"
+        t0 = time.perf_counter()
+        repo.change(url, lambda d, k=key: d["edits"].__setitem__(k, 1))
+        while True:
+            try:
+                v = h.value(timeout=0.05)
+            except TimeoutError:
+                v = None
+            if v is not None and key in v["edits"]:
+                break
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError(f"phase 3l: edit {key} never acked")
+            time.sleep(0.0002)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def check_serve(label, launches, delta):
+    if launches["serve_counts"] == 0:
+        raise AssertionError(f"phase 3l {label}: serve_counts never launched")
+    if sum(launches.values()) != delta["dispatches"]:
+        raise AssertionError(f"phase 3l {label}: launches {launches} != "
+                             f"serve.dispatches {delta['dispatches']}")
+
+
+def service_inproc(ck, corpus, urls, device=None) -> tuple:
+    """Phase 3l (a) on the card (or `device`); returns (the launches of the
+    open and the reads, the numbers)."""
+    import threading
+
+    from hypermerge_tpu_torch import telemetry
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.serve.overload import (
+        BROWNOUT, HEALTHY, SHED, STATE_NAMES, Overload)
+    from hypermerge_tpu_torch.serve.tier import host_read
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    cfg = SERVICE
+    hot = urls[:cfg["hot"]]
+    cold_a = urls[cfg["hot"]:cfg["hot"] + cfg["cold"]]
+    cold_b = urls[cfg["hot"] + cfg["cold"]:cfg["hot"] + 2 * cfg["cold"]]
+    hot_mix = hot * cfg["hot_rounds"]
+    numbers = {}
+    with env_vars(HM_SERVICE_FORCE="healthy", **SERVICE_ENV):
+        for k in ck.launches:
+            ck.launches[k] = 0
+        repo = Repo(path=corpus, device=device)
+        try:
+            back = repo.back
+            if back.overload is None or back.overload.state() != HEALTHY:
+                raise AssertionError("phase 3l: the repo has no controller")
+            t0 = time.perf_counter()
+            repo.open_many(urls)
+            back.fetch_bulk_summaries()
+            open_launches = {k: ck.launches[k] for k in BULK}
+            if not all(open_launches.values()):
+                raise AssertionError(f"phase 3l (a): the open launched "
+                                     f"{open_launches}")
+            numbers["open_s"] = time.perf_counter() - t0
+            want = {}
+            for u in urls[:cfg["hot"] + 2 * cfg["cold"]]:
+                doc = back.docs[validate_doc_url(u)]
+                want[u] = host_read(doc, {"kind": "len", "path": []})["value"]
+            wurl = repo.create({"edits": {}})
+
+            # (i) healthy: the hot set installs and serves, cold reads install
+            ctl = back.overload
+            base, l_hot, d_hot = service_reads(ck, repo, hot)
+            ans, l_mix, d_mix = service_reads(ck, repo, hot_mix,
+                                              cfg["readers"])
+            cold, l_cold, d_cold = service_reads(ck, repo, cold_a)
+            launches = {k: l_hot[k] + l_mix[k] + l_cold[k] for k in SERVE}
+            delta = {k: d_hot[k] + d_mix[k] + d_cold[k] for k in d_hot}
+            check_serve("(i)", launches, delta)
+            if ans != base or {**base, **cold} != {
+                    u: want[u] for u in hot + cold_a}:
+                raise AssertionError("phase 3l (i): answers != host_read")
+            if delta["installs"] < len(hot) + len(cold_a) or delta["fallbacks"]:
+                raise AssertionError(f"phase 3l (i): serve {delta}")
+            acks_i = durable_acks(repo, wurl, "i", cfg["writes"])
+            rep = ctl.report()
+            if rep["transitions"] or rep["brownout_reads"] or rep["shed_reads"]:
+                raise AssertionError(f"phase 3l (i): service {rep}")
+            numbers["healthy"] = dict(
+                launches=launches, serve=delta,
+                ack_ms_median=statistics.median(acks_i) * 1e3,
+                service={k: rep[k] for k in ("state_name", "transitions")})
+            log("phase 3l (a)(i) healthy: " + json.dumps(numbers["healthy"]))
+
+            # (ii) brownout: cold installs deferred, hot reads still served
+            ctl = service_controller(back, HM_SERVICE_FORCE="brownout")
+            resident0 = len(back.serve.residency_report()["resident"])
+            cold, l_cold, d_cold = service_reads(ck, repo, cold_b)
+            ans, l_hot, d_hot = service_reads(ck, repo, hot_mix,
+                                              cfg["readers"])
+            check_serve("(ii)", l_hot, d_hot)
+            if l_cold["serve_counts"] or d_cold["dispatches"]:
+                raise AssertionError(f"phase 3l (ii): a cold read launched "
+                                     f"{l_cold}")
+            rep = ctl.report()
+            resident1 = len(back.serve.residency_report()["resident"])
+            if (rep["deferred_installs"] != len(cold_b)
+                    or rep["brownout_reads"] != len(cold_b)
+                    or resident1 != resident0 or d_cold["installs"]
+                    or rep["shed_reads"]):
+                raise AssertionError(f"phase 3l (ii): service {rep}, "
+                                     f"resident {resident0} -> {resident1}")
+            if ans != base or cold != {u: want[u] for u in cold_b}:
+                raise AssertionError("phase 3l (ii): answers differ")
+            numbers["brownout"] = dict(
+                hot_launches=l_hot, hot_serve=d_hot, cold_serve=d_cold,
+                resident_docs=resident1,
+                service={k: rep[k] for k in (
+                    "state_name", "deferred_installs", "brownout_reads",
+                    "shed_reads")})
+            log("phase 3l (a)(ii) brownout: " + json.dumps(numbers["brownout"]))
+
+            # (iii) shed: per-tenant quotas, typed refusals, paced acks
+            ctl = service_controller(
+                back, HM_SERVICE_FORCE="shed",
+                HM_QUOTA_READS_S=str(cfg["quota_reads_s"]),
+                HM_QUOTA_BURST=str(cfg["quota_burst"]))
+            tenants = [f"t{i}" for i in range(cfg["tenants"])]
+            seen = {t: dict(admitted=0, refused=0, retry_min=None, wall=0.0)
+                    for t in tenants}
+            lock = threading.Lock()
+            errs = []
+            snap0 = telemetry.snapshot()
+            before = {k: ck.launches[k] for k in SERVE}
+
+            def tenant_reader(n):
+                t = tenants[n % len(tenants)]
+                mine = hot[n::len(tenants)]
+                t0 = time.perf_counter()
+                a = r = 0
+                retry = None
+                k = 0
+                while time.perf_counter() - t0 < cfg["shed_s"]:
+                    u = mine[k % len(mine)]
+                    k += 1
+                    try:
+                        v = repo.read(u, {"kind": "len", "path": [],
+                                          "tenant": t})
+                    except Overload as e:
+                        r += 1
+                        retry = (e.retry_after_s if retry is None
+                                 else min(retry, e.retry_after_s))
+                        if e.tenant != t or e.state != "shed":
+                            errs.append(repr(e))
+                        time.sleep(min(max(e.retry_after_s, 1e-3), 0.05))
+                        continue
+                    a += 1
+                    if v != want[u]:
+                        errs.append(f"{u}: {v}")
+                wall = time.perf_counter() - t0
+                with lock:
+                    row = seen[t]
+                    row["admitted"] += a
+                    row["refused"] += r
+                    row["wall"] = max(row["wall"], wall)
+                    if retry is not None:
+                        row["retry_min"] = (retry if row["retry_min"] is None
+                                            else min(row["retry_min"], retry))
+
+            run_threads(cfg["tenants"] * cfg["threads_a_tenant"],
+                        tenant_reader)
+            l_shed = {k: ck.launches[k] - before[k] for k in SERVE}
+            d_shed = serve_delta(snap0, telemetry.snapshot())
+            paced0 = telemetry.snapshot().get("storage.wal.paced_commits", 0)
+            acks_iii = durable_acks(repo, wurl, "iii", cfg["writes"])
+            paced = telemetry.snapshot().get(
+                "storage.wal.paced_commits", 0) - paced0
+            rep = ctl.report()
+            if errs:
+                raise AssertionError(f"phase 3l (iii): {errs[:3]}")
+            refused = sum(row["refused"] for row in seen.values())
+            for t, row in seen.items():
+                cap = cfg["quota_burst"] + cfg["quota_reads_s"] * row["wall"]
+                mine = rep["tenants"].get(t, {})
+                if (row["admitted"] > cap or not row["refused"]
+                        or row["retry_min"] < 0.1
+                        or mine.get("admitted") != row["admitted"]
+                        or mine.get("refused") != row["refused"]):
+                    raise AssertionError(f"phase 3l (iii): tenant {t} {row} "
+                                         f"(cap {cap}), report {mine}")
+            tenant_refused = sum(r["refused"] for r in rep["tenants"].values())
+            if not (rep["shed_reads"] == refused == tenant_refused):
+                raise AssertionError(f"phase 3l (iii): shed_reads "
+                                     f"{rep['shed_reads']}, refusals seen "
+                                     f"{refused}, tenants {tenant_refused}")
+            check_serve("(iii)", l_shed, d_shed)
+            stretch = ctl.ack_extra_s()
+            med_i, med_iii = statistics.median(acks_i), statistics.median(
+                acks_iii)
+            if med_iii - med_i < stretch or paced < cfg["writes"]:
+                raise AssertionError(f"phase 3l (iii): durable acks "
+                                     f"{med_iii * 1e3:.3f} ms against "
+                                     f"{med_i * 1e3:.3f} ms healthy, stretch "
+                                     f"{stretch * 1e3} ms, paced {paced}")
+            numbers["shed"] = dict(
+                tenants=seen, launches=l_shed, serve=d_shed,
+                ack_ms_median=med_iii * 1e3, ack_ms_healthy=med_i * 1e3,
+                ack_stretch_ms=stretch * 1e3, paced_commits=paced,
+                service={k: rep[k] for k in (
+                    "state_name", "shed_reads", "tenants")})
+            log("phase 3l (a)(iii) shed: " + json.dumps(numbers["shed"]))
+
+            # (iv) no force: the ladder on the tier's own p99 from the card
+            trace = []
+            ctl = service_controller(
+                back, trace, HM_SERVICE_FORCE="",
+                HM_SERVICE_P99_SLO_MS=str(cfg["slo_ms"]),
+                HM_SERVICE_TICK_MS=str(cfg["tick_ms"]),
+                HM_BROWNOUT_DOWN_TICKS=str(cfg["down_ticks"]))
+            stop = threading.Event()
+            outcomes = [[0, 0] for _ in range(cfg["readers"])]
+
+            def storm_reader(n):
+                k = n
+                try:
+                    while not stop.is_set():
+                        u = hot[k % len(hot)]
+                        k += cfg["readers"]
+                        try:
+                            v = repo.read(u, {"kind": "len", "path": []})
+                        except Overload as e:
+                            outcomes[n][1] += 1
+                            time.sleep(min(max(e.retry_after_s, 1e-3), 0.05))
+                            continue
+                        if v != want[u]:
+                            errs.append(f"{u}: {v}")
+                        outcomes[n][0] += 1
+                except Exception as e:  # surfaced after the join
+                    errs.append(repr(e))
+
+            threads = [threading.Thread(target=storm_reader, args=(i,))
+                       for i in range(cfg["readers"])]
+            before = {k: ck.launches[k] for k in SERVE}
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            t_shed = None
+            while time.perf_counter() - t0 < cfg["climb_max_s"]:
+                if t_shed is None and ctl.state() == SHED:
+                    t_shed = time.perf_counter()
+                if t_shed is not None and (time.perf_counter() - t_shed
+                                           > cfg["hold_after_shed_s"]):
+                    break
+                time.sleep(0.005)
+            stop.set()
+            for t in threads:
+                t.join()
+            t_idle = time.perf_counter()
+            l_storm = {k: ck.launches[k] - before[k] for k in SERVE}
+            while ctl.state() != HEALTHY:
+                if time.perf_counter() - t_idle > cfg["healthy_max_s"]:
+                    break
+                time.sleep(0.005)
+            t_healthy = time.perf_counter()
+            rep = ctl.report()
+            ctl.close()
+            states = [s for _t, s, _sig in trace]
+            climb = [s for i, s in enumerate(states)
+                     if i == 0 or s != states[i - 1]]
+            if t_shed is None or climb[:3] != [HEALTHY, BROWNOUT, SHED]:
+                raise AssertionError(f"phase 3l (iv): the ladder went "
+                                     f"{[STATE_NAMES[s] for s in climb]}")
+            if errs:
+                raise AssertionError(f"phase 3l (iv): {errs[:3]}")
+            at_shed = next(sig for _t, s, sig in trace if s == SHED)
+            # idle ticks: those after the readers stopped whose window saw
+            # no read
+            idle = [(s, sig) for t, s, sig in trace if t >= t_idle]
+            first = next((i for i, (_s, sig) in enumerate(idle)
+                          if sig.get("p99_s") == 0.0), len(idle))
+            down = next((i - first + 1 for i, (s, _sig) in enumerate(idle)
+                         if i >= first and s == HEALTHY), None)
+            if (at_shed.get("p99_s", 0.0) <= 0.001 or down is None
+                    or down > 2 * cfg["down_ticks"]):
+                raise AssertionError(f"phase 3l (iv): p99 at SHED {at_shed}, "
+                                     f"idle ticks to healthy {down}")
+            if l_storm["serve_counts"] == 0:
+                raise AssertionError("phase 3l (iv): serve_counts never "
+                                     "launched")
+            numbers["signals"] = dict(
+                climb=[STATE_NAMES[s] for s in climb],
+                t_to_shed_s=t_shed - t0, p99_s_at_shed=at_shed["p99_s"],
+                signals_at_shed=at_shed, idle_ticks_to_healthy=down,
+                t_to_healthy_s=t_healthy - t_idle, ticks=len(trace),
+                values=sum(o[0] for o in outcomes),
+                overloads=sum(o[1] for o in outcomes), launches=l_storm,
+                transitions=rep["transitions"])
+            log("phase 3l (a)(iv) real signals: "
+                + json.dumps(numbers["signals"]))
+            counts = dict(ck.launches)
+        finally:
+            repo.close()
+    return {k: counts[k] for k in BULK + SERVE if counts[k]}, numbers
+
+
+def svc_quantile(bounds, counts, q):
+    """bench.py `_svc_quantile`: the quantile (ms) of a merged client-side
+    histogram, its overflow one step past the last edge."""
+    n = sum(counts)
+    if n <= 0:
+        return None
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen >= q * n:
+            bound = bounds[i] if i < len(bounds) else bounds[-1] * 2
+            return round(bound * 1e3, 3)
+    return round(bounds[-1] * 2 * 1e3, 3)
+
+
+def service_storm(root: str, device=None) -> dict:
+    """Phase 3l (b): bench.py `_config_service` on the port (its warm-up,
+    steady round, ramp, 2x-saturation storm with durable writers, recovery
+    probes, acked-ledger check and attribution), the daemon on the card;
+    returns its numbers and five gates."""
+    import signal
+    import threading
+
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.net.discovery import DhtNode, DhtSwarm
+    from hypermerge_tpu_torch.net.ipc import connect_frontend
+    from hypermerge_tpu_torch.repo import Repo
+
+    cfg = STORM
+    bounds = cfg["bounds"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sock = os.path.join(root, "daemon.sock")
+    env = hub_child_env(STORM_ENV)
+    boot = DhtNode()
+    args = [sys.executable, "-m", HUB_MODULE, os.path.join(root, "repo"),
+            sock, "--hub", "--dht", "--dht-bootstrap",
+            f"127.0.0.1:{boot.address[1]}"]
+    if device is not None:
+        args += ["--device", device]
+    t_start = time.perf_counter()
+    with open(sock + ".err", "w") as err:
+        daemon = subprocess.Popen(
+            args, env=env, stdout=subprocess.PIPE, stderr=err, text=True,
+            start_new_session=True, cwd=here)
+    lines: list = []
+    clients = []
+    peer = sw = close = None
+    try:
+        line = daemon.stdout.readline()
+        if "ready" not in line:
+            raise AssertionError(f"phase 3l (b): the daemon did not start: "
+                                 f"{line!r}")
+        threading.Thread(target=lambda: lines.extend(
+            iter(daemon.stdout.readline, "")), daemon=True).start()
+        front, close = connect_frontend(sock)
+        read_urls = [front.create({"k": i, "pad": "x" * 64})
+                     for i in range(cfg["docs"])]
+        write_urls = [front.create({"edits": {}})
+                      for _ in range(cfg["clients"])]
+        got = []
+        front.materialize(write_urls[-1], 1, got.append)
+        wait_for("the registration round trip", lambda: got, 120, "3l")
+        t_up = time.perf_counter() - t_start
+        with env_vars(HM_SERVICE="1"):  # as bench.py's peer, on its default
+            peer = Repo(memory=True, device=device)
+        sw = DhtSwarm(bootstrap=[boot.address])
+        peer.set_swarm(sw)
+        peer_handles = [peer.open(u) for u in read_urls[:min(4, cfg["docs"])]]
+        setup = json.dumps({"read_urls": read_urls, "write_urls": write_urls,
+                            "bounds": bounds})
+        clients = [subprocess.Popen(
+            [sys.executable, "-c", SERVICE_CHILD, sock, str(i)], env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=here)
+            for i in range(cfg["clients"])]
+        for c in clients:
+            c.stdin.write(setup + "\n")
+            c.stdin.flush()
+        for c in clients:
+            if c.stdout.readline().strip() != "ready":
+                raise AssertionError(f"phase 3l (b): a client failed: "
+                                     f"{c.stderr.read()[-1000:]}")
+
+        def phase(threads, secs, writes):
+            cmd = json.dumps({"op": "phase", "threads": threads,
+                              "secs": secs, "writes": 1 if writes else 0})
+            for c in clients:
+                c.stdin.write(cmd + "\n")
+                c.stdin.flush()
+            outs = []
+            for c in clients:
+                line = c.stdout.readline()
+                if not line:
+                    raise AssertionError(f"phase 3l (b): a client died: "
+                                         f"{c.stderr.read()[-1000:]}")
+                outs.append(json.loads(line))
+            agg = {k: sum(o[k] for o in outs)
+                   for k in ("reads", "shed", "errors", "opens", "writes",
+                             "write_timeouts")}
+            for h in ("rhist", "whist"):
+                agg[h] = [sum(o[h][i] for o in outs)
+                          for i in range(len(bounds) + 1)]
+            agg["secs"] = max(o["secs"] for o in outs)
+            agg["acked"] = [o["acked"] for o in outs]
+            agg["qps"] = round(agg["reads"] / agg["secs"], 1)
+            return agg
+
+        ramp, errors, whist = [], 0, [0] * (len(bounds) + 1)
+        writes_total = timeouts = shed_total = 0
+        w0 = phase(1, 1.0, writes=False)
+        errors += w0["errors"]
+        shed_total += w0["shed"]
+        time.sleep(0.25)
+        r0 = phase(1, cfg["ramp_s"], writes=False)
+        errors += r0["errors"]
+        shed_total += r0["shed"]
+        steady = {"qps": r0["qps"],
+                  "read_p50_ms": svc_quantile(bounds, r0["rhist"], 0.50),
+                  "read_p99_ms": svc_quantile(bounds, r0["rhist"], 0.99)}
+        t = 1
+        while t <= cfg["max_threads"]:
+            r = phase(t, cfg["ramp_s"], writes=True)
+            errors += r["errors"]
+            writes_total += r["writes"]
+            timeouts += r["write_timeouts"]
+            whist = [a + b for a, b in zip(whist, r["whist"])]
+            ramp.append({"threads": t, "qps": r["qps"], "shed": r["shed"],
+                         "p99_ms": svc_quantile(bounds, r["rhist"], 0.99)})
+            if r["shed"] > 0:
+                break
+            t *= 2
+        peak = max(ramp, key=lambda x: x["qps"])
+        storm_threads = min(2 * peak["threads"], 2 * cfg["max_threads"])
+        r = phase(storm_threads, cfg["hold_s"], writes=True)
+        errors += r["errors"]
+        writes_total += r["writes"]
+        timeouts += r["write_timeouts"]
+        whist = [a + b for a, b in zip(whist, r["whist"])]
+        storm = {"threads_per_client": storm_threads, "qps": r["qps"],
+                 "reads_ok": r["reads"], "reads_shed": r["shed"],
+                 "opens": r["opens"],
+                 "read_p99_ms": svc_quantile(bounds, r["rhist"], 0.99),
+                 "writes_acked": r["writes"]}
+        shed_total += sum(x["shed"] for x in ramp) + r["shed"]
+        t_end = time.perf_counter()
+        recovery_s = None
+        while time.perf_counter() - t_end < cfg["gate_s"] + 5:
+            p = phase(1, 0.4, writes=False)
+            errors += p["errors"]
+            shed_total += p["shed"]
+            p99 = svc_quantile(bounds, p["rhist"], 0.99)
+            if p["shed"] == 0 and p99 is not None and p99 <= cfg["slo_ms"]:
+                recovery_s = round(time.perf_counter() - t_end, 2)
+                break
+        for c in clients:
+            c.stdin.write(json.dumps({"op": "quit"}) + "\n")
+            c.stdin.flush()
+        for c in clients:
+            c.wait(timeout=30)
+        acked_counts = r["acked"]
+        acked_lost = 0
+        for i, url in enumerate(write_urls):
+            want = acked_counts[i]
+            h = front.open(url)
+            deadline = time.time() + 60
+            edits = {}
+            while time.time() < deadline:
+                try:
+                    v = h.value(timeout=0.5)
+                except TimeoutError:
+                    v = None
+                edits = (v or {}).get("edits", {})
+                if len(edits) >= want:
+                    break
+                time.sleep(0.05)
+            acked_lost += sum(1 for s_ in range(want)
+                              if f"c{i}.{s_}" not in edits)
+        tele = []
+        front.telemetry(tele.append)
+        wait_for("the telemetry reply", lambda: tele, 30, "3l")
+        payload = tele[0] or {}
+        svc = payload.get("service") or {}
+        counters = payload.get("counters") or {}
+        tenants = svc.get("tenants") or {}
+        refused_sum = sum(row.get("refused", 0) for row in tenants.values())
+        shed_reads = int(svc.get("shed_reads", 0))
+        transitions = int(svc.get("transitions", 0))
+        gates = {
+            "reads_never_error": errors == 0,
+            "acked_lost_zero": acked_lost == 0 and sum(acked_counts) > 0,
+            "recovery_within_gate": (recovery_s is not None
+                                     and recovery_s <= cfg["gate_s"]),
+            "shed_order_ok": shed_reads == 0 or transitions >= 2,
+            "attributed": refused_sum == shed_reads == shed_total,
+        }
+        # the daemon's own process holds the card and the built kernel
+        with open(f"/proc/{daemon.pid}/maps") as f:
+            maps = f.read()
+        lib = str(_build.target("serve_counts"))
+        mapped = {"libcuda": "libcuda" in maps,
+                  os.path.basename(lib): lib in maps}
+        peer_synced = sum(1 for h in peer_handles
+                          if handle_value(h) is not None)
+        return dict(
+            clients=cfg["clients"], docs=cfg["docs"], slo_ms=cfg["slo_ms"],
+            t_daemon_up_s=t_up, steady=steady, ramp=ramp,
+            saturation_qps=peak["qps"],
+            sat_threads_per_client=peak["threads"], storm=storm,
+            recovery_to_slo_s=recovery_s, recovery_gate_s=cfg["gate_s"],
+            writes_acked=writes_total, write_timeouts=timeouts,
+            write_p50_ms=svc_quantile(bounds, whist, 0.50),
+            write_p99_ms=svc_quantile(bounds, whist, 0.99),
+            acked_lost=acked_lost, reads_errors=errors,
+            reads_shed=shed_total,
+            service={"state": svc.get("state_name"),
+                     "transitions": transitions, "shed_reads": shed_reads,
+                     "brownout_reads": int(svc.get("brownout_reads", 0)),
+                     "deferred_installs": int(svc.get("deferred_installs",
+                                                      0)),
+                     "tenants": tenants},
+            shed_reached=shed_reads > 0,
+            paced_commits=int(counters.get("storage.wal.paced_commits", 0)),
+            overload_shed=int(counters.get("serve.overload_shed", 0)),
+            serve_dispatches=int(counters.get("serve.dispatches", 0)),
+            daemon_maps=mapped, peer_docs_replicated=peer_synced,
+            gates=gates, gated_ok=all(gates.values()))
+    finally:
+        for c in clients:
+            if c.poll() is None:
+                c.kill()
+            c.wait(timeout=30)
+        if close is not None:
+            close()
+        if peer is not None:
+            peer.close()
+        if sw is not None:
+            sw.destroy()
+        boot.close()
+        if daemon.poll() is None:
+            daemon.terminate()
+            try:
+                daemon.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        try:
+            os.killpg(daemon.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        if daemon.poll() is None:
+            daemon.wait(timeout=30)
+
+
+def service_path(ck, corpus, urls, device=None) -> tuple:
+    """Phase 3l on the card: (a) in this process, then (b) the storm.
+    Returns ((a)'s launch counts, the numbers)."""
+    card = card_line()
+    t0 = time.perf_counter()
+    launches, inproc = service_inproc(ck, corpus, urls, device)
+    log(f"phase 3l (a) launches {launches} [{card}]")
+    with tempfile.TemporaryDirectory(prefix="hm-service-") as root:
+        storm = service_storm(root, device)
+    log("phase 3l (b) _config_service: " + json.dumps(storm) + f" [{card}]")
+    if not storm["gated_ok"]:
+        raise AssertionError(f"phase 3l (b): gates {storm['gates']}")
+    if device is None and not all(storm["daemon_maps"].values()):
+        raise AssertionError(f"phase 3l (b): the daemon maps "
+                             f"{storm['daemon_maps']}")
+    wall = time.perf_counter() - t0
+    log(f"phase 3l check: (a) healthy, brownout ({SERVICE['cold']} installs "
+        f"deferred), shed (quotas, typed refusals, acks paced by "
+        f"{inproc['shed']['ack_stretch_ms']} ms) and the ladder on its own "
+        f"signals ({inproc['signals']['climb']}, back to healthy in "
+        f"{inproc['signals']['idle_ticks_to_healthy']} idle ticks); (b) "
+        f"saturation {storm['saturation_qps']} reads/s at "
+        f"{storm['sat_threads_per_client']} threads a client, storm "
+        f"{storm['storm']['qps']} reads/s p99 {storm['storm']['read_p99_ms']}"
+        f" ms, recovery {storm['recovery_to_slo_s']} s, transitions "
+        f"{storm['service']['transitions']}, SHED reached "
+        f"{storm['shed_reached']}, serve.dispatches "
+        f"{storm['serve_dispatches']}, gates {storm['gates']}; phase wall "
+        f"{wall:.1f} s [{card}]")
+    return launches, dict(card=card, inproc=inproc, storm=storm)
+
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -5546,6 +6399,9 @@ def main() -> int:
             # hard links: the writer and recovery write through them)
             crash_corpus = os.path.join(root, "crash-corpus")
             shutil.copytree(read_root, crash_corpus)
+            # and phase 3l's, which writes durably through it
+            service_corpus = os.path.join(root, "service-corpus")
+            shutil.copytree(read_root, service_corpus)
         del refs
         elapsed("phases 3d-3e")
         with tempfile.TemporaryDirectory(prefix="hm-live-") as live_root:
@@ -5571,6 +6427,10 @@ def main() -> int:
         # built libraries and never compile
         hub_counts, hub_numbers = hub_path(ck)
         elapsed("phase 3k")
+        service_counts, service_numbers = service_path(ck, service_corpus,
+                                                       urls)
+        shutil.rmtree(service_corpus)
+        elapsed("phase 3l")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -5651,11 +6511,14 @@ def main() -> int:
     # the counts, and stand beside them
     for k, v in net_counts.items():
         counts[k] += v
-    # and so do the churn slice's (3j's four runs) and the hub slice's
-    # (3k's shards reopened in this process)
+    # and so do the churn slice's (3j's four runs), the hub slice's (3k's
+    # shards reopened in this process) and the service slice's (3l (a)'s
+    # open and reads)
     for k, v in chaos_counts.items():
         counts[k] += v
     for k, v in hub_counts.items():
+        counts[k] += v
+    for k, v in service_counts.items():
         counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
@@ -5686,6 +6549,8 @@ def main() -> int:
                if name in chaos_counts else {}),
             **({"hub_slice_launches": hub_counts[name]}
                if name in hub_counts else {}),
+            **({"service_slice_launches": service_counts[name]}
+               if name in service_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
@@ -5696,6 +6561,7 @@ def main() -> int:
     log("net " + json.dumps(net_numbers))
     log("chaos " + json.dumps(chaos_numbers))
     log("hub " + json.dumps(hub_numbers))
+    log("service " + json.dumps(service_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

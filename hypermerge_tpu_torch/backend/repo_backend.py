@@ -41,10 +41,13 @@ The network hooks are the reference's: `set_swarm` attaches a Network
 cursor gossip), and every hook stays behind `self.network is not None`,
 so a repo with no swarm runs as before. Changes that arrive from a peer
 apply through the live engine's tick on the device, as local ones do.
-Not ported yet; the port behaves as the reference with the switch off:
-the service plane (HM_SERVICE=0: no admission control, so nothing paces
-the journal's acks), and the file server and hyperfile store (their
-entry points raise NotImplementedError).
+The service plane (serve/overload.py) is the reference's: a brownout
+ladder on this backend's own signals, admitting reads at `read_doc` and
+pacing the journal's durable acks. It runs under HM_SERVICE=1; unlike the
+reference, the port's default is off (HM_SERVICE=0), because its read_mix
+cell sheds under the reference's ladder (ROADMAP.md, open items).
+Not ported yet: the file server and hyperfile store (their entry points
+raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -373,6 +376,34 @@ class RepoBackend:
             from ..serve import ServeTier
 
             self.serve = ServeTier(self)
+        # service plane (serve/overload.py): the brownout ladder
+        # watching this backend's own signals — serve read p99,
+        # admission-queue occupancy, WAL fsync debt — and enforcing
+        # at the read front door (read_doc) and the WAL ack path.
+        # Off unless HM_SERVICE=1: the reference's default is on, but
+        # the port's read_mix cell sheds under it (see ROADMAP).
+        self.overload = None
+        if os.environ.get("HM_SERVICE", "0") != "0":
+            self._start_service()
+
+    def _start_service(self) -> None:
+        """Build the service plane's controller on this backend's
+        signals, wire the journal's ack pacer to it, and start it."""
+        from ..serve.overload import HistogramWindow, OverloadController
+
+        self._serve_p99 = (
+            HistogramWindow(self.serve._hist)
+            if self.serve is not None
+            else None
+        )
+        self.overload = OverloadController(signals=self._service_signals)
+        wal = self.durability.wal
+        if wal is not None:
+            # SHED backpressure: the group-commit leader stretches its
+            # gather window — acks pace down, nothing acked is ever
+            # dropped
+            wal.ack_pacer = self.overload.ack_extra_s
+        self.overload.start()
 
     @staticmethod
     def _fsync_dir(path: str) -> None:
@@ -1991,6 +2022,24 @@ class RepoBackend:
     # ------------------------------------------------------------------
     # queries
 
+    def _service_signals(self) -> Dict[str, float]:
+        """The overload controller's pressure feed, all from numbers
+        the repo already measures: serve read p99 over the tick
+        window, admission-queue occupancy, WAL fsync debt over its
+        rotation budget. Runs on the controller ticker (~20 Hz)."""
+        sig = {"p99_s": 0.0, "queue_frac": 0.0, "debt_frac": 0.0}
+        serve = self.serve
+        if serve is not None:
+            if self._serve_p99 is not None:
+                sig["p99_s"] = self._serve_p99.quantile(0.99)
+            b = serve._batcher
+            if b._cap > 0:
+                sig["queue_frac"] = b.depth / b._cap
+        wal = self.durability.wal
+        if wal is not None:
+            sig["debt_frac"] = wal.fsync_debt() / max(1, wal._max_bytes)
+        return sig
+
     def read_doc(
         self, doc_id: str, query: Dict[str, Any], cb: Callable[[Any], None]
     ) -> None:
@@ -1999,8 +2048,15 @@ class RepoBackend:
         the tier's batcher thread; payload None = unknown doc / not
         ready. A read NEVER creates state: a doc id with no stored
         cursor answers None instead of materializing a phantom doc.
-        (The reference's service plane admits reads here; the port runs
-        as it does under HM_SERVICE=0.)"""
+        The service plane's front door is HERE — every read, IPC or
+        in-process, passes the same admission check; a refused read
+        answers the typed {"overload": ...} payload, never an error
+        and never silence."""
+        if self.overload is not None:
+            refusal = self.overload.admit_read(query.get("tenant"))
+            if refusal is not None:
+                cb(refusal)
+                return
         doc = self.docs.get(doc_id)
         if doc is None:
             if not self.cursors.get(self.id, doc_id):
@@ -2029,6 +2085,11 @@ class RepoBackend:
         payload = telemetry.query_payload()
         if self.serve is not None:
             payload["serve"] = self.serve.residency_report()
+        if self.overload is not None:
+            # the service plane's attributable state: ladder rung,
+            # pressure, per-tenant quota table (tools/top.py
+            # [service], tools/ls.py service=, bench gating)
+            payload["service"] = self.overload.report()
         if self.network is not None:
             # DHT introspection (DhtSwarm.discovery_report: node id,
             # bucket occupancy, records, joined posture) for
@@ -2293,6 +2354,8 @@ class RepoBackend:
                 ctx.join()
             except Exception as e:
                 log("repo:backend", f"bulk fetch at close: {e}")
+        if self.overload is not None:
+            self.overload.close()  # stop the ticker before the tier
         if self.serve is not None:
             self.serve.close()  # drains: in-flight reads answer first
         if self.live is not None:

@@ -9,10 +9,14 @@ Layout:
 - ``batcher.py`` — bounded admission + debounced batch flush.
 - ``tier.py`` — ServeTier (the RepoBackend-facing surface) and
   ``host_read``, the bit-identical HM_SERVE=0 twin.
-- ``overload.py`` — the typed Overload refusal (the reference's
-  service plane around it is not ported).
+- ``overload.py`` — the service plane (on under HM_SERVICE=1): brownout
+  ladder, per-tenant quotas, typed Overload refusals (torch-free;
+  frontends import it).
 
-The tier symbols resolve lazily (PEP 562), as in the reference.
+The tier symbols resolve lazily (PEP 562), as in the reference:
+importing ``serve.overload`` from a frontend process must not drag the
+kernel stack (tier -> resident -> kernels -> torch) into a process that
+never serves reads.
 """
 
 from typing import Any

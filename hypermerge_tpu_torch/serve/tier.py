@@ -29,8 +29,10 @@ mirror, ops/clock_mirror.py; no second copy here).
 
 Degradation ladder: unresident or unrebuildable doc -> host path
 (serve.fallbacks); device OOM during install -> evict LRU + retry once
-(serve.evictions_pressure) -> host path; admission queue full -> host
-path. A repeated host-path read of a clock-unmoved doc hits the tier's
+(serve.evictions_pressure) -> host path; admission queue full -> a
+typed Overload refusal in SHED, the host path below it; a cold doc under
+BROWNOUT -> host path, its install deferred (serve/overload.py). A
+repeated host-path read of a clock-unmoved doc hits the tier's
 host memo — zero wire parse on the warm fallback too. A device fault
 is not degraded: a query kernel that does not build or launch, or an
 install upload that fails for another reason than memory pressure,
@@ -220,11 +222,18 @@ class ServeTier:
         if not self._batcher.submit(req):
             # admission overflow is traffic pressure, not a device
             # degradation: its own signal (serve.overload_shed, never
-            # serve.fallbacks); the read answers from the host path (the
-            # reference's service plane, which may refuse it, is not
-            # ported)
+            # serve.fallbacks), routed through the service plane — a
+            # typed refusal in SHED, the host path below it
             self._m["overload_shed"].add(1)
-            self._fallback(req, doc)
+            ctl = getattr(self._back, "overload", None)
+            refusal = (
+                ctl.refuse_overflow(query.get("tenant"))
+                if ctl is not None else None
+            )
+            if refusal is not None:
+                self._finish_raw(req, refusal)
+            else:
+                self._fallback(req, doc)
             return
         self._m["queue_depth"].set(self._batcher.depth)
 
@@ -329,7 +338,15 @@ class ServeTier:
         if ready:
             self._resolve(ready)
         ready = []
+        ctl = getattr(self._back, "overload", None)
         for doc, clock, rs in cold:
+            if ctl is not None and ctl.defer_install(len(rs)):
+                # brownout: cold installs shed first — the reads
+                # still answer (host memo path), the device install
+                # waits for the ladder to step down
+                for r in rs:
+                    self._fallback(r, doc)
+                continue
             entry = self._install(doc, clock)
             if entry is None:
                 self._m["fallbacks"].add(len(rs))

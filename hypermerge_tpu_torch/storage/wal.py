@@ -145,8 +145,7 @@ class WriteAheadLog:
         # writers exist): zero-arg callable returning extra seconds to
         # add to the group-commit gather window while the overload
         # controller is in SHED — acks pace down, writes are never
-        # dropped once acked. The port runs no service plane yet, so
-        # nothing sets it.
+        # dropped once acked (serve/overload.py)
         self.ack_pacer = None
 
     # ------------------------------------------------------------------

@@ -2,10 +2,13 @@
 
 The reference's crypto arrives through hypercore-crypto -> sodium-native
 (reference src/Keys.ts:2-5); here the same primitives route through the
-C++ native layer when it loaded, else the RFC 8032 implementation in
-utils/ed25519.py. Signing throughput matters: feed integrity signs a
-merkle root per append (storage/integrity.py), and pure-Python ed25519
-costs ~ms per signature where sodium costs ~20µs.
+C++ native layer when it loaded with libsodium, else the RFC 8032
+implementation in utils/ed25519.py; signing and verifying take OpenSSL's
+libcrypto (utils/ossl.py) between the two. Throughput matters: feed
+integrity signs a merkle root per append (storage/integrity.py), the DHT
+verifies every record a lookup returns, and pure-Python ed25519 costs
+milliseconds per signature or check, held under the GIL, where sodium or
+libcrypto cost microseconds.
 
 blake2b stays on hashlib (already C, same libsodium algorithm); the
 merkle tree has a native bulk path for many-leaf recomputes.
@@ -18,6 +21,7 @@ from typing import List, Sequence
 
 from .. import native
 from . import ed25519 as _pure
+from . import ossl
 
 _LEAF_PREFIX = b"\x00"
 _NODE_PREFIX = b"\x01"
@@ -30,6 +34,8 @@ def public_key(seed: bytes) -> bytes:
 
 def sign(message: bytes, seed: bytes) -> bytes:
     sig = native.ed25519_sign(seed, message)
+    if sig is None:
+        sig = ossl.ed25519_sign(seed, message)
     return sig if sig is not None else _pure.sign(message, seed)
 
 
@@ -37,6 +43,8 @@ def verify(message: bytes, signature: bytes, pub: bytes) -> bool:
     if len(signature) != 64 or len(pub) != 32:
         return False
     ok = native.ed25519_verify(pub, message, signature)
+    if ok is None:
+        ok = ossl.ed25519_verify(pub, message, signature)
     return ok if ok is not None else _pure.verify(message, signature, pub)
 
 

@@ -713,6 +713,54 @@ def test_repo_reads_on_the_card(cuda):
         r.close()
 
 
+def test_service_plane_on_the_card(cuda, monkeypatch):
+    """A card Repo under HM_SERVICE_FORCE=brownout answers a cold doc's
+    read from the host path and defers its install, while a resident doc's
+    read still launches serve_counts; under shed a read past the quota is
+    a typed Overload."""
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.serve.overload import Overload
+
+    query = {"kind": "len", "path": ["l"]}
+    monkeypatch.setenv("HM_SERVICE", "1")
+    monkeypatch.setenv("HM_SERVICE_FORCE", "healthy")
+    r = Repo(memory=True)
+    try:
+        back = r.back
+        assert back.device.type == "cuda"
+        hot = r.create({"l": [1, 2, 3]})
+        cold = r.create({"l": [4, 5]})
+        assert r.read(hot, query) == 3  # installs the hot doc
+        resident = set(back.serve.residency_report()["resident"])
+        # the ladder pinned at brownout: the backend's controller rebuilt
+        monkeypatch.setenv("HM_SERVICE_FORCE", "brownout")
+        back.overload.close()
+        back._start_service()
+        before = ck.launches["serve_counts"]
+        assert r.read(hot, query) == 3
+        assert ck.launches["serve_counts"] == before + 1
+        assert r.read(cold, query) == 2
+        assert ck.launches["serve_counts"] == before + 1
+        svc = back.telemetry_payload()["service"]
+        assert svc["deferred_installs"] == 1 and svc["brownout_reads"] == 1
+        assert set(back.serve.residency_report()["resident"]) == resident
+    finally:
+        r.close()
+    monkeypatch.setenv("HM_SERVICE_FORCE", "shed")
+    monkeypatch.setenv("HM_QUOTA_READS_S", "0")
+    monkeypatch.setenv("HM_QUOTA_BURST", "1")
+    r = Repo(memory=True)
+    try:
+        url = r.create({"l": [1]})
+        assert r.read(url, query) == 1
+        with pytest.raises(Overload) as exc:
+            r.read(url, query)
+        assert exc.value.state == "shed" and exc.value.retry_after_s >= 0.1
+        assert r.back.telemetry_payload()["service"]["shed_reads"] == 1
+    finally:
+        r.close()
+
+
 # -- the multi-device plane, on virtual ranks of one card ----------------------
 
 

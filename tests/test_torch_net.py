@@ -11,8 +11,13 @@ network hooks and `Repo.set_swarm`), on the CPU.
 - tests/test_crash.py `test_crash_recover_reconverges_with_clean_twin`
   over LoopbackSwarm, with the port's CrashRecorder.
 - Parity with the JAX package: the port's chacha and native X25519 /
-  ChaCha20-Poly1305 are byte-equal to the reference's on keys, nonces and
-  messages made from a seed with numpy, authentication failures included;
+  ChaCha20-Poly1305, and its libcrypto ed25519 (utils/ossl.py), are
+  byte-equal to the reference's on keys, nonces and messages made from a
+  seed with numpy, authentication failures included; the libcrypto
+  ed25519 refuses the edge cases libsodium refuses (non-canonical S, a
+  small-order key or R, a non-canonical key); with the native library's
+  libsodium hidden, the crypto facade and a secure session's auth frame
+  take the libcrypto route;
   a port Repo and a reference Repo converge to equal values over a
   TcpSwarm pair, one from each package (encrypted and authenticated, and
   again under HM_TCP_PLAINTEXT=1).
@@ -1272,6 +1277,133 @@ def test_chacha_byte_equal_to_reference(seed):
         assert ref_chacha.aead_decrypt(key, nonce, bad) is None
     assert chacha.aead_decrypt(key, nonce, b"short") is None
     assert ref_chacha.aead_decrypt(key, nonce, b"short") is None
+
+
+@pytest.mark.parametrize("seed", CRYPTO_SEEDS)
+def test_libcrypto_crypto_byte_equal_to_reference(seed):
+    """utils/ossl.py, the ed25519 route where the native library has no
+    libsodium, against the reference's pure ed25519 on seeded inputs:
+    signatures byte-equal, and the verdict on a good, a tampered-message,
+    a tampered-signature and a wrong-key check."""
+    from hypermerge_tpu.utils import ed25519 as ref_ed
+    from hypermerge_tpu_torch.utils import ossl
+
+    assert ossl.load() is not None
+    rng = np.random.default_rng(200 + seed)
+    seed_a, seed_b = _seeded_bytes(rng, 32), _seeded_bytes(rng, 32)
+    pub = ref_ed.public_key(seed_a)
+    for n in (0, 1, 64, 1000):
+        msg = _seeded_bytes(rng, n)
+        sig = ossl.ed25519_sign(seed_a, msg)
+        assert sig == ref_ed.sign(msg, seed_a)
+        bad_sig = sig[:-1] + bytes([sig[-1] ^ 0x01])
+        other = ref_ed.public_key(seed_b)
+        for args in ((msg, sig, pub), (msg + b"x", sig, pub),
+                     (msg, bad_sig, pub), (msg, sig, other)):
+            assert ossl.ed25519_verify(args[2], args[0], args[1]) == \
+                ref_ed.verify(*args)
+
+
+def _forged(case):
+    """(message, signature, public key, whether the reference's pure
+    ed25519 accepts it) for an ed25519 edge case. The forgeries hold the
+    verification equation, so only libsodium's checks refuse them."""
+    from hypermerge_tpu_torch.utils import ed25519 as ed
+
+    def enc_y(y, sign=0):
+        return (y | sign << 255).to_bytes(32, "little")
+
+    def k_of(r, a, m):
+        return int.from_bytes(ed._sha512(r + a + m), "little") % ed._L
+
+    seed = bytes(range(32))
+    pub = ed.public_key(seed)
+    msg = b"edge"
+    if case == "honest":
+        return msg, ed.sign(msg, seed), pub, True
+    if case == "s_plus_l":
+        sig = ed.sign(msg, seed)
+        s = int.from_bytes(sig[32:], "little") + ed._L
+        return msg, sig[:32] + s.to_bytes(32, "little"), pub, False
+    r = 12345
+    big_r = ed._compress(ed._scalarmult(ed._B, r))
+    sig = big_r + r.to_bytes(32, "little")
+    if case == "identity_key":
+        # A = 0: [k]A vanishes, so R = [S]B holds for any message
+        return msg, sig, enc_y(1), True
+    if case == "noncanonical_identity_key":  # y = p + 1, i.e. 1
+        return msg, sig, enc_y(ed._P + 1), False
+    if case.startswith("order8_key"):
+        from hypermerge_tpu_torch.utils.ossl import _Y8
+
+        a = enc_y(_Y8, int(case[-1]))
+        # [k]A vanishes when 8 divides k: find such a message
+        m = next(bytes([i]) * 8 for i in range(256)
+                 if k_of(big_r, a, bytes([i]) * 8) % 8 == 0)
+        return m, sig, a, True
+    if case == "identity_r":
+        # R = 0: S = k a mod L gives [S]B = [k]A = R + [k]A
+        h = ed._sha512(seed)
+        a = ed._clamp(h[:32])
+        zero = enc_y(1)
+        s = (k_of(zero, pub, msg) * a) % ed._L
+        return msg, zero + s.to_bytes(32, "little"), pub, True
+    raise ValueError(case)
+
+
+@pytest.mark.skipif(not native.available()
+                    or not native.caps() & native.CAP_SODIUM,
+                    reason="no libsodium to hold the route against")
+@pytest.mark.parametrize("case", [
+    "honest", "s_plus_l", "identity_key", "noncanonical_identity_key",
+    "order8_key0", "order8_key1", "identity_r"])
+def test_libcrypto_ed25519_edge_cases_match_libsodium(case):
+    """The libcrypto route refuses what libsodium refuses, through the
+    reference's crypto facade (libsodium here): a non-canonical S, a key
+    or R of small order (the forgeries hold the verification equation,
+    so the reference's pure ed25519 accepts them) and a non-canonical key
+    encoding; an honest signature passes all three routes."""
+    from hypermerge_tpu.utils import crypto as ref_crypto
+    from hypermerge_tpu.utils import ed25519 as ref_ed
+    from hypermerge_tpu_torch.utils import ossl
+
+    msg, sig, pub, pure = _forged(case)
+    assert ref_ed.verify(msg, sig, pub) is pure
+    want = ref_crypto.verify(msg, sig, pub)
+    assert want is (case == "honest")
+    assert ossl.ed25519_verify(pub, msg, sig) is want
+
+
+def test_libcrypto_route_without_libsodium(monkeypatch):
+    """With the native library's libsodium entries hidden (a host whose
+    build found no libsodium), the crypto facade signs and verifies
+    through libcrypto, a secure session's auth frame included, and the
+    bytes still equal the reference's."""
+    from hypermerge_tpu.utils import ed25519 as ref_ed
+    from hypermerge_tpu_torch.utils import crypto, ossl
+
+    calls = []
+    for name in ("ed25519_sign", "ed25519_verify"):
+        fn = getattr(ossl, name)
+
+        def spy(*a, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*a)
+
+        monkeypatch.setattr(ossl, name, spy)
+    monkeypatch.setattr(native, "_sodium", lambda: None)
+    seed = bytes(range(32))
+    sig = crypto.sign(b"record", seed)
+    assert sig == ref_ed.sign(b"record", seed)
+    assert crypto.verify(b"record", sig, ref_ed.public_key(seed))
+    assert not crypto.verify(b"record!", sig, ref_ed.public_key(seed))
+    c, s = SecureSession(True), SecureSession(False)
+    c.complete(s.handshake_bytes)
+    s.complete(c.handshake_bytes)
+    assert s.verify_auth(c.auth_frame(seed))
+    assert s.decrypt(c.encrypt(b"frame")) == b"frame"
+    assert calls.count("ed25519_sign") == 2
+    assert calls.count("ed25519_verify") == 3
 
 
 @pytest.mark.skipif(

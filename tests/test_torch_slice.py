@@ -204,7 +204,9 @@ def test_port_imports_no_jax_and_requires_a_device():
     `pack_docs_columns` on both of its paths, `DeviceClockMirror`,
     `pack_clocks`, `ClockStore`, `Repo` (whose `repo`, `serve` and
     `backend.live` modules import without jax too; it reads on the CPU,
-    with its live engine on, and recovers a crashed directory on open
+    with its live engine and, under HM_SERVICE=1, its service plane's
+    controller on, and
+    recovers a crashed directory on open
     through the port's storage/faults.py, wal.py and scrub.py, and shares
     a doc with a second Repo over the port's TcpSwarm: net/ and its
     crypto) and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
@@ -324,11 +326,17 @@ def test_port_imports_no_jax_and_requires_a_device():
                 assert "device='cpu'" in str(e), e
             else:
                 raise AssertionError("Repo opened without a device")
+        import os
+        os.environ["HM_SERVICE"] = "1"  # the port's default is off
         r = Repo(memory=True, device="cpu")
         try:
             assert isinstance(r.back.serve, ServeTier)
             from hypermerge_tpu_torch.backend.live import LiveApplyEngine
             assert isinstance(r.back.live, LiveApplyEngine)
+            # the service plane: the backend builds its controller
+            assert "hypermerge_tpu_torch.serve.overload" in sys.modules
+            from hypermerge_tpu_torch.serve.overload import OverloadController
+            assert isinstance(r.back.overload, OverloadController)
             url = r.create({"a": 1})
             assert r.read(url, {"kind": "lookup", "path": ["a"]}) == 1
         finally:
