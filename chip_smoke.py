@@ -283,6 +283,23 @@ prints a result):
         shed_order_ok, attributed) must hold, and the daemon's maps show
         libcuda and the built serve_counts library; a `service` JSON
         line;
+     m. hyperfiles (files/): two `Repo(path)` on the card, each on a
+        `TcpSwarm()`, B dialing A. A writes a hyperfile at each of 0, 1,
+        62 KiB - 1, 62 KiB, 62 KiB + 1 and 1 MiB bytes (seeded; every
+        other one as odd-sized chunks) and a doc naming each; B opens
+        each doc, reads the url from it and fetches the file with
+        progress events (bytes, header and blocks == A's). B is closed
+        and reopened on the card: `open_many` + `fetch_bulk_summaries`
+        of the docs with the launch counts set to 0 just before and read
+        just after (pack_prefix and materialize_wire must launch), every
+        doc == A's, no file feed in the sidecar slab or among the actors,
+        every file read back from B's disk. Then B's file server on a
+        unix socket: each file over HTTP, a 1 MiB file A writes after the
+        reopen fetched through the server from the swarm under
+        HM_FILE_FETCH_TIMEOUT_S=120 (printed), an upload through
+        `repo.files.write` read back and in `meta.files`, an unknown id
+        answered 404 with no feed left; a `files` JSON line with the
+        transport crypto and the signing route;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -354,11 +371,23 @@ line (`slab_numbers`, through entries every tree of the port has: the
 slab program, the wire, the sidecar slab's wall, pack and pack_prefix
 with its profile and copies, phase 3d's and phase 3g's opens on shared
 corpora, the live tick), then the card's name and power limit.
+
+    python3 chip_smoke.py --storm N
+
+runs phase 3l (b) N times as the script runs it, then N times with a
+side connection that asks the hub for its telemetry every 0.2 s (a load
+on the hub's one GIL, as a monitoring tool would add), one `storm` JSON
+line a run (the recovery probes, each [seconds after the storm, reads,
+shed, p99 ms], the steady round, the gates); first the times of the
+pure-Python ChaCha20-Poly1305 (`utils/chacha.py`, the transport's route
+where libsodium is missing) at 100 B to 1 MiB, then the card's name and
+power limit.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -5650,11 +5679,14 @@ def service_storm(root: str, device=None) -> dict:
         shed_total += sum(x["shed"] for x in ramp) + r["shed"]
         t_end = time.perf_counter()
         recovery_s = None
+        probes = []  # [seconds after the storm, reads, shed, p99 ms]
         while time.perf_counter() - t_end < cfg["gate_s"] + 5:
             p = phase(1, 0.4, writes=False)
             errors += p["errors"]
             shed_total += p["shed"]
             p99 = svc_quantile(bounds, p["rhist"], 0.99)
+            probes.append([round(time.perf_counter() - t_end, 2), p["reads"],
+                           p["shed"], p99])
             if p["shed"] == 0 and p99 is not None and p99 <= cfg["slo_ms"]:
                 recovery_s = round(time.perf_counter() - t_end, 2)
                 break
@@ -5713,6 +5745,7 @@ def service_storm(root: str, device=None) -> dict:
             saturation_qps=peak["qps"],
             sat_threads_per_client=peak["threads"], storm=storm,
             recovery_to_slo_s=recovery_s, recovery_gate_s=cfg["gate_s"],
+            recovery_probes=probes,
             writes_acked=writes_total, write_timeouts=timeouts,
             write_p50_ms=svc_quantile(bounds, whist, 0.50),
             write_p99_ms=svc_quantile(bounds, whist, 0.99),
@@ -5767,7 +5800,11 @@ def service_path(ck, corpus, urls, device=None) -> tuple:
         storm = service_storm(root, device)
     log("phase 3l (b) _config_service: " + json.dumps(storm) + f" [{card}]")
     if not storm["gated_ok"]:
-        raise AssertionError(f"phase 3l (b): gates {storm['gates']}")
+        raise AssertionError(
+            f"phase 3l (b): gates {storm['gates']}; recovery "
+            f"{storm['recovery_to_slo_s']} s, probes "
+            f"{storm['recovery_probes']}, storm {storm['storm']}, "
+            f"service {storm['service']} [{card}]")
     if device is None and not all(storm["daemon_maps"].values()):
         raise AssertionError(f"phase 3l (b): the daemon maps "
                              f"{storm['daemon_maps']}")
@@ -5786,6 +5823,348 @@ def service_path(ck, corpus, urls, device=None) -> tuple:
         f"{storm['serve_dispatches']}, gates {storm['gates']}; phase wall "
         f"{wall:.1f} s [{card}]")
     return launches, dict(card=card, inproc=inproc, storm=storm)
+
+
+# the hyperfile slice (phase 3m): files/ between two card repos over
+# encrypted, authenticated TcpSwarm. (a) A writes a hyperfile at each size
+# where chunking changes shape (empty, one byte, either side of one
+# 62 KiB block, 1 MiB: 17 data blocks) and a doc naming each; B opens each
+# doc, reads the url from it and fetches the file with progress events;
+# B is closed and reopened on the card and its bulk open of the six docs is
+# counted (pack_prefix and materialize_wire launch; no file feed reaches a
+# sidecar or a slab), and every file reads back from B's disk. (b) B's file
+# server on a unix socket: A's files over HTTP, a file A writes after the
+# reopen fetched through the server from the swarm under an explicit
+# HM_FILE_FETCH_TIMEOUT_S, an upload through `repo.files.write`, and an
+# unknown id's 404 that leaves no feed behind.
+FILES = dict(sizes=(0, 1, 62 * 1024 - 1, 62 * 1024, 62 * 1024 + 1, 1 << 20),
+             edits=3, late_size=1 << 20, seed=21, timeout_s=180,
+             mime="application/x-hm-smoke")
+# the server's remote wait in 3m (b), set for the phase and printed: the
+# default (15 s) is near what a 1 MiB fetch spends in Python's
+# ChaCha20-Poly1305 on both sides of a host without libsodium; the 404
+# probe runs under a short one, since the server waits that long for an id
+# no peer holds
+FILES_FETCH_TIMEOUT_S = "120"
+FILES_MISS_TIMEOUT_S = "1"
+
+
+def file_bytes(size: int, seed: int) -> bytes:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+
+
+def odd_chunks(data: bytes, seed: int) -> list:
+    """`data` as odd-sized chunks, some above one 62 KiB block (the write
+    path splits them) and some far below (kept whole)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out, i = [], 0
+    while i < len(data):
+        n = 2 * int(rng.integers(0, 62 * 1024)) + 1
+        out.append(data[i:i + n])
+        i += n
+    return out
+
+
+def signing_routes() -> dict:
+    """Which ed25519 the feeds' keys and signatures take here: the native
+    library's libsodium entries, OpenSSL's libcrypto (utils/ossl.py,
+    signing only) or the pure-Python RFC 8032 code."""
+    from hypermerge_tpu_torch import native
+    from hypermerge_tpu_torch.utils import ossl
+
+    seed = b"\x01" * 32
+    sodium = native.ed25519_public(seed) is not None
+    return dict(
+        keypair="native libsodium" if sodium else "ed25519 (pure Python)",
+        sign=("native libsodium" if sodium
+              else "libcrypto (utils/ossl.py)" if ossl.load() is not None
+              else "ed25519 (pure Python)"))
+
+
+def fetch_file(repo, url: str, timeout_s: float) -> dict:
+    """Fetch one hyperfile into `repo` from the swarm (FileStore.read with
+    a timeout: blocks stream as replication lands them) with progress
+    events; (bytes, header, wall, progress events)."""
+    from hypermerge_tpu_torch.utils.ids import url_to_id
+
+    fs = repo.back.get_file_store()
+    fid = url_to_id(url)
+    progress = []
+    stop = fs.subscribe_progress(
+        fid, lambda blocks, nbytes: progress.append((blocks, nbytes)))
+    try:
+        t0 = time.perf_counter()
+        got = fs.read_bytes(fid, timeout=timeout_s)
+        wall = time.perf_counter() - t0
+        header = fs.header_wait(fid, timeout=timeout_s)
+    finally:
+        stop()
+    return dict(data=got, header=header, wall=wall, progress=progress)
+
+
+def files_write(ra) -> tuple:
+    """Phase 3m (a) 2: A writes the hyperfiles (even ones as bytes, odd ones
+    as odd-sized chunks) and a doc naming each, with a few edits. Returns
+    ([(header, bytes)], the doc urls, the wall)."""
+    cfg = FILES
+    fs = ra.back.get_file_store()
+    files, urls = [], []
+    t0 = time.perf_counter()
+    for i, size in enumerate(cfg["sizes"]):
+        data = file_bytes(size, cfg["seed"] + i)
+        src = data if i % 2 == 0 else odd_chunks(data, cfg["seed"] + i)
+        header = fs.write(src, cfg["mime"])
+        if header.sha256 != hashlib.sha256(data).hexdigest():
+            raise AssertionError(f"phase 3m (a): A's header of file {i} does "
+                                 "not hash its bytes")
+        files.append((header, data))
+        url = ra.create({"file": header.url, "bytes": size, "edits": []})
+        for k in range(cfg["edits"]):
+            ra.change(url, lambda d, k=k: d["edits"].append(k))
+        urls.append(url)
+    return files, urls, time.perf_counter() - t0
+
+
+def files_fetch(ra, sa, files, doc_urls, b_dir: str, device=None) -> list:
+    """Phase 3m (a) 3: B, a fresh `Repo(path)` on TcpSwarm, opens each doc,
+    reads the file's url from it and fetches the file with progress events;
+    bytes, header and block count equal A's. Returns the per-file numbers."""
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import url_to_id
+
+    cfg = FILES
+    rb = Repo(path=b_dir, device=device)
+    sb = TcpSwarm()
+    fetched = []
+    try:
+        rb.set_swarm(sb)
+        sb.connect(sa.address)
+        # open_many, as a replica opens a corpus: no writer actor is
+        # minted, so the docs stay single-writer for the reopen's pack
+        handles = rb.open_many(doc_urls)
+        for i, h in enumerate(handles):
+            wait_for(f"doc {i} on B", lambda h=h: len(
+                (h.value(timeout=cfg["timeout_s"]) or {}).get("edits", []))
+                >= cfg["edits"], cfg["timeout_s"], "3m")
+            header, data = files[i]
+            file_url = h.value()["file"]
+            if file_url != header.url:
+                raise AssertionError(f"phase 3m (a): doc {i} names "
+                                     f"{file_url}, A wrote {header.url}")
+            got = fetch_file(rb, file_url, cfg["timeout_s"])
+            if got["data"] != data or got["header"] != header:
+                raise AssertionError(f"phase 3m (a): file {i} ({len(data)} "
+                                     "bytes) fetched by B differs from A's")
+            held = rb.back.feeds.get_feed(url_to_id(file_url)).length
+            if (held != header.blocks + 1 or not got["progress"]
+                    or got["progress"][-1][0] != held):
+                raise AssertionError(f"phase 3m (a): file {i}: progress "
+                                     f"{got['progress'][-3:]}, {held} blocks")
+            fetched.append(dict(
+                bytes=header.size, blocks=header.blocks,
+                fetch_s=got["wall"],
+                mib_s=(header.size / 2**20 / got["wall"]
+                       if header.size else None),
+                progress_events=len(got["progress"])))
+        check_pinned(ra, rb, "(a)", "3m")
+        if ([plain_value(rb.doc(u)) for u in doc_urls]
+                != [plain_value(ra.doc(u)) for u in doc_urls]):
+            raise AssertionError("phase 3m (a): B's docs differ from A's")
+    finally:
+        rb.close()
+        sb.destroy()
+    return fetched
+
+
+def files_reopen(ck, ra, files, doc_urls, b_dir: str, device=None) -> tuple:
+    """Phase 3m (a) 4-5: B reopened on the card, without a swarm; the launch
+    counts set to 0 just before `open_many` + `fetch_bulk_summaries` of the
+    docs (whose feeds came over the swarm beside the file feeds) and read
+    just after: pack_prefix and materialize_wire launched, every doc equal
+    to A's, no file feed in the sidecar slab or among the actors, and every
+    file read back from B's disk (timeout 0). Returns (the launches, the
+    numbers)."""
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import url_to_id, validate_doc_url
+
+    for k in ck.launches:
+        ck.launches[k] = 0
+    t0 = time.perf_counter()
+    rb = Repo(path=b_dir, device=device)
+    try:
+        rb.open_many(doc_urls)
+        summ = rb.back.fetch_bulk_summaries()
+        if device is None:
+            torch.cuda.synchronize()
+        t_reopen = time.perf_counter() - t0
+        launches = {k: v for k, v in ck.launches.items() if v}
+        stats = dict(rb.back.last_bulk_stats)
+        if (sorted(summ.doc_ids) != sorted(map(validate_doc_url, doc_urls))
+                or [plain_value(rb.doc(u)) for u in doc_urls]
+                != [plain_value(ra.doc(u)) for u in doc_urls]):
+            raise AssertionError("phase 3m (a): B's reopened docs differ "
+                                 "from A's")
+        fs = rb.back.get_file_store()
+        t0 = time.perf_counter()
+        for header, data in files:
+            fid = url_to_id(header.url)
+            if fs.read_bytes(fid) != data or fs.header(fid) != header:
+                raise AssertionError(f"phase 3m (a): the file of {len(data)} "
+                                     "bytes differs on B's disk")
+        t_local = time.perf_counter() - t0
+        file_ids = {url_to_id(h.url) for h, _ in files}
+        slab = rb.back._col_slab
+        leaked = file_ids & (set(slab.feed_names() if slab else ())
+                             | set(rb.back.actors))
+        if leaked:
+            raise AssertionError(f"phase 3m (a): file feeds reached the "
+                                 f"sidecar slab or the actors: {leaked}")
+    finally:
+        rb.close()
+    for k in BULK:
+        if not launches.get(k):
+            raise AssertionError(f"phase 3m (a): {k} never launched in B's "
+                                 f"reopen: {launches}")
+    return launches, dict(
+        t_reopen_s=t_reopen, t_local_read_s=t_local, launches=launches,
+        reopen_stats={k: stats.get(k) for k in ("docs", "fast", "pipeline",
+                                                "t_io", "t_pack")})
+
+
+def files_server(ra, sa, files, b_dir: str, device=None) -> dict:
+    """Phase 3m (b): B reopened once more, on TcpSwarm to A, with its file
+    server on a unix socket under a short temporary directory. Returns the
+    numbers."""
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils import keys as keymod
+    from hypermerge_tpu_torch.utils.ids import url_to_id
+
+    cfg = FILES
+    sock_dir = tempfile.mkdtemp(prefix="hm-fs-")
+    sock = os.path.join(sock_dir, "files.sock")
+    if len(sock.encode()) > 107:
+        raise AssertionError(f"phase 3m (b): socket path over 107 bytes: "
+                             f"{sock}")
+    rb = Repo(path=b_dir, device=device)
+    sb = TcpSwarm()
+    try:
+        rb.set_swarm(sb)
+        sb.connect(sa.address)
+        rb.start_file_server(sock)
+        client = rb.files
+        if client is None:
+            raise AssertionError("phase 3m (b): no FileServerClient after "
+                                 "start_file_server")
+        t0 = time.perf_counter()
+        for header, data in files:
+            got_header, body = client.read(header.url)
+            if body != data or got_header.sha256 != header.sha256 \
+                    or got_header.blocks != header.blocks:
+                raise AssertionError(f"phase 3m (b): HTTP read of "
+                                     f"{len(data)} bytes differs")
+        t_http = time.perf_counter() - t0
+        late = file_bytes(cfg["late_size"], cfg["seed"] + 100)
+        late_header = ra.back.get_file_store().write(late, cfg["mime"])
+        with env_vars(HM_FILE_FETCH_TIMEOUT_S=FILES_FETCH_TIMEOUT_S):
+            t0 = time.perf_counter()
+            got_header, body = client.read(late_header.url)
+            t_late = time.perf_counter() - t0
+        if body != late or got_header.sha256 != late_header.sha256:
+            raise AssertionError("phase 3m (b): the late file fetched "
+                                 "through the server differs from A's")
+        up = file_bytes(200 * 1024, cfg["seed"] + 200)
+        up_header = client.write(up, cfg["mime"])
+        _h, body = client.read(up_header.url)
+        up_id = url_to_id(up_header.url)
+        if body != up or rb.back.meta.file_metadata(up_id) != {
+                "type": "File", "bytes": len(up), "mimeType": cfg["mime"]}:
+            raise AssertionError("phase 3m (b): the upload did not read back "
+                                 "or did not land in meta.files")
+        bogus = keymod.create().public_key
+        bogus_url = f"hyperfile:/{bogus}"
+        with env_vars(HM_FILE_FETCH_TIMEOUT_S=FILES_MISS_TIMEOUT_S):
+            for call in (client.header, client.read):
+                try:
+                    call(bogus_url)
+                except FileNotFoundError:
+                    pass
+                else:
+                    raise AssertionError("phase 3m (b): an unknown id was "
+                                         "answered")
+        if (rb.back.feeds.get_feed(bogus) is not None
+                or bogus in rb.back.feed_info.all_public_ids()):
+            raise AssertionError("phase 3m (b): the 404 left a feed behind")
+        check_pinned(ra, rb, "(b)", "3m")
+    finally:
+        rb.close()
+        sb.destroy()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    return dict(http_read_s=t_http, late_bytes=len(late),
+                late_blocks=late_header.blocks, late_fetch_s=t_late,
+                late_mib_s=len(late) / 2**20 / t_late,
+                upload_bytes=len(up), fetch_timeout_s=FILES_FETCH_TIMEOUT_S,
+                miss_timeout_s=FILES_MISS_TIMEOUT_S,
+                socket_path_bytes=len(sock.encode()))
+
+
+def files_path(ck, device=None) -> tuple:
+    """Phase 3m on the card (or `device`): (a) write, fetch and reopen, (b)
+    the file server. Returns (the launch counts of B's reopen, the
+    numbers)."""
+    from hypermerge_tpu_torch.net.tcp import TcpSwarm
+    from hypermerge_tpu_torch.repo import Repo
+
+    card = card_line() if device is None else str(device)
+    crypto = transport_crypto()
+    routes = signing_routes()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hm-files-") as root:
+        b_dir = os.path.join(root, "b")
+        ra = Repo(path=os.path.join(root, "a"), device=device)
+        sa = TcpSwarm()
+        try:
+            ra.set_swarm(sa)
+            files, doc_urls, t_write = files_write(ra)
+            fetched = files_fetch(ra, sa, files, doc_urls, b_dir, device)
+            launches, reopen = files_reopen(ck, ra, files, doc_urls, b_dir,
+                                            device)
+            total = sum(f["bytes"] for f in fetched)
+            t_fetch = sum(f["fetch_s"] for f in fetched)
+            fetch = dict(files=fetched, t_write_a_s=t_write,
+                         fetch_total_bytes=total, fetch_total_s=t_fetch,
+                         fetch_mib_s=total / 2**20 / t_fetch, **reopen)
+            log("phase 3m (a) fetch + reopen: " + json.dumps(fetch)
+                + f" [{card}]")
+            server = files_server(ra, sa, files, b_dir, device)
+        finally:
+            ra.close()
+            sa.destroy()
+    wall = time.perf_counter() - t0
+    log("phase 3m (b) file server: " + json.dumps(server) + f" [{card}]")
+    log(f"phase 3m check: {len(files)} hyperfiles "
+        f"({[f['bytes'] for f in fetched]} bytes) fetched by B over "
+        f"TcpSwarm at {fetch['fetch_mib_s']:.3f} MiB/s, byte-equal with "
+        f"progress events; B reopened in {fetch['t_reopen_s']:.3f} s "
+        f"({launches}) with every doc equal to A's and every file read from "
+        f"its disk; the server read each over HTTP, fetched a "
+        f"{server['late_bytes']}-byte file from the swarm in "
+        f"{server['late_fetch_s']:.3f} s (HM_FILE_FETCH_TIMEOUT_S="
+        f"{FILES_FETCH_TIMEOUT_S}), took an upload into meta.files and "
+        f"answered an unknown id 404 with no feed left; transport crypto: "
+        f"{crypto}; keys {routes['keypair']}, signatures {routes['sign']}; "
+        f"phase wall {wall:.1f} s [{card}]")
+    return launches, dict(card=card, transport_crypto=crypto,
+                          signing=routes, fetch=fetch, server=server,
+                          wall_s=wall)
 
 
 def doc_entry_call(ck, args, A, K):
@@ -6218,6 +6597,81 @@ def slab_numbers(tree: str, corpus: str | None = None,
     return 0
 
 
+def storm_main(n: int) -> int:
+    """`--storm N`: see the module docstring."""
+    import threading
+
+    import numpy as np
+
+    from hypermerge_tpu_torch import native
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.net.ipc import connect_frontend
+    from hypermerge_tpu_torch.utils import chacha
+
+    rng = np.random.default_rng(0)
+    key, nonce = rng.bytes(32), rng.bytes(12)
+    aead = {}
+    for size in (100, 300, 1000, 65536, 1 << 20):
+        msg = rng.bytes(size)
+        reps = max(3, min(200, (1 << 16) // size))
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ct = chacha.aead_encrypt(key, nonce, msg)
+            t1 = time.perf_counter()
+            if chacha.aead_decrypt(key, nonce, ct) != msg:
+                raise AssertionError("chacha: the frame did not open")
+            walls.append((t1 - t0, time.perf_counter() - t1))
+        aead[size] = {"seal_ms": statistics.median(w[0] for w in walls) * 1e3,
+                      "open_ms": statistics.median(w[1] for w in walls) * 1e3}
+    log("storm aead " + json.dumps({
+        "libsodium": bool(native.caps() & native.CAP_SODIUM),
+        "utils/chacha.py": aead}))
+    _build.build()
+    for poll in (False, True):
+        for i in range(n):
+            with tempfile.TemporaryDirectory(prefix="hm-storm-") as root:
+                stop, polls = threading.Event(), [0]
+
+                def watch():
+                    sock = os.path.join(root, "daemon.sock")
+                    while not stop.wait(0.5):
+                        try:
+                            front, close = connect_frontend(sock)
+                            break
+                        except OSError:  # the daemon is not up yet
+                            pass
+                    else:
+                        return
+                    stop.wait(10)  # past the clients' set-up
+                    while not stop.wait(0.2):
+                        got = []
+                        front.telemetry(got.append)
+                        deadline = time.time() + 2
+                        while not got and time.time() < deadline:
+                            time.sleep(0.01)
+                        polls[0] += bool(got)
+                    close()
+
+                th = threading.Thread(target=watch, daemon=True)
+                if poll:
+                    th.start()
+                try:
+                    r = service_storm(root)
+                finally:
+                    stop.set()
+                    if poll:
+                        th.join(10)
+            log("storm " + json.dumps({
+                "poll": poll, "run": i, "telemetry_polls": polls[0],
+                "recovery_to_slo_s": r["recovery_to_slo_s"],
+                "recovery_probes": r["recovery_probes"],
+                "steady": r["steady"], "saturation_qps": r["saturation_qps"],
+                "storm": r["storm"], "gates": r["gates"]}))
+    log(card_line())
+    return 0
+
+
 def ab_main(other: str, rounds: int) -> int:
     """`--ab OTHER [ROUNDS]`: slab_numbers of OTHER and of this tree in
     turn, each in a process of its own, on one corpus of phase 3d's size
@@ -6253,6 +6707,8 @@ def main() -> int:
         return ab_main(sys.argv[2], int(sys.argv[3]) if sys.argv[3:] else 1)
     if sys.argv[1:2] == ["--slab-numbers"]:
         return slab_numbers(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--storm"]:
+        return storm_main(int(sys.argv[2]))
     try:
         import torch
     except ImportError:
@@ -6431,6 +6887,8 @@ def main() -> int:
                                                        urls)
         shutil.rmtree(service_corpus)
         elapsed("phase 3l")
+        files_counts, files_numbers = files_path(ck)
+        elapsed("phase 3m")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -6520,6 +6978,9 @@ def main() -> int:
         counts[k] += v
     for k, v in service_counts.items():
         counts[k] += v
+    # and the hyperfile slice's (3m (a)'s reopen)
+    for k, v in files_counts.items():
+        counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
               "clock_union_min": [2, CONFIG5["n_docs"] // 2],
@@ -6551,6 +7012,8 @@ def main() -> int:
                if name in hub_counts else {}),
             **({"service_slice_launches": service_counts[name]}
                if name in service_counts else {}),
+            **({"files_slice_launches": files_counts[name]}
+               if name in files_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))
@@ -6562,6 +7025,7 @@ def main() -> int:
     log("chaos " + json.dumps(chaos_numbers))
     log("hub " + json.dumps(hub_numbers))
     log("service " + json.dumps(service_numbers))
+    log("files " + json.dumps(files_numbers))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "ok": True,

@@ -46,8 +46,9 @@ ladder on this backend's own signals, admitting reads at `read_doc` and
 pacing the journal's durable acks. It runs under HM_SERVICE=1; unlike the
 reference, the port's default is off (HM_SERVICE=0), because its read_mix
 cell sheds under the reference's ladder (ROADMAP.md, open items).
-Not ported yet: the file server and hyperfile store (their entry points
-raise NotImplementedError).
+Hyperfiles are the reference's: `get_file_store` (files/file_store.py,
+swarm-wired for remote fetch, its completed uploads into `meta`) and
+`start_file_server` (files/file_server.py, HTTP over a unix socket).
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ from ..utils.debug import log
 from ..utils.ids import root_actor_id
 from .. import telemetry
 from ..utils.queue import Queue
+from ..files.file_store import FileStore
 from .actor import Actor
 from .doc_backend import DocBackend
 from .metadata import Metadata
@@ -291,6 +293,8 @@ class RepoBackend:
         self._query_handlers: Dict[str, Callable] = {}
         self.network = None  # attached by set_swarm (net/network.py)
         self.meta = Metadata(self.feeds, self.key_store)
+        self.file_store: Optional[FileStore] = None
+        self._file_server = None
         self._closed = False
         # bulk-load state: deferred per-actor work (one executemany / one
         # resync instead of per-feed sqlite + sync queries), and the
@@ -2315,13 +2319,36 @@ class RepoBackend:
         if self.network is not None:
             self.network.leave(feed.discovery_id)
 
-    # files: not ported (no hyperfile store; the two hooks above are
-    # what its FileStore calls, ROADMAP.md Queue 1 item 3)
+    def get_file_store(self) -> FileStore:
+        """The repo's FileStore, swarm-wired for remote fetch; created
+        on first use (with or without an HTTP file server)."""
+        if self.file_store is None:
+            self.file_store = FileStore(
+                self.feeds,
+                announce=self._announce_file_feed,
+                forget=self._forget_file_feed,
+                remote_capable=lambda: self.network is not None,
+            )
+            # Completed uploads flow into the durable metadata ledger
+            # (reference src/RepoBackend.ts:105-107 → Metadata.addFile).
+            self.file_store.write_log.subscribe(
+                lambda header: self.meta.add_file(
+                    header.url, header.size, header.mime_type
+                )
+            )
+        return self.file_store
 
     def start_file_server(self, path: str) -> None:
-        raise NotImplementedError(
-            "the file server (files/) is not ported to hypermerge_tpu_torch"
-        )
+        from ..files.file_server import FileServer
+
+        if self._file_server is not None:
+            raise RuntimeError(
+                "file server already listening; one per repo backend"
+            )
+        self.get_file_store()
+        self._file_server = FileServer(self.file_store)
+        self._file_server.listen(path)
+        self.to_frontend.push(msgs.file_server_ready_msg(path))
 
     def set_swarm(self, swarm, join_options=None) -> None:
         from ..net.network import Network
@@ -2364,6 +2391,9 @@ class RepoBackend:
         self._syncs.close()
         self._cache_syncs.close()  # drains: sidecars durable on close
         self._stores.close()  # drains AFTER patch sources: last rows land
+        if self._file_server is not None:
+            self._file_server.close()
+            self._file_server = None
         if self.network is not None:
             self.network.close()
         self.feeds.close()

@@ -36,6 +36,7 @@ class RepoFrontend:
         self._queries: Dict[int, Callable[[Any], None]] = {}
         self._next_query = 0
         self._lock = make_rlock("front.repo")
+        self.files = None  # FileServerClient, attached when files start
 
     # ------------------------------------------------------------------
     # public api (facade delegates here)
@@ -324,6 +325,10 @@ class RepoFrontend:
                 cb = self._queries.pop(msg["queryId"], None)
             if cb is not None:
                 cb(msg["payload"])
+        elif t == "FileServerReady":
+            from ..files.file_client import FileServerClient
+
+            self.files = FileServerClient(msg["path"])
         elif t == "BulkReady":
             # bulk cold start: docs are ready backend-side; open
             # frontends fetch their Ready (with snapshot patch) lazily,

@@ -11,8 +11,11 @@ The backend runs its kernels on `device`: cuda unless the caller asks for
 "cpu" (device.resolve raises when no GPU is present). `set_swarm`
 attaches a peer swarm (net/: TcpSwarm over encrypted, authenticated TCP,
 or the in-process LoopbackSwarm); changes that arrive from a peer apply
-through the live engine's tick on that device. The file server and
-hyperfiles are not ported: their entry points raise NotImplementedError.
+through the live engine's tick on that device. Hyperfiles
+(files/) are the reference's: `back.get_file_store()` writes and reads
+them as feeds of their own, a remote one fetched over the swarm, and
+`start_file_server` serves them over HTTP on a unix socket, which `files`
+(a FileServerClient) then talks to.
 """
 
 from __future__ import annotations
@@ -121,9 +124,7 @@ class Repo:
 
     @property
     def files(self):
-        raise NotImplementedError(
-            "hyperfiles (files/) are not ported to hypermerge_tpu_torch"
-        )
+        return self.front.files
 
     def set_swarm(self, swarm, join_options=None) -> None:
         """Attach a peer swarm. `join_options` sets the repo's swarm

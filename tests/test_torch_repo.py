@@ -19,9 +19,9 @@ backend and storage beneath it) against the JAX package's, on the CPU.
 - The host library (native/): blocks and change frames one package
   packed, the other unpacks, byte for byte; parallel first builds are
   atomic.
-- The Repo scenarios of tests/test_repo.py on the port, and the entry
-  points the port leaves out raise NotImplementedError (set_swarm only
-  under HM_FAULT, whose fault-injection swarm is not ported).
+- The Repo scenarios of tests/test_repo.py on the port, and its file
+  entry points (`files`, `start_file_server`) answering as the
+  reference's.
 
 The reference runs with HM_LIVE=0 HM_PIPELINE=0 HM_WAL=0 HM_SERVICE=0;
 the port runs with device="cpu". Tolerance: exact.
@@ -425,12 +425,31 @@ def test_persistence_and_bulk_cold_start(tmp_path):
 
 
 @pytest.mark.parametrize("call", [
-    lambda r: r.files,
-    lambda r: r.start_file_server("/nonexistent/sock"),
+    lambda r, sock: r.files,
+    lambda r, sock: r.start_file_server(sock),
 ], ids=["files", "start_file_server"])
 def test_unported_entry_points_raise(repo, call):
-    with pytest.raises(NotImplementedError):
-        call(repo)
+    """The hyperfile entry points, which raised NotImplementedError until
+    files/ was ported, answer as the reference's: `files` is None until
+    the file server listens and its client after; a second server on one
+    backend raises RuntimeError."""
+    import tempfile
+
+    from hypermerge_tpu_torch.files.file_client import FileServerClient
+
+    sock_dir = tempfile.mkdtemp(prefix="hm-")
+    sock = os.path.join(sock_dir, "files.sock")  # unix paths: <= 107 bytes
+    try:
+        assert call(repo, sock) is None
+        if repo.files is None:
+            repo.start_file_server(sock)
+        assert isinstance(repo.files, FileServerClient)
+        assert repo.files.socket_path == sock
+        with pytest.raises(RuntimeError):
+            repo.start_file_server(sock)
+    finally:
+        repo.back._file_server.close()  # the fixture closes the repo
+        shutil.rmtree(sock_dir, ignore_errors=True)
 
 
 def test_repo_runs_on_the_backends_device(repo):

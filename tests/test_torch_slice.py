@@ -209,7 +209,8 @@ def test_port_imports_no_jax_and_requires_a_device():
     recovers a crashed directory on open
     through the port's storage/faults.py, wal.py and scrub.py, and shares
     a doc with a second Repo over the port's TcpSwarm: net/ and its
-    crypto) and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
+    crypto), its hyperfiles (files/) and the package's `Repo` re-export,
+    and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
     and its harness hook (`graft_entry`) imports without jax as well."""
     code = textwrap.dedent(
         """
@@ -238,6 +239,14 @@ def test_port_imports_no_jax_and_requires_a_device():
                      "net.discovery.swarm", "net.ipc", "utils.mapset",
                      "utils.chacha"):
             assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
+        # hyperfiles: the store, its HTTP server and client
+        for name in ("files", "files.stream_logic", "files.file_store",
+                     "files.file_server", "files.file_client"):
+            assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
+        # the package's re-exports, as the reference's __init__ has them
+        from hypermerge_tpu_torch import Repo as PkgRepo, __version__
+        from hypermerge_tpu_torch.repo import Repo as ModRepo
+        assert PkgRepo is ModRepo and __version__ == "0.1.0"
         bad = [m for m in sys.modules
                if m == "hypermerge_tpu" or m.startswith("hypermerge_tpu.")]
         assert not bad, bad
