@@ -300,6 +300,21 @@ prints a result):
         `repo.files.write` read back and in `meta.files`, an unknown id
         answered 404 with no feed left; a `files` JSON line with the
         transport crypto and the signing route;
+     phase 3n: the concurrency analysis — a child process with
+     HM_LOCKDEP=1 and HM_RACEDEP=1 set before any import (every lock a
+     DepLock, every field of the guard map instrumented): (a) a seeded
+     AB/BA order and a seeded unguarded write, both reported; (b) phase
+     3d's bulk open on a copy of its corpus and 2,000 `len` reads from 8
+     threads through the batcher; (c) a 128-op burst into each of 2
+     bulk-opened docs of 8,192 ops in one [2, 16384] tick, the
+     many-block route; (d) 3i (a)'s config 2 at its defaults; (b) and (c)
+     held to the same paths run uninstrumented just before on copies, (d)
+     to the plain replay; no finding, no time blocked under
+     `live.engine`, the kernel locks and `live.engine`, `doc.emit`,
+     `serve.cache` taken, pack_prefix, materialize_wire, serve_counts
+     and materialize_live launched, 3n within 90 s; a `lockdep` JSON line
+     (classes, edges, findings, racedep's fields, the blocking debt by
+     class, launches, the open's wall against its uninstrumented wall);
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -371,6 +386,11 @@ line (`slab_numbers`, through entries every tree of the port has: the
 slab program, the wire, the sidecar slab's wall, pack and pack_prefix
 with its profile and copies, phase 3d's and phase 3g's opens on shared
 corpora, the live tick), then the card's name and power limit.
+
+    python3 chip_smoke.py --lockdep
+
+runs phase 3n alone (the kernels built and phase 3d's corpus written
+first).
 
     python3 chip_smoke.py --storm N
 
@@ -3917,7 +3937,7 @@ def held_changes(repo, url: str) -> list:
     return out
 
 
-def config2_run(ck, label: str, env: dict) -> dict:
+def config2_run(ck, label: str, env: dict, device=None) -> dict:
     """Phase 3i (a), one run: BASELINE configs[1] between two port repos on
     the card over encrypted, authenticated TcpSwarm (bench.py
     `_config2_run`) and then A's paste (one change a doc appending
@@ -3940,11 +3960,12 @@ def config2_run(ck, label: str, env: dict) -> dict:
             d["edits"].append(2000 + j)
 
     with env_vars(**env):
-        ra, rb = Repo(memory=True), Repo(memory=True)
+        ra = Repo(memory=True, device=device)
+        rb = Repo(memory=True, device=device)
         sa, sb = TcpSwarm(), TcpSwarm()
         try:
             for r in (ra, rb):
-                if r.back.device.type != "cuda":
+                if device is None and r.back.device.type != "cuda":
                     raise AssertionError(f"phase 3i: on {r.back.device}")
             ra.set_swarm(sa)
             rb.set_swarm(sb)
@@ -3975,7 +3996,8 @@ def config2_run(ck, label: str, env: dict) -> dict:
                 len(ra.doc(u)["edits"]) >= want for u in urls),
                 cfg["timeout_s"])
             wall = time.perf_counter() - t0
-            torch.cuda.synchronize()
+            if device is None:
+                torch.cuda.synchronize()
             launches = {k: v for k, v in ck.launches.items() if v}
             bad = [u for u in urls if ra.doc(u) != rb.doc(u)
                    or len(rb.doc(u)["edits"]) != want]
@@ -6167,6 +6189,339 @@ def files_path(ck, device=None) -> tuple:
                           wall_s=wall)
 
 
+# the concurrency analysis on the card (phase 3n): a child process started
+# with HM_LOCKDEP=1 and HM_RACEDEP=1 in its environment, so that every lock
+# the port makes is a DepLock and every field of the guard map carries
+# racedep's descriptor from the first import on; the rest of the script runs
+# uninstrumented. The child runs (a) a negative control: a seeded AB/BA order
+# and a seeded unguarded write, both of which must be reported; then (b)
+# phase 3d's bulk open on a copy of its corpus and LOCKDEP["reads"] `len`
+# reads from LOCKDEP["readers"] threads through the batcher, (c) a peer's
+# 128-op burst into each of 2 bulk-opened docs of 8,192 ops inside one
+# raised tick window (one [2, 16384] dispatch: doc_kernel.cu's many-block
+# route, which N above 8,192 takes; HM_LIVE_INC_BUDGET=0 and
+# HM_DEVICE_MIN_CELLS=0, since two docs' 32,768 cells are under the default
+# cutovers), (d) 3i (a)'s config 2 at its defaults (B's remote ticks). (b) and
+# (c) are held to the same paths run uninstrumented here, on copies, first;
+# (d) to the plain replay, as in 3i.
+LOCKDEP = dict(readers=8, reads=2000, budget_s=90.0, timeout_s=600)
+LOCKDEP_LIVE = dict(LIVE_GROUP, n_docs=2, n_ops=8_192, bucket=16384)
+LOCKDEP_CLASSES = ("kernels.build", "kernels.launches", "live.engine",
+                   "doc.emit", "serve.cache")
+LOCKDEP_KERNELS = ("pack_prefix", "materialize_wire", "serve_counts",
+                   "materialize_live")
+
+
+def lockdep_open_reads(ck, corpus: str, urls: list,
+                       device=None) -> dict:
+    """Phase 3n (b): `Repo(path)` over `corpus` on the card, `open_many` +
+    `fetch_bulk_summaries` with the launch counts set to 0 just before,
+    then LOCKDEP["reads"] `len` reads (phase 3d's mix: nine in ten of its
+    hot set) from LOCKDEP["readers"] threads through the batcher. Returns
+    the summaries' digest, the answers, the walls and the counts."""
+    import random
+
+    import torch
+
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    repo = Repo(path=corpus, device=device)
+    try:
+        for k in ck.launches:
+            ck.launches[k] = 0
+        t0 = time.perf_counter()
+        repo.open_many(urls)
+        summ = repo.back.fetch_bulk_summaries()
+        open_s = time.perf_counter() - t0
+        rows = summary_rows(summ, [validate_doc_url(u) for u in urls])
+        rng = random.Random(READ["seed"])
+        hot = urls[: READ["hot"]]
+        mix = [hot[rng.randrange(len(hot))] if rng.random() < 0.9
+               else urls[rng.randrange(len(urls))]
+               for _ in range(LOCKDEP["reads"])]
+        query = {"kind": "len", "path": []}
+        answers = [None] * len(mix)
+
+        def reader(n):
+            for i in range(n, len(mix), LOCKDEP["readers"]):
+                answers[i] = repo.read(mix[i], query)
+
+        read_s = run_threads(LOCKDEP["readers"], reader)
+        if device is None:
+            torch.cuda.synchronize()
+        counts = {k: v for k, v in ck.launches.items() if v}
+    finally:
+        repo.close()
+    if any(a is None for a in answers):
+        raise AssertionError("phase 3n (b): a read answered None")
+    digest = hashlib.sha256(repr(sorted(rows.items())).encode()).hexdigest()
+    return dict(digest=digest, answers=answers, open_s=open_s,
+                read_s=read_s, launches=counts)
+
+
+def lockdep_live_edits(urls: list) -> list:
+    """The peer's edits of phase 3n (c), one list a doc (phase 3f's group
+    traffic at LOCKDEP_LIVE's size)."""
+    from hypermerge_tpu_torch.ops import synth
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    cfg = LOCKDEP_LIVE
+    hists = [synth.synth_changes(cfg["n_ops"], n_actors=1,
+                                 ops_per_change=cfg["ops_per_change"],
+                                 text_frac=cfg["text_frac"],
+                                 seed=cfg["seed"] + t)
+             for t in range(cfg["n_docs"])]
+    return [synth.synth_live_edits(hists[i], 1 + cfg["edits"], seed=i,
+                                   rename={"actor00": validate_doc_url(u)})
+            for i, u in enumerate(urls)]
+
+
+def lockdep_live(ck, where: str, urls: list, device=None) -> dict:
+    """Phase 3n (c): `drive_live` over the bulk-opened docs at `where`
+    (the launch counts set to 0 just before); the burst's one dispatch of
+    LOCKDEP_LIVE's shape must take the many-block route. Returns the
+    outcome's digest, the numbers and the counts."""
+    import torch
+
+    cfg = LOCKDEP_LIVE
+    for k in ck.launches:
+        ck.launches[k] = 0
+    with env_vars(HM_LIVE_INC_BUDGET="0"):
+        outcome, numbers, shapes, _captured = drive_live(
+            ck, where, urls, lockdep_live_edits(urls), cfg["chunk"],
+            device=device, tick_ms=cfg["tick_ms"], min_cells=0)
+    counts = {k: v for k, v in ck.launches.items() if v}
+    shape = (cfg["n_docs"], cfg["bucket"])
+    if shape not in shapes:
+        raise AssertionError(f"phase 3n (c): no {shape} dispatch: {shapes}")
+    route = (ck.DOC_ROUTE_MANY_BLOCK if device is not None
+             else ck.doc_route(*shape, torch.device("cuda", 0)))
+    if route != ck.DOC_ROUTE_MANY_BLOCK:
+        raise AssertionError(f"phase 3n (c): {shape} takes route {route}, "
+                             "not the many-block route")
+    digest = hashlib.sha256(
+        json.dumps(outcome, sort_keys=True, default=str).encode()
+    ).hexdigest()
+    return dict(digest=digest, shapes=[list(s) for s in shapes],
+                numbers=numbers, launches=counts)
+
+
+def lockdep_negative_control(lockdep) -> dict:
+    """Phase 3n (a): a seeded AB/BA order on two threads (never at once,
+    so no deadlock can fire) and a seeded write to a guarded field
+    without its lock; both must be reported. Then the observations are
+    dropped, so that what follows is checked from a clean slate."""
+    import threading
+
+    from hypermerge_tpu_torch.serve.resident import ResidencyCache
+
+    a, b = lockdep.make_rlock("net.network"), lockdep.make_rlock("net.swarm")
+    cache = ResidencyCache()
+
+    def nested():
+        with a:
+            with b:
+                pass
+
+    def inverted():
+        with b:
+            with a:
+                pass
+
+    def guarded():
+        with cache._lock:
+            cache._use += 1
+
+    def unguarded():
+        cache._use += 1
+
+    for fn in (nested, inverted, guarded, unguarded):
+        t = threading.Thread(target=fn)
+        t.start()
+        t.join()
+    rep = lockdep.report()
+    cycles = [c["cycle"] for c in rep["cycles"]]
+    lockset = [v["msg"] for v in rep["violations"] if v["kind"] == "lockset"]
+    if not cycles or not lockset:
+        raise AssertionError(f"phase 3n (a): the seeded faults were not "
+                             f"reported: {rep}")
+    lockdep.reset()
+    return dict(cycles=cycles, lockset=lockset)
+
+
+def lockdep_child(corpus: str, live_dir: str, args_path: str,
+                  out_path: str, device=None) -> int:
+    """Phase 3n's instrumented process (`--lockdep-child`): (a)-(d), the
+    checker's report and the counters, as one JSON file at `out_path`
+    (on the card, or `device` in a CPU rehearsal)."""
+    import torch
+
+    from hypermerge_tpu_torch import telemetry
+    from hypermerge_tpu_torch.analysis import lockdep
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    if not (lockdep.enabled() and lockdep.racedep_enabled()):
+        raise AssertionError("phase 3n: the child runs without HM_LOCKDEP=1 "
+                             "and HM_RACEDEP=1")
+    if device is None and not torch.cuda.is_available():
+        raise AssertionError("phase 3n: no CUDA device in the child")
+    lockdep.install_racedep()
+    with open(args_path) as fh:
+        args = json.load(fh)
+    t0 = time.perf_counter()
+    control = lockdep_negative_control(lockdep)
+    opened = lockdep_open_reads(ck, corpus, args["urls"], device)
+    log(f"phase 3n (b) instrumented: open {opened['open_s']:.3f} s, "
+        f"{LOCKDEP['reads']} reads {opened['read_s']:.3f} s, launches "
+        f"{opened['launches']}")
+    burst = lockdep_live(ck, live_dir, args["live_urls"], device)
+    log(f"phase 3n (c) instrumented: burst {burst['numbers']['burst_s']:.3f}"
+        f" s, dispatches {burst['shapes']}, launches {burst['launches']}")
+    for k in ck.launches:
+        ck.launches[k] = 0
+    conv = config2_run(ck, "lockdep", {}, device)
+    log(f"phase 3n (d) instrumented: config 2 converged in "
+        f"{conv['wall_s']:.3f} s, launches {conv['launches']}")
+    rep = lockdep.report()
+    snap = telemetry.snapshot()
+    out = dict(
+        control=control, classes=lockdep.classes_seen(),
+        edges=[f"{e['from']}->{e['to']}" for e in rep["edges"]],
+        findings=rep["cycles"] + rep["violations"],
+        racedep_attrs=len(lockdep._race_installed),
+        blocking={k: v for k, v in snap.items()
+                  if k.startswith("lock.held_blocking_ms.")},
+        racedep_violations=snap.get("lock.racedep_violations", 0),
+        open=opened, live=burst,
+        config2=dict(wall_s=conv["wall_s"], launches=conv["launches"],
+                     edits_a_doc=conv["edits_a_doc"]),
+        child_s=time.perf_counter() - t0,
+    )
+    with open(out_path, "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+def lockdep_path(ck, corpora: tuple, urls: list, device=None) -> tuple:
+    """Phase 3n: (b) and (c) uninstrumented here, (b) on the first of
+    `corpora` (two copies of phase 3d's corpus, made with 3d's), then the
+    instrumented child on the second and on a copy of (c)'s, held to
+    their answers. Returns (the child's launch counts of the four
+    kernels' paths, the numbers). `device="cpu"` is the CPU rehearsal:
+    the plain versions run and no launch is counted."""
+    import torch
+
+    card = card_line() if device is None else str(device)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hm-lockdep-") as root:
+        cfg = LOCKDEP_LIVE
+        live_dir = os.path.join(root, "live")
+        live_urls, _hists = write_live_corpus(
+            live_dir, cfg["n_docs"], cfg["n_ops"], cfg["ops_per_change"],
+            cfg["text_frac"], cfg["seed"])
+        t_setup = time.perf_counter() - t_phase
+        plain_open = lockdep_open_reads(ck, corpora[0], urls, device)
+        plain_live = lockdep_live(ck, live_dir, live_urls, device)
+        if device is None:
+            torch.cuda.synchronize()
+        args_path = os.path.join(root, "args.json")
+        out_path = os.path.join(root, "out.json")
+        with open(args_path, "w") as fh:
+            json.dump(dict(urls=urls, live_urls=live_urls), fh)
+        env = dict(os.environ, HM_LOCKDEP="1", HM_RACEDEP="1")
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--lockdep-child",
+             corpora[1], live_dir + "-twin", args_path, out_path]
+            + ([] if device is None else [str(device)]),
+            env=env, timeout=LOCKDEP["timeout_s"])
+        child_wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"phase 3n: the instrumented child exited "
+                                 f"{run.returncode}")
+        with open(out_path) as fh:
+            dep = json.load(fh)
+    wall = time.perf_counter() - t_phase
+    if dep["open"]["digest"] != plain_open["digest"]:
+        raise AssertionError("phase 3n (b): instrumented summaries differ")
+    if dep["open"]["answers"] != plain_open["answers"]:
+        raise AssertionError("phase 3n (b): instrumented reads differ")
+    if dep["live"]["digest"] != plain_live["digest"]:
+        raise AssertionError("phase 3n (c): instrumented live docs differ")
+    launches = dict(dep["open"]["launches"])
+    for part in (dep["live"]["launches"], dep["config2"]["launches"]):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [c for c in LOCKDEP_CLASSES if c not in dep["classes"]
+               and (device is None or not c.startswith("kernels."))]
+    zero = [k for k in LOCKDEP_KERNELS
+            if device is None and not launches.get(k)]
+    engine_ms = dep["blocking"].get("lock.held_blocking_ms.live_engine", 0.0)
+    numbers = dict(
+        card=card, classes=dep["classes"], n_edges=len(dep["edges"]),
+        edges=dep["edges"], findings=dep["findings"],
+        racedep_attrs=dep["racedep_attrs"], blocking=dep["blocking"],
+        control=dict(cycles=len(dep["control"]["cycles"]),
+                     lockset=len(dep["control"]["lockset"])),
+        launches={k: launches.get(k, 0) for k in LOCKDEP_KERNELS},
+        open_s=dep["open"]["open_s"], plain_open_s=plain_open["open_s"],
+        open_ratio=dep["open"]["open_s"] / plain_open["open_s"],
+        read_s=dep["open"]["read_s"], plain_read_s=plain_open["read_s"],
+        burst_s=dep["live"]["numbers"]["burst_s"],
+        plain_burst_s=plain_live["numbers"]["burst_s"],
+        live_shapes=dep["live"]["shapes"],
+        config2_wall_s=dep["config2"]["wall_s"],
+        setup_s=t_setup, child_wall_s=child_wall, child_s=dep["child_s"],
+        wall_s=wall,
+    )
+    log("lockdep " + json.dumps(numbers))
+    if dep["findings"]:
+        raise AssertionError(f"phase 3n: lockdep findings: "
+                             f"{dep['findings'][:4]}")
+    if engine_ms > 0:
+        raise AssertionError(f"phase 3n: {engine_ms} ms blocked under "
+                             "live.engine")
+    if missing:
+        raise AssertionError(f"phase 3n: classes never taken: {missing}")
+    if zero:
+        raise AssertionError(f"phase 3n: kernels never launched: {zero}")
+    log(f"phase 3n check: the seeded AB/BA order and unguarded write "
+        f"reported; bulk open, {LOCKDEP['reads']} reads, the [2, "
+        f"{LOCKDEP_LIVE['bucket']}] burst and config 2 clean under "
+        f"HM_LOCKDEP=1 HM_RACEDEP=1 ({len(dep['edges'])} edges, "
+        f"{dep['racedep_attrs']} fields instrumented) and equal to their "
+        f"uninstrumented answers; open {numbers['open_ratio']:.2f}x "
+        f"uninstrumented; phase wall {wall:.1f} s [{card}]")
+    if wall > LOCKDEP["budget_s"]:
+        raise AssertionError(f"phase 3n took {wall:.1f} s, over its "
+                             f"{LOCKDEP['budget_s']} s")
+    return launches, numbers
+
+
+def lockdep_main() -> int:
+    """`--lockdep`: phase 3n alone on the card (phase 3d's corpus written
+    first, the kernels built)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hypermerge_tpu_torch import native
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+
+    log(card_line())
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix="hm-read-") as root:
+        sign = bool(native.caps() & native.CAP_SODIUM)
+        corpus = os.path.join(root, "corpus")
+        urls = make_corpus(corpus, READ["n_docs"], READ["n_ops"], sign=sign)
+        shutil.copytree(corpus, corpus + "-dep")
+        lockdep_path(ck, (corpus, corpus + "-dep"), urls)
+    return 0
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -6709,6 +7064,10 @@ def main() -> int:
         return slab_numbers(*sys.argv[2:5])
     if sys.argv[1:2] == ["--storm"]:
         return storm_main(int(sys.argv[2]))
+    if sys.argv[1:2] == ["--lockdep-child"]:
+        return lockdep_child(*sys.argv[2:7])
+    if sys.argv[1:2] == ["--lockdep"]:
+        return lockdep_main()
     try:
         import torch
     except ImportError:
@@ -6858,6 +7217,11 @@ def main() -> int:
             # and phase 3l's, which writes durably through it
             service_corpus = os.path.join(root, "service-corpus")
             shutil.copytree(read_root, service_corpus)
+            # and phase 3n's two: one opened plain, one instrumented
+            lockdep_corpora = tuple(
+                os.path.join(root, f"lockdep-{w}") for w in ("plain", "dep"))
+            for c in lockdep_corpora:
+                shutil.copytree(read_root, c)
         del refs
         elapsed("phases 3d-3e")
         with tempfile.TemporaryDirectory(prefix="hm-live-") as live_root:
@@ -6889,6 +7253,11 @@ def main() -> int:
         elapsed("phase 3l")
         files_counts, files_numbers = files_path(ck)
         elapsed("phase 3m")
+        lockdep_counts, _lockdep_numbers = lockdep_path(ck, lockdep_corpora,
+                                                        urls)
+        for c in lockdep_corpora:
+            shutil.rmtree(c)
+        elapsed("phase 3n")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -6978,8 +7347,11 @@ def main() -> int:
         counts[k] += v
     for k, v in service_counts.items():
         counts[k] += v
-    # and the hyperfile slice's (3m (a)'s reopen)
+    # and the hyperfile slice's (3m (a)'s reopen), and the instrumented
+    # child's of phase 3n ((b)'s open and reads, (c)'s burst, (d))
     for k, v in files_counts.items():
+        counts[k] += v
+    for k, v in lockdep_counts.items():
         counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
@@ -7014,6 +7386,8 @@ def main() -> int:
                if name in service_counts else {}),
             **({"files_slice_launches": files_counts[name]}
                if name in files_counts else {}),
+            **({"lockdep_slice_launches": lockdep_counts[name]}
+               if name in lockdep_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))

@@ -327,9 +327,12 @@ class RepoBackend:
         from ..utils.debounce import Debouncer
 
         # cursor/clock gossip is a latest-state broadcast: debounce it
-        # so a burst of local changes to one doc costs one frame (10 ms)
+        # so a burst of local changes to one doc costs one frame
         self._gossip = Debouncer(
-            self._flush_gossip, window_s=0.010, name="gossip",
+            self._flush_gossip,
+            window_s=float(os.environ.get("HM_GOSSIP_FLUSH_MS", "10"))
+            / 1e3,
+            name="gossip",
         )
         # inbound-sync application is idempotent window-polling: under
         # edit load many small extensions coalesce into one
@@ -360,9 +363,13 @@ class RepoBackend:
             merge=_merge_store_marks,
             name="stores",
         )
-        # read once: _mark_clock_row/_mark_cursor_row run per patch
+        # read once: _mark_clock_row/_mark_cursor_row run per patch,
+        # _flush_gossip per debounce window
         self._store_debounce = (
             os.environ.get("HM_STORE_DEBOUNCE", "1") != "0"
+        )
+        self._gossip_fresh = (
+            os.environ.get("HM_GOSSIP_FRESH", "1") != "0"
         )
         # live apply engine (backend/live.py): incremental changes on
         # lazy docs batch through per-tick kernel dispatches. HM_LIVE=0
@@ -2289,11 +2296,12 @@ class RepoBackend:
     def _flush_gossip(self, doc_ids) -> None:
         if self.network is None or self._closed:
             return
+        fresh = self._gossip_fresh
         pend = self._stores.pending()  # one snapshot for the loop
         for doc_id in doc_ids:
             # an open doc's in-memory clock is fresher than its store
             # row (clock rows flush debounced — _flush_store_rows)
-            doc = self.docs.get(doc_id)
+            doc = self.docs.get(doc_id) if fresh else None
             clock = (
                 doc.clock if doc is not None
                 else self.clocks.get(self.id, doc_id)

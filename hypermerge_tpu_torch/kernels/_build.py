@@ -26,6 +26,7 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Tuple
 
+from ..analysis import lockdep
 from ..analysis.lockdep import make_lock
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -95,7 +96,11 @@ def _build(stems: Iterable[str], defines: Tuple[str, ...]) -> Dict[str, Path]:
         running.append((stem, path, tmp, proc))
     failed = []
     for stem, path, tmp, proc in running:
-        log, _ = proc.communicate()
+        # the wait for nvcc under the build lock: a blocking seam, so
+        # lockdep charges it to `lock.held_blocking_ms.kernels_build` and
+        # reports it where a no-block class (live.engine) is held too
+        with lockdep.blocking("nvcc", stem):
+            log, _ = proc.communicate()
         build_log[stem + "".join(f" -D{d}" for d in defines)] = log
         if proc.returncode != 0:
             failed.append(f"{stem} (nvcc exit {proc.returncode}):\n{log}")

@@ -65,6 +65,28 @@ histogram = REGISTRY.histogram
 snapshot = REGISTRY.snapshot
 
 
+def snapshot_repo(repo_path: str, device=None) -> Dict[str, Any]:
+    """Open the repo at ``repo_path`` in-process on ``device`` (None:
+    the card, as every entry of the port), prime every doc (bulk open +
+    summary barrier), and return ``query_payload()`` — the one recipe
+    behind the repo-mode stats of the command-line tools. The numbers
+    describe THIS process' open, not a running daemon (attach to a
+    daemon's socket for that). Lazy imports: the telemetry package
+    itself must stay dependency-free."""
+    from ..repo import Repo
+    from ..utils.ids import to_doc_url
+
+    repo = Repo(path=repo_path, device=device)
+    try:
+        doc_ids = repo.back.clocks.all_doc_ids(repo.back.id)
+        if doc_ids:
+            repo.open_many([to_doc_url(d) for d in doc_ids])
+            repo.back.fetch_bulk_summaries()
+        return query_payload()
+    finally:
+        repo.close()
+
+
 def query_payload() -> Dict[str, Any]:
     """The ``{"type": "Telemetry"}`` IPC query's reply: the merged
     counter snapshot plus trace state, stamped with a monotonic time
@@ -86,5 +108,5 @@ __all__ = [
     "instant", "NOOP", "SpanHandle", "enable_tracing",
     "disable_tracing", "tracing_enabled", "trace_events",
     "event_count", "flush_trace", "reset_trace", "trace_path",
-    "query_payload",
+    "query_payload", "snapshot_repo",
 ]

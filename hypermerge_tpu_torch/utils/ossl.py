@@ -19,8 +19,9 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
-import threading
 from typing import Optional
+
+from ..analysis.lockdep import make_lock
 
 _NID_ED25519 = 1087
 _P = 2**255 - 19
@@ -31,7 +32,7 @@ _Y8 = 27073855011448406493182252872256587889368042675753135194637436097503034020
 # the non-canonical forms of 0 and 1
 _SMALL_Y = frozenset((0, 1, _P - 1, _Y8, _P - _Y8, _P, _P + 1))
 _Y_MASK = (1 << 255) - 1
-_lock = threading.Lock()
+_lock = make_lock("util.ossl")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 

@@ -6,10 +6,12 @@ of net/tcp.py and HM_FAULT in net/network.py), on the CPU.
   name on the port's modules (the soak stays marked `slow`), and the two
   anti-entropy cases of tests/test_crash.py. Repos are
   `Repo(memory=True, device="cpu")`, so the live tick runs its plain
-  version. The reference's suites run under its lockdep and racedep
-  module fixtures; these do not, because the port's `analysis/` has no
-  lock-order or lockset checker (its lock factories return plain
-  `threading` primitives). The reference's timeouts are kept.
+  version. Like the reference's suites, this one runs under the
+  lockdep and racedep module fixtures (`lockdep_suite`, `racedep_suite`
+  of tests/test_torch_analysis.py, on the port's analysis/lockdep.py):
+  every lock and guarded field the fault harness churns is
+  instrumented, and the module's teardown fails on any finding. The
+  reference's timeouts are kept.
 - The `made` fixture closes every repo, swarm, DHT node and duplex a case
   made, repos first (a repo's network destroys its own swarm): a
   FaultSwarm's ticker, a delay line, a DHT node's UDP threads or a
@@ -58,7 +60,12 @@ from hypermerge_tpu_torch.repo import Repo as _PortRepo
 from hypermerge_tpu_torch.utils import base58, crypto
 
 from helpers import wait_until
+from test_torch_analysis import lockdep_suite, racedep_suite
 from test_torch_repo import plain
+
+_lockdep_suite = lockdep_suite()
+# the fault harness doubles as the net layer's guard-map verifier
+_racedep_suite = racedep_suite()
 
 # every port object of a case that owns threads or sockets, in the order
 # the case made them

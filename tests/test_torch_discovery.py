@@ -7,10 +7,10 @@ GossipSampler), on the CPU.
   over UDP, bootstrap churn, the signing cache, push seeding, the gossip
   sampler, repos joined through the DHT alone (no connect()), with and
   without a seeded FaultSwarm, and bounded fanout over 20 peers. Repos
-  are `Repo(memory=True, device="cpu")`. The reference's suite runs under
-  its lockdep and racedep module fixtures; this one does not, because
-  the port's `analysis/` has no lock-order or lockset checker. The
-  `made` fixture of tests/test_torch_chaos.py closes every repo, swarm
+  are `Repo(memory=True, device="cpu")`. Like the reference's suite,
+  this one runs under the lockdep and racedep module fixtures of
+  tests/test_torch_analysis.py (on the port's analysis/lockdep.py),
+  whose teardown fails on any finding. The `made` fixture of tests/test_torch_chaos.py closes every repo, swarm
   and DHT node a case made (a node's UDP reader and sweeper threads
   would outlive it).
 - Parity with the JAX package: `key_id` and the records of `make_record`
@@ -50,7 +50,11 @@ from hypermerge_tpu_torch.net.faults import FaultPlan
 from hypermerge_tpu_torch.net.swarm import JoinOptions, LoopbackHub, LoopbackSwarm
 
 from helpers import wait_until
+from test_torch_analysis import lockdep_suite, racedep_suite
 from test_torch_chaos import FaultSwarm, Repo, _tracked, made  # noqa: F401
+
+_lockdep_suite = lockdep_suite()
+_racedep_suite = racedep_suite()
 
 DhtNode = _tracked(_dht.DhtNode)
 DhtSwarm = _tracked(_dswarm.DhtSwarm)

@@ -55,6 +55,7 @@ from hypermerge_tpu_torch.net.ipc import (
 )
 from hypermerge_tpu_torch.repo import Repo as _PortRepo
 from hypermerge_tpu_torch.utils import base58
+from hypermerge_tpu_torch.utils.ids import url_to_id
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO_ROOT}
@@ -175,6 +176,15 @@ def _wait(fn, timeout=60, interval=0.05):
     raise AssertionError(f"cross-process wait timed out: {fn}")
 
 
+def _committed(front, url):
+    """The doc's history length as the backend last echoed it. A handle's
+    value already shows a local change's preview while the change is in
+    flight; the echo comes after the backend appended the change to its
+    feed, so only an echoed change is one a kill must not lose."""
+    df = front.docs.get(url_to_id(url))
+    return df.history if df is not None else 0
+
+
 def _worker_pids(proc, n=2):
     """The hub's "worker <i> pid <pid>" lines after "backend ready"."""
     assert "ready" in proc.stdout.readline()
@@ -287,6 +297,7 @@ def test_backend_kill_restart_frontend_resumes(tmp_path):
             front.change(url, lambda d, i=i: d["log"].append(i))
         h = front.watch(url, lambda d, i: None)
         _wait(lambda: len((_val(h) or {}).get("log", [])) == 5)
+        _wait(lambda: _committed(front, url) == 6)  # create + 5, echoed
         close()
     finally:
         proc.kill()  # hard kill: no orderly backend close
@@ -303,6 +314,7 @@ def test_backend_kill_restart_frontend_resumes(tmp_path):
             front2.change(url, lambda d, i=i: d["log"].append(i))
         _wait(lambda: len((_val(h2) or {}).get("log", [])) == 8)
         assert list(_val(h2)["log"]) == list(range(8))
+        _wait(lambda: _committed(front2, url) == 9)
         close2()
     finally:
         _stop(proc2, sock2)

@@ -228,37 +228,46 @@ def _entry_call(lib, what, fc):
     return call
 
 
-def _spin_share(call, seconds=0.3):
-    """The share of its solo rate that a pure-Python spinner keeps while
-    `call` runs back to back on another thread."""
-    def spin(until):
-        n = 0
-        while time.perf_counter() < until:
-            n += 1
-        return n
-
-    rate = spin(time.perf_counter() + 0.1) / 0.1
+def _spin_share(call, seconds=0.3, calls=2):
+    """The share that a pure-Python spinner takes of the CPU time that it
+    and a thread running `call` back to back spend in one window: about a
+    half when the call drops the GIL (the two run at once), near zero
+    when it holds it (the spinner waits for every call to return). Both
+    are the threads' own CPU clocks, not the wall clock, so other
+    processes loading the CPU move them alike and not the share. The
+    window lasts `seconds` and until `calls` calls have returned in it: a
+    worker that the loaded CPU has not scheduled yet leaves the spinner
+    alone, which would read as a GIL-free call."""
     stop = [False]
+    done = [0]
 
     def worker():
         while not stop[0]:
             call()
+            done[0] += 1
 
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     time.sleep(0.01)
-    n = spin(time.perf_counter() + seconds)
+    clock = time.pthread_getcpuclockid(t.ident)
+    w0, s0, d0 = time.clock_gettime(clock), time.thread_time(), done[0]
+    until = time.perf_counter() + seconds
+    while time.perf_counter() < until or done[0] - d0 < calls:
+        pass
+    spun = time.thread_time() - s0
+    worked = time.clock_gettime(clock) - w0
     stop[0] = True
     t.join(10)
     assert not t.is_alive()
-    return n / (rate * seconds)
+    return spun / (spun + worked)
 
 
 @pytest.mark.parametrize("what", ["host_pack", "marshal"])
 def test_native_calls_drop_the_gil(big_feed, what):
-    """The bound entries run GIL-free: a spinner keeps far more of its pace
-    beside back-to-back calls through `native.pack_lib()` than beside the
-    same calls through a GIL-holding (PyDLL) handle of the library."""
+    """The bound entries run GIL-free: a spinner takes a far larger share
+    of the CPU beside back-to-back calls through `native.pack_lib()` than
+    beside the same calls through a GIL-holding (PyDLL) handle of the
+    library."""
     lib = native.pack_lib()
     assert native.pack_drops_gil() and native.pack_parallel_ok()
     held = native._bind(ctypes.PyDLL(lib._name))

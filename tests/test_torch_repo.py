@@ -34,6 +34,7 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -489,3 +490,63 @@ def test_host_kernel_matches_plain(name):
         assert np.array_equal(g, getattr(want, f).numpy()), f
         assert np.array_equal(g, np.asarray(getattr(ref, f))), f
         assert torch.from_numpy(np.ascontiguousarray(g)).dtype == getattr(want, f).dtype, f
+
+
+class _GossipTap:
+    """A stand-in network that records each cursor gossip frame."""
+
+    def __init__(self):
+        self.frames = []
+
+    def gossip_cursor(self, doc_id, cursor, clock):
+        self.frames.append((time.perf_counter(), doc_id, dict(cursor),
+                            dict(clock)))
+
+
+@pytest.mark.parametrize("fresh", ["0", "1"])
+def test_gossip_knobs_equal_reference(monkeypatch, fresh):
+    """HM_GOSSIP_FLUSH_MS sets the gossip debouncer's window and
+    HM_GOSSIP_FRESH=0 gossips the stored clock row instead of an open
+    doc's in-memory clock, in both packages: for a doc whose store row
+    lags its open clock (the row set back to the first change), each
+    package gossips the same clock (its writer actor named by role) after
+    the same 50 ms window."""
+    for k, v in REF_SWITCHES.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.setenv("HM_GOSSIP_FLUSH_MS", "50")
+    monkeypatch.setenv("HM_GOSSIP_FRESH", fresh)
+    monkeypatch.setenv("HM_STORE_DEBOUNCE", "0")  # rows written through
+    got = {}
+    for name, make in (("ref", lambda: RefRepo(memory=True)),
+                       ("port", lambda: Repo(memory=True, device="cpu"))):
+        r = make()
+        try:
+            back = r.back
+            url = r.create({"n": 0})
+            for i in range(1, 4):
+                r.change(url, lambda d, i=i: d.__setitem__("n", i))
+            doc = back.docs[validate_doc_url(url)]
+            writer = doc.actor_id
+            back.clocks.set(back.id, doc.id, {writer: 1})
+            assert dict(doc.clock) == {writer: 4}
+            assert back._gossip._window == 0.05
+            # the reference marks the debouncer on every patch, swarm or
+            # not: let that window pass before the timed one
+            assert back._gossip.flush_now(10)
+            tap = _GossipTap()
+            back.network = tap
+            t0 = time.perf_counter()
+            back._gossip_cursor(doc)
+            deadline = t0 + 10
+            while not tap.frames and time.perf_counter() < deadline:
+                time.sleep(0.005)
+            back.network = None
+            (t, doc_id, cursor, clock), = tap.frames
+            assert doc_id == doc.id
+            assert t - t0 >= 0.05
+            got[name] = {("writer" if a == writer else a): s
+                         for a, s in clock.items()}
+        finally:
+            r.close()
+    assert got["port"] == got["ref"]
+    assert got["port"] == ({"writer": 1} if fresh == "0" else {"writer": 4})

@@ -5,9 +5,10 @@ against the JAX package's (hypermerge_tpu/serve/overload.py), on the CPU.
   the brownout ladder's hysteresis, the token buckets, the controller on
   injected signals and a fake clock, enforcement through a port `Repo`
   (forced states), the journal's ack pacing, the typed Overload across a
-  port hub's IPC seam (`--device cpu`) and the `-m slow` churn soak. The
-  reference also runs them under its lock-order and lockset checkers;
-  the port has no checkers yet, so those suites are not run here.
+  port hub's IPC seam (`--device cpu`) and the `-m slow` churn soak. As
+  in the reference, the module runs under the lock-order and lockset
+  checkers (`lockdep_suite`, `racedep_suite` of
+  tests/test_torch_analysis.py), whose teardown fails on any finding.
 - Parity with the reference on numpy-seeded inputs: `BrownoutLadder`
   state traces, `TokenBucket` takes, retry-after and occupancy,
   `OverloadController` outcomes and `report()` (tenant eviction
@@ -51,10 +52,15 @@ from hypermerge_tpu_torch.serve.overload import (
 )
 from hypermerge_tpu_torch.telemetry.registry import Histogram
 
+from test_torch_analysis import lockdep_suite, racedep_suite
+
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENV = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": REPO_ROOT,
        "HM_SERVICE": "1"}
 PORT_IPC = "hypermerge_tpu_torch.net.ipc"
+
+_lockdep = lockdep_suite()
+_racedep = racedep_suite()
 
 
 @pytest.fixture(autouse=True)

@@ -210,6 +210,9 @@ def test_port_imports_no_jax_and_requires_a_device():
     through the port's storage/faults.py, wal.py and scrub.py, and shares
     a doc with a second Repo over the port's TcpSwarm: net/ and its
     crypto), its hyperfiles (files/) and the package's `Repo` re-export,
+    its concurrency analysis (analysis/: lockdep, hierarchy, guards,
+    envvars, linter, suppressions; the lint CLI) and
+    `telemetry.snapshot_repo`,
     and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
     and its harness hook (`graft_entry`) imports without jax as well."""
     code = textwrap.dedent(
@@ -243,6 +246,15 @@ def test_port_imports_no_jax_and_requires_a_device():
         for name in ("files", "files.stream_logic", "files.file_store",
                      "files.file_server", "files.file_client"):
             assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
+        # the concurrency analysis: manifests, checkers, the lint CLI
+        for name in ("analysis", "analysis.lockdep", "analysis.hierarchy",
+                     "analysis.guards", "analysis.envvars",
+                     "analysis.linter", "analysis.suppressions",
+                     "tools", "tools.lint"):
+            assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
+        from hypermerge_tpu_torch.analysis import (
+            install_racedep, lockdep_enabled, make_lock)
+        from hypermerge_tpu_torch.telemetry import snapshot_repo
         # the package's re-exports, as the reference's __init__ has them
         from hypermerge_tpu_torch import Repo as PkgRepo, __version__
         from hypermerge_tpu_torch.repo import Repo as ModRepo

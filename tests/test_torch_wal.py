@@ -257,10 +257,13 @@ def test_tier2_concurrent_commits_share_leader_fsync(tmp_path, monkeypatch):
 # the port's Repo crashed under the port's recorder
 
 
-def _acked_repo_workload(work, monkeypatch, tier="1"):
+def _acked_repo_workload(work, monkeypatch, tier="1", checkpoints=False):
     """A disk repo, 3 docs, interleaved edits, the ack after each round
     the durability flush; one unacked trailing edit. Returns (recorder,
-    urls, [(event index, edits per doc acked)])."""
+    urls, [(event index, edits per doc acked)]). With `checkpoints`, the
+    crash waits for the journal's background checkpoints to finish, so
+    that the recorder holds their rotations (a loaded CPU can leave the
+    checkpoint thread unscheduled until after the crash)."""
     monkeypatch.setenv("HM_FSYNC", tier)
     rec = F.CrashRecorder(str(work))
     acked = []
@@ -275,6 +278,9 @@ def _acked_repo_workload(work, monkeypatch, tier="1"):
         repo.change(urls[0], lambda d: d["edits"].append(4))
         if repo.back.live is not None:
             repo.back.live.flush_now()
+        if checkpoints:
+            wal = repo.back.durability.wal
+            wait_until(lambda: not wal._ckpt_running, timeout=60)
         # crash: no close
     return rec, repo, urls, acked
 
@@ -356,7 +362,7 @@ def test_crash_mid_checkpoint_recovers(tmp_path, monkeypatch):
     the logs durable under the new one."""
     monkeypatch.setenv("HM_WAL_MAX_BYTES", "2048")
     rec, _repo, urls, acked = _acked_repo_workload(
-        tmp_path / "work", monkeypatch
+        tmp_path / "work", monkeypatch, checkpoints=True
     )
     replaces = [i for i, ev in enumerate(rec.events)
                 if ev[0] == F.REPLACE and ev[2] == "wal.log"]
