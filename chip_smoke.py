@@ -156,15 +156,15 @@ prints a result):
         opened by `Repo(path)` + `open_many` + `fetch_bulk_summaries`
         under three routes — (a) HM_PIPELINE=0, (b) HM_PIPELINE=1 with
         the device pack (the default), (c) HM_PIPELINE=1 HM_DEVICE_PACK=0
-        (the native host pack) — once each, then route b once more
-        under torch.profiler; every open's summaries byte-equal to the
-        first;
+        (the native host pack) — once each (no profiled open: the
+        bench's `coldopen` cell traces route b); every open's summaries
+        byte-equal to the first;
         launch counts set to 0 before each open and read after:
         pack_prefix once a slab on a and b and never on c,
         materialize_wire once a slab on every route, `host_args` on c
         alone; the `pipeline` stat 1 on b and c; each open's wall,
         `wall_critical_path`, stage busy times, pack pool lanes,
-        `os.cpu_count()` and (profiled) the device idle share printed;
+        and `os.cpu_count()` printed;
      h. the crash slice (storage/wal.py, storage/scrub.py, the backend's
         open), bench.py `_config_crash` with the port in both processes:
         (a) a child process runs the port's `Repo(path)` under HM_FSYNC=1
@@ -315,6 +315,22 @@ prints a result):
      and materialize_live launched, 3n within 90 s; a `lockdep` JSON line
      (classes, edges, findings, racedep's fields, the blocking debt by
      class, launches, the open's wall against its uninstrumented wall);
+     phase 3o: the command-line tools (`python -m
+     hypermerge_tpu_torch.tools.<name>`) on 3n's plain copy of 3d's
+     corpus: (a) `meta --stats` through its `main` here, the launch
+     counts set to 0 just before and read just after (pack_prefix and
+     materialize_wire once a slab); (b) `meta --stats` as a process of
+     its own on the card (`slab.h2d_bytes` > 0); (c) `ls` (every doc's
+     url, its scrub= verdict, wal=clean); (d) `cat` and `watch --once`
+     of four docs, each equal to bench_torch/reference.py's replay of
+     the doc; (e) `cp` of a seeded 1 MiB file in and `cat` of it out,
+     byte-equal, `meta` of its url; (f) `serve --ipc` as a process on
+     the card: 8 threads x 250 `len` Read queries over its socket, each
+     equal to the replay, `top --sock --once --json` (serve.reads > 0),
+     the daemon's maps (libcuda, the built serve_counts library), its
+     exit on SIGINT; (g) `scrub --dry-run --json` on a copy with a
+     seeded crash marker, whose bytes it keeps; a `tools` JSON line
+     (each tool's wall, exit code, the launches read); 3o within 60 s;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -390,6 +406,11 @@ corpora, the live tick), then the card's name and power limit.
     python3 chip_smoke.py --lockdep
 
 runs phase 3n alone (the kernels built and phase 3d's corpus written
+first).
+
+    python3 chip_smoke.py --tools
+
+runs phase 3o alone (the kernels built and phase 3d's corpus written
 first).
 
     python3 chip_smoke.py --storm N
@@ -478,7 +499,8 @@ LIVE_GROUP = dict(n_docs=8, n_ops=16_384, ops_per_change=16, text_frac=0.85,
 # x 1,024 ops in slabs of 4,096 (two whole slabs and a ragged third), under
 # three routes, one open each: (a) the serial twin, (b) the streaming
 # pipeline with the device pack (the port's default), (c) the pipeline with
-# the native host pack; then one more open of route b under torch.profiler
+# the native host pack (no profiled open: the bench's `coldopen` cell traces
+# route b)
 BENCH_OPEN = dict(n_docs=10240, n_ops=1024, slab=4096)
 OPEN_ROUTES = {
     "a": dict(HM_PIPELINE="0", HM_DEVICE_PACK="1"),
@@ -3376,31 +3398,7 @@ def live_path(ck, root, device=None):
     return launches, numbers, runs["trace"]["captured"]
 
 
-def profiled_wall(fn) -> dict:
-    """fn under torch.profiler, once: its wall, the device's busy time
-    (kernels and copies) and its idle share over the window; busy and
-    idle None where the profiler delivered no device record."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = sum(
-        dev_us(e) for e in prof.key_averages()
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
-    ) / 1e3
-    if busy_ms <= 0:
-        return dict(wall_ms=wall_ms, device_busy_ms=None,
-                    device_idle_share=None)
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                device_idle_share=1 - busy_ms / wall_ms)
-
-
-def bench_open(ck, path, urls, doc_ids, route, profiled=False):
+def bench_open(ck, path, urls, doc_ids, route):
     """One cold open of the corpus at `path` (a fresh copy) under route
     `route` of OPEN_ROUTES: Repo(path), open_many + fetch_bulk_summaries,
     its launch counts set to 0 just before and read just after (and the
@@ -3426,17 +3424,13 @@ def bench_open(ck, path, urls, doc_ids, route, profiled=False):
             def timed():
                 box["summ"] = open_all()
 
-            if profiled:
-                numbers, host_args_calls = capture(
-                    ck, "host_args", lambda: profiled_wall(timed))
-            else:
-                def walled():
-                    t0 = time.perf_counter()
-                    timed()
-                    torch.cuda.synchronize()
-                    return dict(wall_ms=(time.perf_counter() - t0) * 1e3)
+            def walled():
+                t0 = time.perf_counter()
+                timed()
+                torch.cuda.synchronize()
+                return dict(wall_ms=(time.perf_counter() - t0) * 1e3)
 
-                numbers, host_args_calls = capture(ck, "host_args", walled)
+            numbers, host_args_calls = capture(ck, "host_args", walled)
             launches = {k: v for k, v in ck.launches.items() if v}
             stats = dict(repo.back.last_bulk_stats)
             t0 = time.perf_counter()
@@ -3461,13 +3455,12 @@ def pipeline_path(ck, root):
     in 3d); each route of OPEN_ROUTES opens a fresh copy of it once
     (bench_torch's `fresh_copy`: the database copied, the feed files
     hard-linked, since a full copy took 32-35 s a run on the card's
-    host), and route b once more under torch.profiler (the device idle
-    share over the default route's open; its wall is not compared with
-    the unprofiled opens'). Every open's summaries are byte-equal to the
+    host; the bench's `coldopen` cell traces route b's open, so no open
+    here is profiled). Every open's summaries are byte-equal to the
     serial open's; pack_prefix launches once a slab on routes a and b
     and never on c, materialize_wire once a slab on every route, and
     host_args runs on route c alone; the pipeline stat is 1 on b and c.
-    Returns (route b's unprofiled launch counts, the numbers)."""
+    Returns (route b's launch counts, the numbers)."""
     import shutil
 
     from bench_torch.coldopen import fresh_copy
@@ -3485,18 +3478,18 @@ def pipeline_path(ck, root):
         f"{cfg['slab']}; os.cpu_count()={os.cpu_count()}")
     want_rows = None
     out, main_counts = [], None
-    runs = [(r, 0, False) for r in OPEN_ROUTES] + [("b", 1, True)]
-    for route, run, profiled in runs:
-        path = os.path.join(root, f"open-{route}{run}")
+    runs = list(OPEN_ROUTES)
+    for route in runs:
+        path = os.path.join(root, f"open-{route}")
         t0 = time.perf_counter()
         fresh_copy(src, path)
         t_copy = time.perf_counter() - t0
         t0 = time.perf_counter()
-        numbers, rows = bench_open(ck, path, urls, doc_ids, route, profiled)
+        numbers, rows = bench_open(ck, path, urls, doc_ids, route)
         t_run = time.perf_counter() - t0
         t0 = time.perf_counter()
         shutil.rmtree(path)
-        numbers.update(run=run, t_copy_s=t_copy, t_run_s=t_run,
+        numbers.update(t_copy_s=t_copy, t_run_s=t_run,
                        t_rmtree_s=time.perf_counter() - t0)
         if want_rows is None:
             want_rows = rows
@@ -3511,12 +3504,11 @@ def pipeline_path(ck, root):
                 or {k: launches.get(k, 0) for k in expect} != expect
                 or numbers["host_args"] != (slabs if route == "c" else 0)
                 or numbers["pipeline"] != (0 if route == "a" else 1)):
-            raise AssertionError(f"phase 3g route {route} run {run}: {bad} "
+            raise AssertionError(f"phase 3g route {route}: {bad} "
                                  f"summaries differ; {numbers}")
-        if route == "b" and main_counts is None:
+        if route == "b":
             main_counts = dict(ck.launches)
-        log(f"phase 3g open route {route} run {run}"
-            f"{' (profiled)' if profiled else ''}: " + json.dumps(numbers))
+        log(f"phase 3g open route {route}: " + json.dumps(numbers))
         out.append(numbers)
     log(f"phase 3g check: {len(runs)} opens, every summary == the serial "
         f"open's; pack_prefix {slabs} a route-a/b open and 0 on c, "
@@ -4235,11 +4227,20 @@ def churn_run(ck, label: str, env: dict) -> dict:
                                          "not wrap both swarms")
                 plan = fb.plan
             fb.connect(sa.address)
+            conns_up = None
+            if aio:
+                # the gauge while the link is up: read once the two ends
+                # are connected, not at a fixed point of the run, which
+                # HM_FAULT's kill (200 ms into the run) can fall on
+                start = net0.get("net.aio.conns", 0)
+                wait_for(f"{label}: the loop's connections",
+                         lambda: net_counters().get("net.aio.conns", 0)
+                         >= start + 2, cfg["timeout_s"], phase="3j")
+                conns_up = net_counters().get("net.aio.conns", 0)
             urls = [ra.create({"edits": []}) for _ in range(cfg["n_docs"])]
             handles = [rb.open(u) for u in urls]
             for h in handles:
                 h.value(timeout=cfg["timeout_s"])
-            conns_up = net_counters().get("net.aio.conns", 0)
             for k in ck.launches:
                 ck.launches[k] = 0
             t0 = time.perf_counter()
@@ -6522,6 +6523,390 @@ def lockdep_main() -> int:
         lockdep_path(ck, (corpus, corpus + "-dep"), urls)
     return 0
 
+
+# the command-line tools on the card (phase 3o): each of the port's tools
+# (python -m hypermerge_tpu_torch.tools.<name>) through its `main(argv)`
+# in this process or as a process of its own, on phase 3n's plain copy of
+# phase 3d's corpus (2,048 docs x 1,024 ops, bench.py `_config_read`)
+# before the script removes it: (a) `meta --stats` here, the launch counts
+# set to 0 just before and read just after (pack_prefix and
+# materialize_wire once a slab); (b) `meta --stats` as a process on the
+# card (its counters: slab.h2d_bytes > 0); (c) `ls` (2,048 doc lines,
+# the corpus's urls, scrub=ok wal=clean); (d) `cat` and `watch --once` of
+# docs, each equal to bench_torch/reference.py's plain replay of the doc's
+# stored changes; (e) `cp` of a seeded 1 MiB file in, `cat` of it out
+# byte-equal, `meta` of its url (size, mime type); (f) `serve --ipc` as a
+# process on the card (--port 0): 8 threads x 250 `len` Read queries over
+# its socket, each equal to the replay, then `top --sock ... --once
+# --json` (serve.reads > 0) and the daemon's maps (libcuda, the built
+# serve_counts library), stopped with SIGINT (it closes its repo and
+# swarm and exits 0); (g) `scrub --dry-run --json` on a copy of the
+# corpus taken after (a)-(f) (the database copied, the feeds linked: a dry
+# run writes no feed) with a seeded repo.dirty marker: the report parses
+# and the marker's bytes are unchanged. A `tools` JSON line; 3o must
+# finish within TOOLS["budget_s"].
+TOOLS = dict(readers=8, reads=250, read_docs=64, cat_docs=(0, 1, 1023, 2047),
+             file_bytes=1 << 20, file_seed=0x3F11E, budget_s=60.0,
+             start_s=120.0)
+TOOLS_MODULE = "hypermerge_tpu_torch.tools"
+
+
+def replay_raw(corpus: str, url: str):
+    """bench_torch/reference.py's plain replay of a doc's stored changes
+    (Text as ["__text__", str], Counter as ["__counter__", int])."""
+    from bench_torch.reference import replay_value, stored_changes
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    return replay_value(stored_changes(corpus, validate_doc_url(url)))
+
+
+def replay_plain(corpus: str, url: str):
+    """The replay of a doc as the tools print it (Text a str, Counter an
+    int)."""
+    def unplain(v):
+        if isinstance(v, list) and len(v) == 2 and v[0] in (
+                "__text__", "__counter__"):
+            return v[1]
+        if isinstance(v, dict):
+            return {k: unplain(x) for k, x in v.items()}
+        if isinstance(v, list):
+            return [unplain(x) for x in v]
+        return v
+
+    return unplain(replay_raw(corpus, url))
+
+
+def run_tool(name: str, argv: list, device=None) -> dict:
+    """`tools.<name>.main(argv)` in this process, its stdout and stderr
+    captured (stdout with a binary buffer: `cat` of a file writes bytes);
+    HM_RECOVER is put back after it (the scrub tool sets it). Returns the
+    exit code, the outputs and the wall."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"{TOOLS_MODULE}.{name}")
+    argv = list(argv) + ([] if device is None else ["--device", str(device)])
+    out = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+    err = io.StringIO()
+    was = os.environ.get("HM_RECOVER")
+    code = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            mod.main(argv)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else (0 if e.code is None
+                                                       else 1)
+    finally:
+        wall = time.perf_counter() - t0
+        if was is None:
+            os.environ.pop("HM_RECOVER", None)
+        else:
+            os.environ["HM_RECOVER"] = was
+    out.flush()
+    raw = out.buffer.getvalue()
+    return dict(code=code, raw=raw, out=raw.decode("utf-8", "replace"),
+                err=err.getvalue(), wall_s=wall)
+
+
+def tool_ok(label: str, r: dict) -> dict:
+    if r["code"] != 0:
+        raise AssertionError(f"phase 3o {label}: exit {r['code']}: "
+                             f"{r['err'][-2000:]}")
+    return r
+
+
+def tool_process(argv: list, device=None, timeout: float = 120.0) -> dict:
+    """`python -m hypermerge_tpu_torch.tools.<argv>` as a process of its
+    own, from the repo's root."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", f"{TOOLS_MODULE}.{argv[0]}", *argv[1:]]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout,
+                       cwd=here)
+    return dict(code=p.returncode, out=p.stdout, err=p.stderr,
+                wall_s=time.perf_counter() - t0)
+
+
+def tools_serve(corpus: str, urls: list, device=None) -> dict:
+    """Phase 3o (f): the serve daemon with its query socket, the `len`
+    reads over it from TOOLS["readers"] threads, `top --sock`, its maps,
+    and its stop on SIGINT."""
+    import signal
+    import socket as socketmod
+    import threading
+
+    from bench_torch.reference import query_value
+    from hypermerge_tpu_torch import msgs
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.net.tcp import TcpDuplex
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sock_dir = tempfile.mkdtemp(prefix="hm-3o-")
+    sock = os.path.join(sock_dir, "serve.sock")
+    cmd = [sys.executable, "-m", f"{TOOLS_MODULE}.serve", corpus,
+           "--port", "0", "--ipc", sock]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    query = {"kind": "len", "path": []}
+    docs = urls[: TOOLS["read_docs"] // 2] + urls[
+        len(urls) // 2: len(urls) // 2 + TOOLS["read_docs"] // 2]
+    want = {u: query_value(replay_raw(corpus, u), query) for u in docs}
+    t0 = time.perf_counter()
+    daemon = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, cwd=here)
+    lines: list = []
+    try:
+        threading.Thread(target=lambda: lines.extend(
+            iter(daemon.stdout.readline, "")), daemon=True).start()
+        wait_for("the serve daemon's announce",
+                 lambda: any("serving" in ln for ln in lines)
+                 or daemon.poll() is not None, TOOLS["start_s"], "3o")
+        if daemon.poll() is not None:
+            raise AssertionError(f"phase 3o (f): the daemon exited "
+                                 f"{daemon.returncode}: "
+                                 f"{daemon.stderr.read()[-2000:]}")
+        t_up = time.perf_counter() - t0
+        lat = []
+        errs = []
+
+        def reader(n):
+            s = socketmod.socket(socketmod.AF_UNIX, socketmod.SOCK_STREAM)
+            s.connect(sock)
+            duplex = TcpDuplex(s, is_client=True)
+            box = {}
+            got = threading.Event()
+
+            def on_msg(msg):
+                if isinstance(msg, dict) and msg.get("type") == "Reply":
+                    box["payload"] = msg.get("payload")
+                    got.set()
+
+            duplex.on_message(on_msg)
+            try:
+                for i in range(TOOLS["reads"]):
+                    u = docs[(n * TOOLS["reads"] + i * 7) % len(docs)]
+                    got.clear()
+                    t = time.perf_counter()
+                    duplex.send(msgs.query_msg(i, msgs.read_query(
+                        validate_doc_url(u), query)))
+                    if not got.wait(60):
+                        raise AssertionError(f"phase 3o (f): no reply to "
+                                             f"read {i} of reader {n}")
+                    lat.append(time.perf_counter() - t)
+                    if box["payload"] != {"value": want[u]}:
+                        errs.append((u, box["payload"], want[u]))
+            finally:
+                duplex.close()
+
+        read_s = run_threads(TOOLS["readers"], reader)
+        if errs:
+            raise AssertionError(f"phase 3o (f): {len(errs)} answers differ "
+                                 f"from the replay: {errs[:3]}")
+        topr = tool_ok("(f) top --sock", run_tool(
+            "top", ["--sock", sock, "--once", "--json"]))
+        tele = json.loads(topr["out"].strip().splitlines()[-1])
+        reads = tele["counters"].get("serve.reads", 0)
+        with open(f"/proc/{daemon.pid}/maps") as f:
+            maps = f.read()
+        lib = str(_build.target("serve_counts"))
+        mapped = {"libcuda": "libcuda" in maps,
+                  os.path.basename(lib): lib in maps}
+        daemon.send_signal(signal.SIGINT)
+        rc = daemon.wait(timeout=60)
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait(timeout=30)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    if reads <= 0:
+        raise AssertionError(f"phase 3o (f): top --sock read serve.reads "
+                             f"{reads}")
+    if device is None and not all(mapped.values()):
+        raise AssertionError(f"phase 3o (f): the daemon maps {mapped}")
+    if rc != 0:
+        raise AssertionError(f"phase 3o (f): the daemon exited {rc} on "
+                             f"SIGINT: {daemon.stderr.read()[-2000:]}")
+    return dict(code=rc, wall_s=time.perf_counter() - t0, up_s=t_up,
+                reads=len(lat), read_s=read_s, qps=len(lat) / read_s,
+                p50_ms=quantile_ms(lat, 0.50), p99_ms=quantile_ms(lat, 0.99),
+                serve_reads=reads, serve_dispatches=tele["counters"].get(
+                    "serve.dispatches", 0), maps=mapped, top_s=topr["wall_s"])
+
+
+def tools_path(ck, corpus: str, urls: list, device=None) -> tuple:
+    """Phase 3o: (a)-(g) on `corpus`. Returns ((a)'s launch counts, the
+    numbers). `device="cpu"` is the CPU rehearsal: the tools run with
+    `--device cpu`, the plain versions run and no launch is counted."""
+    import random
+
+    import torch
+
+    from bench_torch.coldopen import fresh_copy
+    from hypermerge_tpu_torch import native
+
+    card = card_line() if device is None else str(device)
+    t_phase = time.perf_counter()
+    tools = {}
+
+    # (a) meta --stats here, launches counted
+    for k in ck.launches:
+        ck.launches[k] = 0
+    r = tool_ok("(a) meta --stats", run_tool(
+        "meta", [corpus, "--stats"], device))
+    if device is None:
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in ck.launches.items() if v}
+    slabs = math.ceil(len(urls) / 4096)
+    if device is None and any(launches.get(k) != slabs for k in BULK):
+        raise AssertionError(f"phase 3o (a): meta --stats launched "
+                             f"{launches}, expected {slabs} of each of {BULK}")
+    stats = json.loads(r["out"])
+    tools["meta_stats"] = dict(code=r["code"], wall_s=r["wall_s"],
+                               launches=launches,
+                               slab_h2d_bytes=stats.get("slab.h2d_bytes"))
+
+    # (b) meta --stats as a process on the card
+    r = tool_ok("(b) meta --stats process", tool_process(
+        ["meta", corpus, "--stats"], device))
+    h2d = json.loads(r["out"].strip().splitlines()[-1]).get("slab.h2d_bytes",
+                                                            0)
+    if device is None and not h2d > 0:
+        raise AssertionError(f"phase 3o (b): slab.h2d_bytes {h2d}")
+    tools["meta_stats_process"] = dict(code=r["code"], wall_s=r["wall_s"],
+                                       slab_h2d_bytes=h2d)
+
+    # (c) ls: every doc, its url, its scrub verdict, wal=clean. Phase 3d
+    # writes the corpus's signature records only where libsodium signs
+    # them (not on the card's host): an unsigned feed's blocks all lie
+    # beyond its last signature record, which ls reports as unsigned_tail
+    signed = bool(native.caps() & native.CAP_SODIUM)
+    verdict = "ok" if signed else "unsigned_tail"
+    r = tool_ok("(c) ls", run_tool("ls", [corpus], device))
+    lines = [ln for ln in r["out"].splitlines()
+             if ln.startswith("hypermerge:/")]
+    got = sorted(ln.split()[0] for ln in lines)
+    bad = [ln for ln in lines if f" scrub={verdict} " not in ln
+           or not ln.endswith(" wal=clean")]
+    if got != sorted(urls) or bad:
+        raise AssertionError(f"phase 3o (c): {len(lines)} doc lines "
+                             f"({len(set(got) ^ set(urls))} urls differ), "
+                             f"{len(bad)} not ok: {bad[:2]}")
+    tools["ls"] = dict(code=r["code"], wall_s=r["wall_s"], docs=len(lines),
+                       scrub=verdict)
+
+    # (d) cat and watch --once of docs, each == the plain replay
+    cat_w = watch_w = 0.0
+    for i in TOOLS["cat_docs"]:
+        u = urls[i % len(urls)]
+        want = replay_plain(corpus, u)
+        c = tool_ok("(d) cat", run_tool("cat", [corpus, u], device))
+        w = tool_ok("(d) watch --once", run_tool(
+            "watch", [corpus, u, "--once"], device))
+        cat_w += c["wall_s"]
+        watch_w += w["wall_s"]
+        if json.loads(c["out"].strip().splitlines()[-1]) != want:
+            raise AssertionError(f"phase 3o (d): cat of doc {i} != replay")
+        if json.loads(w["out"].strip().splitlines()[-1]) != {
+                "history": -1, "doc": want}:
+            raise AssertionError(f"phase 3o (d): watch of doc {i} != replay")
+    tools["cat"] = dict(code=0, wall_s=cat_w, docs=len(TOOLS["cat_docs"]))
+    tools["watch"] = dict(code=0, wall_s=watch_w, docs=len(TOOLS["cat_docs"]))
+
+    # (e) cp a seeded 1 MiB file in, cat it out, meta of its url
+    data = random.Random(TOOLS["file_seed"]).randbytes(TOOLS["file_bytes"])
+    with tempfile.TemporaryDirectory(prefix="hm-3o-") as tmp:
+        src = os.path.join(tmp, "payload.bin")
+        with open(src, "wb") as fh:
+            fh.write(data)
+        c = tool_ok("(e) cp", run_tool("cp", [corpus, src], device))
+        file_url = c["out"].strip().splitlines()[-1]
+        k = tool_ok("(e) cat of the file", run_tool(
+            "cat", [corpus, file_url], device))
+        m = tool_ok("(e) meta of the file", run_tool(
+            "meta", [corpus, file_url], device))
+    fmeta = json.loads(m["out"].strip().splitlines()[-1])
+    if not file_url.startswith("hyperfile:/") or k["raw"] != data:
+        raise AssertionError(f"phase 3o (e): {file_url!r}: cat gave "
+                             f"{len(k['raw'])} bytes, not the file's "
+                             f"{len(data)}")
+    if fmeta != {"type": "File", "bytes": len(data),
+                 "mimeType": "application/octet-stream"}:
+        raise AssertionError(f"phase 3o (e): meta of the file {fmeta}")
+    tools["cp"] = dict(code=c["code"], wall_s=c["wall_s"], bytes=len(data))
+    tools["cat_file"] = dict(code=k["code"], wall_s=k["wall_s"])
+    tools["meta_file"] = dict(code=m["code"], wall_s=m["wall_s"])
+
+    # (f) serve --ipc as a process on the card
+    tools["serve"] = tools_serve(corpus, urls, device)
+
+    # (g) scrub --dry-run --json on a copy with a crash marker
+    marker = random.Random(TOOLS["file_seed"] + 1).randbytes(64)
+    with tempfile.TemporaryDirectory(prefix="hm-3o-") as tmp:
+        copy = os.path.join(tmp, "repo")
+        t0 = time.perf_counter()
+        fresh_copy(corpus, copy)
+        t_copy = time.perf_counter() - t0
+        with open(os.path.join(copy, "repo.dirty"), "wb") as fh:
+            fh.write(marker)
+        s = tool_ok("(g) scrub --dry-run", run_tool(
+            "scrub", [copy, "--dry-run", "--json"], device))
+        report = json.loads(s["out"].strip().splitlines()[-1])
+        with open(os.path.join(copy, "repo.dirty"), "rb") as fh:
+            kept = fh.read() == marker
+    if not kept or report.get("feeds", 0) < len(urls):
+        raise AssertionError(f"phase 3o (g): marker kept {kept}, report "
+                             f"{ {k: report.get(k) for k in ('feeds', 'bytes_truncated')} }")
+    tools["scrub"] = dict(code=s["code"], wall_s=s["wall_s"], copy_s=t_copy,
+                          feeds=report["feeds"],
+                          t_recover_ms=report.get("t_recover_ms"),
+                          repaired=report["bytes_truncated"])
+
+    wall = time.perf_counter() - t_phase
+    numbers = dict(card=card, wall_s=wall, docs=len(urls), tools=tools)
+    log("tools " + json.dumps(numbers))
+    log(f"phase 3o check: meta --stats launched {launches} here and moved "
+        f"{h2d} bytes to the card in its own process; ls listed "
+        f"{len(lines)} docs, scrub={verdict} wal=clean; cat and watch of "
+        f"{len(TOOLS['cat_docs'])} docs == the replay; a "
+        f"{len(data)}-byte file cp'd in and cat'd out byte-equal; serve "
+        f"--ipc answered {tools['serve']['reads']} len reads == the replay "
+        f"({tools['serve']['qps']:.0f}/s), serve.reads "
+        f"{tools['serve']['serve_reads']}, maps {tools['serve']['maps']}; "
+        f"scrub --dry-run over {report['feeds']} feeds kept the marker; "
+        f"phase wall {wall:.1f} s [{card}]")
+    if wall > TOOLS["budget_s"]:
+        raise AssertionError(f"phase 3o took {wall:.1f} s, over its "
+                             f"{TOOLS['budget_s']} s")
+    return launches, numbers
+
+
+def tools_main() -> int:
+    """`--tools`: phase 3o alone on the card (phase 3d's corpus written
+    first, the kernels built)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hypermerge_tpu_torch import native
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+    from hypermerge_tpu_torch.ops.corpus import make_corpus
+
+    log(card_line())
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix="hm-read-") as root:
+        sign = bool(native.caps() & native.CAP_SODIUM)
+        corpus = os.path.join(root, "corpus")
+        urls = make_corpus(corpus, READ["n_docs"], READ["n_ops"], sign=sign)
+        tools_path(ck, corpus, urls)
+    return 0
+
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -7068,6 +7453,8 @@ def main() -> int:
         return lockdep_child(*sys.argv[2:7])
     if sys.argv[1:2] == ["--lockdep"]:
         return lockdep_main()
+    if sys.argv[1:2] == ["--tools"]:
+        return tools_main()
     try:
         import torch
     except ImportError:
@@ -7255,9 +7642,13 @@ def main() -> int:
         elapsed("phase 3m")
         lockdep_counts, _lockdep_numbers = lockdep_path(ck, lockdep_corpora,
                                                         urls)
+        elapsed("phase 3n")
+        # the command-line tools on 3n's plain copy, before it goes
+        tools_counts, _tools_numbers = tools_path(ck, lockdep_corpora[0],
+                                                  urls)
         for c in lockdep_corpora:
             shutil.rmtree(c)
-        elapsed("phase 3n")
+        elapsed("phase 3o")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -7353,6 +7744,9 @@ def main() -> int:
         counts[k] += v
     for k, v in lockdep_counts.items():
         counts[k] += v
+    # and the command-line tools' (3o (a): `meta --stats` in this process)
+    for k, v in tools_counts.items():
+        counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
               "clock_union_min": [2, CONFIG5["n_docs"] // 2],
@@ -7388,6 +7782,8 @@ def main() -> int:
                if name in files_counts else {}),
             **({"lockdep_slice_launches": lockdep_counts[name]}
                if name in lockdep_counts else {}),
+            **({"tools_slice_launches": tools_counts[name]}
+               if name in tools_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))

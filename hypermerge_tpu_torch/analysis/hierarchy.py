@@ -45,10 +45,12 @@ the tick looks docs up with a GIL-atomic snapshot and takes each
 doc's domain with NO engine lock held — never two domains at once.)
 
 with `store.integrity`, `telemetry.shard` and `util.debug` as leaves.
-The port adds three classes of its own: `kernels.build` (85, held
+The port adds five classes of its own: `kernels.build` (85, held
 across nvcc at a kernel's first use), `kernels.launches` (93, a leaf
-around the launch counters) and `util.ossl` (unranked: libcrypto's
-load-once latch).
+around the launch counters), `util.ossl` (unranked: libcrypto's
+load-once latch), and `tools.top` and `examples.chat` (unranked: the
+command-line tools and examples sit inside the package, so their
+locks come from the factory too).
 Leaf semantics are scoped to the RANKED world: a leaf may still touch
 terminal unranked latches (the native-library load-once lock, the
 fault recorders) — those are pure sinks and participate in cycle
@@ -431,6 +433,19 @@ LOCK_CLASSES: Tuple[LockClass, ...] = (
     LockClass(
         "store.fault.active", None,
         "storage.faults._active_lock — plan activation latch.",
+    ),
+    # -- the command-line tools and examples (the port's own) -----------
+    LockClass(
+        "tools.top", None,
+        "tools.top.IpcTelemetry._lock — the pending-query table of the "
+        "Telemetry client (the poller vs the duplex's reader thread). "
+        "Dict bookkeeping only; the wait runs outside it.",
+    ),
+    LockClass(
+        "examples.chat", None,
+        "examples.chat run_chat's seen-message count (the watch "
+        "callback's threads). Held across a print; nothing else is "
+        "taken under it.",
     ),
 )
 

@@ -62,6 +62,9 @@ class Actor:
         feed.on_append(self._on_append)
         feed.on_extended(self._on_extended)
         self._pending_dl = [0, 0.0]  # bytes, ms since last Download event
+        # the index write_change is appending, while it appends: the
+        # one append whose listener call must not notify
+        self._writing: Optional[int] = None
         self._notify({"type": "ActorInitialized", "actor": self})
         self._notify({"type": "ActorSync", "actor": self, "origin": "init"})
 
@@ -120,6 +123,7 @@ class Actor:
                 )
                 return
             self.changes.append(change)
+            self._writing = head
             try:
                 self.feed.append(blockmod.pack_change(change.to_json()))
             except BaseException:
@@ -133,6 +137,8 @@ class Actor:
                 if self.feed.length < len(self.changes):
                     self.changes.pop()
                 raise
+            finally:
+                self._writing = None
             if self._defer_cache is None:
                 self._sync_cache_locked()
         if self._defer_cache is not None:
@@ -149,9 +155,16 @@ class Actor:
             cs = self.changes
             if len(cs) <= index:
                 cs.extend([_UNSET] * (index + 1 - len(cs)))
-            if cs[index] is not _UNSET:
+            if index == self._writing:
                 return  # our own write_change already recorded it
-            cs[index] = self._parse_block(data, index)
+            # a filled slot is no sign of a local write: the block is in
+            # the log before this callback runs, so a reader between the
+            # two (the deferred sidecar sync) may have decoded it. No doc
+            # applied it then, so the sync below must still be notified,
+            # or the doc stalls until the next append or anti-entropy
+            # sweep.
+            if cs[index] is _UNSET:
+                cs[index] = self._parse_block(data, index)
             if self._defer_cache is None:
                 self._sync_cache_locked()
             self._pending_dl[0] += len(data)

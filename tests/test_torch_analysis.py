@@ -882,8 +882,10 @@ def _ref_analysis():
 
 
 # the port's own lock classes: the nvcc build, the launch counters,
-# libcrypto's load-once latch
-PORT_ONLY_LOCKS = {"kernels.build", "kernels.launches", "util.ossl"}
+# libcrypto's load-once latch, and the locks of the command-line tools
+# and examples (inside the port's package, so the linter covers them)
+PORT_ONLY_LOCKS = {"kernels.build", "kernels.launches", "util.ossl",
+                   "tools.top", "examples.chat"}
 # the knobs of XLA and Pallas the port has nothing to switch
 REF_ONLY_ENV = {
     "HM_COMPILE_CACHE", "HM_COMPILE_CACHE_FORCE", "HM_ASYNC_SUMMARY_COPY",

@@ -690,6 +690,38 @@ class TestChaosConvergence:
         rb.close()
 
 
+def test_replica_append_notifies_after_a_reader_decoded_its_slot():
+    """The stall behind the chaos case's unsteady twin state: a
+    replicated block lands in the feed before the feed calls its
+    listeners, and a reader in between (the deferred sidecar sync,
+    `Actor.sync_cache`) decodes its slot. The actor's listener then
+    took the filled slot for its own write and sent no ActorSync, so
+    the doc kept its tail unapplied until the next append or the 30 s
+    anti-entropy sweep. Every replicated append must notify."""
+    from hypermerge_tpu_torch.backend.actor import Actor
+    from hypermerge_tpu_torch.crdt.change import ROOT, Action, Change, Op
+    from hypermerge_tpu_torch.storage import block as blockmod
+    from hypermerge_tpu_torch.storage.feed import Feed, MemoryFeedStorage
+
+    from hypermerge_tpu_torch.utils import keys
+
+    pk = keys.create().public_key
+    feed = Feed(pk, MemoryFeedStorage())  # no secret key: a replica
+    box = {}
+    # runs before the actor's listener, as the sidecar flusher can
+    feed.on_append(lambda i, d: box["actor"].sync_cache())
+    events = []
+    box["actor"] = actor = Actor(feed, events.append)
+    for seq in (1, 2):
+        change = Change(actor=pk, seq=seq, start_op=seq, deps={},
+                        ops=(Op(Action.SET, ROOT, key="k", value=seq),))
+        feed._append_raw(blockmod.pack_change(change.to_json()))
+    appended = [e for e in events
+                if e["type"] == "ActorSync" and e.get("origin") == "append"]
+    assert len(appended) == 2, events
+    assert [c.seq for c in actor.changes_in_window(0, 2)] == [1, 2]
+
+
 class TestHalfWired:
     def test_pending_prunes_dead_connections(self):
         """Non-authority side: a connection that died without ever

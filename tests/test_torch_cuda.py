@@ -10,6 +10,7 @@ Tolerance: exact (bool, int32 and uint8 outputs).
 
 import ctypes
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1451,3 +1452,47 @@ def test_hub_workers_on_the_card_converge_a_paste(cuda, tmp_path):
             close()
         os.killpg(proc.pid, signal.SIGKILL)
         proc.wait(timeout=30)
+
+
+_WARM_CHILD = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+from hypermerge_tpu_torch.kernels import _build
+from hypermerge_tpu_torch.ops.warmup import warmup_bulk
+
+
+class _NoCompiler:
+    def __init__(self, cmd, *a, **kw):
+        raise AssertionError("nvcc ran: " + " ".join(map(str, cmd)))
+
+
+_build.subprocess.Popen = _NoCompiler
+warmup_bulk(8, 64, slab=8, background=False)
+print(json.dumps(sorted(stem for stem, _d in _build._libs)))
+"""
+
+
+def test_second_process_hits_persistent_cache(cuda, tmp_path):
+    """The port's counterpart of the reference's persistent compile
+    cache: kernels/_build.py keeps each built library under its source
+    hash, so a second process that warms the bulk path loads the
+    libraries this process built, and starts no nvcc."""
+    import os
+    import subprocess
+    import sys
+
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.ops.warmup import warmup_bulk
+
+    warmup_bulk(8, 64, slab=8, background=False)
+    built = set(os.listdir(_build.BUILD_DIR))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run(
+        [sys.executable, "-c", _WARM_CHILD.format(repo=repo)],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert p.returncode == 0, p.stderr[-2000:]
+    loaded = json.loads(p.stdout.strip().splitlines()[-1])
+    # the slab's device pack and its one launch
+    assert {"pack_prefix", "doc_kernel"} <= set(loaded), loaded
+    assert set(os.listdir(_build.BUILD_DIR)) == built, "the child built"

@@ -211,8 +211,10 @@ def test_port_imports_no_jax_and_requires_a_device():
     a doc with a second Repo over the port's TcpSwarm: net/ and its
     crypto), its hyperfiles (files/) and the package's `Repo` re-export,
     its concurrency analysis (analysis/: lockdep, hierarchy, guards,
-    envvars, linter, suppressions; the lint CLI) and
-    `telemetry.snapshot_repo`,
+    envvars, linter, suppressions; the lint CLI),
+    `telemetry.snapshot_repo`, the command-line tools (tools/: cat, cp,
+    ls, meta, scrub, serve, top, watch, profile_trace), the examples
+    (examples/: simple, chat),
     and `make_mesh` (parallel/, which reduces over CPU ranks). Every module of the port's bench (`bench_torch/`)
     and its harness hook (`graft_entry`) imports without jax as well."""
     code = textwrap.dedent(
@@ -251,6 +253,12 @@ def test_port_imports_no_jax_and_requires_a_device():
                      "analysis.guards", "analysis.envvars",
                      "analysis.linter", "analysis.suppressions",
                      "tools", "tools.lint"):
+            assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
+        # the command-line tools, the trace replayer and the examples
+        for name in ("tools.cat", "tools.cp", "tools.ls", "tools.meta",
+                     "tools.scrub", "tools.serve", "tools.top",
+                     "tools.watch", "tools.profile_trace", "examples",
+                     "examples.simple", "examples.chat"):
             assert f"hypermerge_tpu_torch.{name}" in sys.modules, name
         from hypermerge_tpu_torch.analysis import (
             install_racedep, lockdep_enabled, make_lock)
