@@ -331,6 +331,25 @@ prints a result):
      exit on SIGINT; (g) `scrub --dry-run --json` on a copy with a
      seeded crash marker, whose bytes it keeps; a `tools` JSON line
      (each tool's wall, exit code, the launches read); 3o within 60 s;
+     phase 3p: the main path's reference cases (tests/test_device_
+     materialize.py, test_summary_wire.py, test_clock.py,
+     test_clock_mirror.py, test_pipeline.py, test_parallel.py,
+     test_live_demote.py) at their own sizes with device="cuda", each
+     part's launch counts set to 0 just before and read just after, a
+     part whose kernels did not launch failing: (a) the fuzz seeds 1-5,
+     the causal-sort and host-kernel batches through doc_kernel.cu's
+     many-block route and its one-block slab launch with the wire, each
+     lane == run_batch_host == plain, the decoded doc == the host OpSet;
+     (b) the wire case through summary_wire.cu, full and lean, and the
+     slab launch's wire; (c) the clock infinity cases (clock_pair,
+     clock_topk) and the mirror's clamp (clock_scatter, clock_union) ==
+     a CPU mirror; (d) the pipeline fuzz as card Repos, HM_PIPELINE=1 ==
+     =0 (pack_prefix, the slab's one launch); (e) the mesh reductions
+     fuzz on 8 virtual ranks, every fold's ring in the flagged launch's
+     protocol mode (ring_gather, clock_union's min mode); (f) the demote
+     twin on a card Repo under HM_LIVE_MAX_BYTES, closed by a 16-op
+     paste whose tick takes the kernel (materialize_live), HM_LIVE=1 ==
+     =0 in both delivery orders; a `twins` JSON line; 3p within 45 s;
   4. time each kernel (CUDA events, median of 7 runs after warm-up) beside
      its plain version, its bound and, where one PyTorch call computes
      the same function, that call (torch.argsort for the sort in the
@@ -412,6 +431,10 @@ first).
 
 runs phase 3o alone (the kernels built and phase 3d's corpus written
 first).
+
+    python3 chip_smoke.py --twins
+
+runs phase 3p alone (the kernels built first).
 
     python3 chip_smoke.py --storm N
 
@@ -6907,6 +6930,688 @@ def tools_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 3p: the main path's reference cases on the card
+
+TWINS = dict(fuzz_seeds=(1, 2, 3, 4, 5), pipeline_docs=14, pipeline_slab=4,
+             mesh_shapes=((8, 1), (4, 2), (2, 2), (1, 1)),
+             clock_shapes=((13, 5), (32, 16), (7, 11), (1, 1), (64, 3)),
+             live_max_bytes="40000", budget_s=45.0)
+# one peer change of this many ops closes (f)'s script
+TWIN_PASTE = 16
+# the live tick on the kernel at every size (3i's kernel env)
+TWIN_LIVE_ENV = dict(HM_LIVE_INC_BUDGET="0", HM_DEVICE_MIN_CELLS="0",
+                     HM_LIVE_MAX_BYTES=TWINS["live_max_bytes"])
+
+
+class TwinSite:
+    """tests/helpers.py's Site on the port's frontend and OpSet."""
+
+    def __init__(self, actor):
+        from hypermerge_tpu_torch.crdt.frontend_state import FrontendDoc
+        from hypermerge_tpu_torch.crdt.opset import OpSet
+
+        self.actor = actor
+        self.front = FrontendDoc()
+        self.opset = OpSet()
+        self.seq = 1
+
+    def change(self, fn):
+        req, preview = self.front.change(fn, self.actor, self.seq, "")
+        if req is None:
+            return None, preview
+        self.seq += 1
+        change, patch = self.opset.apply_local_request(req)
+        self.front.apply_patch(patch)
+        return change, preview
+
+    def receive(self, changes):
+        self.front.apply_patch(self.opset.apply_changes(changes))
+
+    @property
+    def doc(self):
+        return self.front.materialize()
+
+
+def twin_sync(*sites):
+    for a in sites:
+        for b in sites:
+            if a is not b:
+                a.receive(list(b.opset.history))
+
+
+def twin_mutation(site, r):
+    """tests/helpers.py's random_mutation on the port's models."""
+    from hypermerge_tpu_torch.models import Counter, Text
+
+    def fn(d):
+        choice = r.random()
+        if choice < 0.3:
+            d[r.choice("abc")] = r.randint(0, 99)
+        elif choice < 0.45:
+            if "l" not in d:
+                d["l"] = []
+            lst = d["l"]
+            lst.insert(r.randint(0, len(lst)), r.randint(0, 9))
+        elif choice < 0.55:
+            if "l" in d and len(d["l"]) > 0:
+                del d["l"][r.randint(0, len(d["l"]) - 1)]
+        elif choice < 0.7:
+            if "t" not in d:
+                d["t"] = Text("")
+            d["t"].insert(r.randint(0, len(d["t"])), r.choice("xyz"))
+        elif choice < 0.8:
+            if "n" not in d or not isinstance(d.get("n"), Counter):
+                d["n"] = Counter(0)
+            else:
+                d.increment("n", r.randint(1, 3))
+        elif choice < 0.9:
+            k = r.choice("abc")
+            if k in d:
+                del d[k]
+        else:
+            d[r.choice("mn")] = {"v": [r.randint(0, 9)]}
+
+    site.change(fn)
+
+
+def twin_fuzz_history(seed):
+    """test_device_materialize.py's test_fuzz_device_equals_host history:
+    three sites, five rounds, partial gossip, then a full sync; returns
+    (site 0, its history)."""
+    import random
+
+    r = random.Random(seed)
+    sites = [TwinSite(a) for a in ("alice", "bob", "carol")]
+    for _ in range(5):
+        for s in sites:
+            for _ in range(r.randint(1, 3)):
+                twin_mutation(s, r)
+        if r.random() < 0.6:
+            donor, receiver = r.sample(sites, 2)
+            receiver.receive(list(donor.opset.history))
+    twin_sync(*sites)
+    if plain_value(sites[0].doc) != plain_value(sites[1].doc):
+        raise AssertionError(f"phase 3p (a) seed {seed}: sites diverged")
+    return sites[0], list(sites[0].opset.history)
+
+
+def twin_causal_history():
+    """test_causal_sort_is_valid_linear_extension's history, shuffled
+    with Random(0), and the causal order's check."""
+    import random
+
+    from hypermerge_tpu_torch.ops import columnar
+
+    a, b = TwinSite("alice"), TwinSite("bob")
+    a.change(lambda d: d.__setitem__("x", 1))
+    b.receive(a.opset.history)
+    b.change(lambda d: d.__setitem__("y", 2))
+    a.receive(b.opset.history)
+    a.change(lambda d: d.__setitem__("z", 3))
+    shuffled = list(a.opset.history)
+    random.Random(0).shuffle(shuffled)
+    seen = {}
+    for c in columnar.causal_sort(shuffled):
+        if any(seen.get(x, 0) < s for x, s in c.deps.items()) or \
+                seen.get(c.actor, 0) != c.seq - 1:
+            raise AssertionError("phase 3p (a): causal_sort is not a "
+                                 "linear extension")
+        seen[c.actor] = c.seq
+    return a, shuffled
+
+
+def twin_doc_routes(ck, batch, label, dev):
+    """One batch through doc_kernel.cu on both routes — the many-block
+    route (kernel 1 alone) and the one-block slab launch with the
+    summary_wire.cuh epilogue — each lane held to run_batch_host and to
+    the plain version, the wire to summarize_wire_plain; tolerance 0.
+    Returns the one-block route's lanes (on the card)."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.ops.host_kernel import run_batch_host
+
+    host = run_batch_host(batch)
+    plain = ck.run_batch(batch, device="cpu")
+    N = batch.n_rows
+    _da, A, _K = ck.bucket_doc_actors(batch)
+    plain_wire = ck.summarize_wire_plain(plain, N, A, lean=False)
+    if dev.type == "cpu":  # the rehearsal: the plain version stands in
+        outs, wire = [("plain", plain)], plain_wire
+    else:
+        args, A, K = ck.device_args(batch, device=dev)
+        many = ck.materialize_cuda(*args, A=A, K=K,
+                                   route=ck.DOC_ROUTE_MANY_BLOCK)
+        one, wire = ck.materialize_wire_cuda(*args, A=A, K=K, lean=False,
+                                             route=ck.DOC_ROUTE_ONE_BLOCK)
+        outs = [("many-block", many), ("one-block", one)]
+        torch.cuda.synchronize()
+    for route, out in outs:
+        for f in host._fields:
+            got = getattr(out, f).cpu().numpy()
+            if not (np.array_equal(got, getattr(host, f))
+                    and np.array_equal(got, getattr(plain, f).numpy())):
+                raise AssertionError(f"phase 3p (a) {label} {route}: lane "
+                                     f"{f} != host kernel / plain")
+    if not torch.equal(wire.cpu(), plain_wire):
+        raise AssertionError(f"phase 3p (a) {label}: wire != plain")
+    return outs[-1][1]
+
+
+def twins_materialize(ck, dev):
+    """(a): test_device_materialize.py's fuzz seeds, its host-kernel case
+    and its causal-sort case through doc_kernel.cu's two routes."""
+    from hypermerge_tpu_torch.ops import columnar
+    from hypermerge_tpu_torch.ops.materialize import (
+        DecodedBatch,
+        materialize_docs,
+    )
+    from hypermerge_tpu_torch.ops.synth import synth_batch, synth_changes
+
+    cases = []
+    for seed in TWINS["fuzz_seeds"]:
+        site, hist = twin_fuzz_history(seed)
+        cases.append((f"fuzz seed {seed}", site, [hist]))
+    site, shuffled = twin_causal_history()
+    cases.append(("causal sort", site, [columnar.causal_sort(shuffled)]))
+    n_docs = 0
+    for label, site, hists in cases:
+        batch = columnar.pack_docs(hists)
+        out = twin_doc_routes(ck, batch, label, dev)
+        doc = materialize_docs(DecodedBatch(batch, out))[0]
+        if plain_value(doc) != plain_value(site.opset.materialize()):
+            raise AssertionError(f"phase 3p (a) {label}: the card's doc != "
+                                 "the host OpSet's")
+        n_docs += batch.n_docs
+    for label, batch in (
+            ("host kernel pack_docs", columnar.pack_docs(
+                [synth_changes(257, seed=s) for s in range(3)])),
+            ("host kernel synth_batch", synth_batch(5, 192))):
+        twin_doc_routes(ck, batch, label, dev)
+        n_docs += batch.n_docs
+    return {"batches": len(cases) + 2, "docs": n_docs}
+
+
+def twins_wire(ck, dev):
+    """(b): test_summary_wire.py's test_wire_matches_host_reference_summary
+    through summary_wire.cu, full and lean, and the slab's one launch."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.ops.columnar import pack_docs
+    from hypermerge_tpu_torch.ops.materialize import (
+        DecodedBatch,
+        decode_columnar,
+        fetch_summary,
+    )
+    from hypermerge_tpu_torch.ops.synth import synth_changes
+
+    batch = pack_docs([synth_changes(96, n_actors=3, ops_per_change=8,
+                                     seed=s) for s in range(4)])
+    plain = ck.run_batch(batch, device="cpu")
+    want = decode_columnar(DecodedBatch(batch, plain))
+    N = batch.n_rows
+    _da, A, _K = ck.bucket_doc_actors(batch)
+    out = ck.run_batch(batch, device=dev)
+    for lean in (False, True):
+        plain_wire = ck.summarize_wire_plain(plain, N, A, lean)
+        wire = ck.summarize_wire(out, N, A, lean)
+        if not torch.equal(wire.cpu(), plain_wire):
+            raise AssertionError(f"phase 3p (b): wire (lean={lean}) != plain")
+        got = fetch_summary(wire, batch, lean=lean)
+        keys = ["map_winner", "elem_live", "elem_order", "n_live_elems",
+                "n_map_entries"] + ([] if lean else ["clock"])
+        for k in keys:
+            if not np.array_equal(np.asarray(got[k]), np.asarray(want[k])):
+                raise AssertionError(f"phase 3p (b): {k} (lean={lean}) != "
+                                     "decode_columnar")
+    fused = ck.run_batch_summary(batch, device=dev)
+    if not torch.equal(fused.cpu(), ck.summarize_wire_plain(plain, N, A,
+                                                            False)):
+        raise AssertionError("phase 3p (b): the slab launch's wire != plain")
+    return {"shape": [batch.n_docs, N], "A": A}
+
+
+def twins_clocks(dev):
+    """(c): test_clock.py's four infinity cases and test_clock_mirror.py's
+    test_infinity_clamps on the card, each held to the plain version."""
+    import math
+
+    import torch
+
+    from hypermerge_tpu_torch.crdt import clock as C
+    from hypermerge_tpu_torch.ops import clock_kernels as K
+    from hypermerge_tpu_torch.ops.clock_mirror import DeviceClockMirror
+
+    inf = int(K.INT32_INF)
+    rows = K.pack_clocks(C.pack([{"a": C.INFINITY_SEQ}], ["a"]), device=dev)
+    if int(rows[0, 0]) != inf:
+        raise AssertionError("phase 3p (c): INFINITY_SEQ not clamped")
+    if C.pack([{"a": math.inf, "b": 2}], ["a", "b"]) != [[C.INFINITY_SEQ, 2]]:
+        raise AssertionError("phase 3p (c): math.inf not packed")
+    m = [[inf, inf], [1, 1], [9, 9]]
+    got = K.top_k_dominated(K.pack_clocks(m, device=dev),
+                            K.pack_clocks([m[0]], device=dev)[0], 3)
+    want = K.top_k_dominated(K.pack_clocks(m, device="cpu"),
+                             K.pack_clocks([m[0]], device="cpu")[0], 3)
+    if int(got[1][0]) != 0 or int(got[0][0]) <= 0 or not all(
+            torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError("phase 3p (c): top-k with inf entries")
+    a = {"x": math.inf}
+    b = C.strs_to_clock(C.clock_to_strs(a))
+    if b != {"x": C.INFINITY_SEQ} or C.cmp(a, b) is not C.Ordering.EQ:
+        raise AssertionError("phase 3p (c): inf != INFINITY_SEQ on the host")
+    pa = K.pack_clocks(C.pack([a], ["x"]), device=dev)
+    pb = K.pack_clocks(C.pack([b], ["x"]), device=dev)
+    if int(K.cmp(pa, pb)[0]) != K.EQ or not bool(K.gte(pa[0], pb)[0]):
+        raise AssertionError("phase 3p (c): inf rows do not compare equal")
+    answers = []
+    for d in (dev, torch.device("cpu")):
+        mirror = DeviceClockMirror(capacity_docs=2, capacity_actors=2,
+                                   device=d)
+        mirror.update("d", {"a": 2**60})
+        answers.append((mirror.rows(), mirror.union(),
+                        mirror.dominated({"a": 2**62}),
+                        mirror.top_k_dominated({"a": 2**62}, k=1)))
+    if answers[0] != answers[1] or answers[0][0]["d"]["a"] != inf:
+        raise AssertionError(f"phase 3p (c): the mirror {answers}")
+    return {"mirror": repr(answers[0])}
+
+
+def twin_corpus(path, n_docs, seed, device):
+    """test_pipeline.py's _make_corpus and _add_gap_doc, written by a
+    port Repo: single-writer docs of maps, text and counters, then a doc
+    whose feed skips a seq. Returns the urls, the gap doc last."""
+    import random
+
+    from hypermerge_tpu_torch.crdt.change import ROOT, Action, Change, Op
+    from hypermerge_tpu_torch.models import Counter, Text
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.storage import block as blockmod
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    r = random.Random(seed)
+    repo = Repo(path=str(path), device=device)
+    try:
+        urls = []
+        for i in range(n_docs):
+            u = repo.create({"i": i, "t": Text(f"doc{i}:"),
+                             "hits": Counter(0)})
+            for k in range(r.randrange(1, 9)):
+                kind = r.randrange(3)
+                if kind == 0:
+                    repo.change(u, lambda d, k=k: d.__setitem__(f"k{k}",
+                                                                 k * 3))
+                elif kind == 1:
+                    repo.change(u, lambda d, k=k: d["t"].insert(0, f"<{k}>"))
+                else:
+                    repo.change(u, lambda d: d.increment("hits", 2))
+            urls.append(u)
+        gap = repo.create({"gap": True})
+        doc_id = validate_doc_url(gap)
+        actor = repo.back.actors[doc_id]
+        head = actor.seq_head
+        max_op = max(c.max_op for c in actor.changes_in_window(0, INF))
+        actor.feed._append_raw(blockmod.pack(Change(
+            actor=doc_id, seq=head + 2, start_op=max_op + 1, deps={},
+            ops=(Op(action=Action.SET, obj=ROOT, key="late", value=1),),
+        ).to_json()))
+    finally:
+        repo.close()
+    return urls + [gap]
+
+
+def twin_summary_bytes(summ, doc_id):
+    arrays, j = summ.arrays(doc_id)
+    out = {k: arrays[k][j].tobytes()
+           for k in ("map_winner", "elem_live", "elem_order")}
+    out["n_live"] = int(arrays["n_live_elems"][j])
+    out["n_map"] = int(arrays["n_map_entries"][j])
+    out["clock"] = summ.doc(doc_id)["clock"]
+    return out
+
+
+def twin_load_twice(path, ids, slab, device):
+    """test_pipeline.py's _load_twice: two bulk loads in one backend (the
+    second all memo hits): summaries of each, the memo, the counts."""
+    from hypermerge_tpu_torch.repo import Repo
+
+    repo = Repo(path=str(path), device=device)
+    try:
+        back = repo.back
+        back.load_documents_bulk(ids, slab=slab)
+        st1 = dict(back.last_bulk_stats)
+        s1 = back.fetch_bulk_summaries()
+        first = {d: twin_summary_bytes(s1, d) for d in s1.doc_ids}
+        memo = {d: {k: (v.tobytes() if hasattr(v, "tobytes") else v)
+                    for k, v in m.items()}
+                for d, m in back._summary_memo.items()}
+        for d in ids:
+            back.close_doc(d)
+        back.load_documents_bulk(ids, slab=slab)
+        st2 = dict(back.last_bulk_stats)
+        s2 = back.fetch_bulk_summaries()
+        second = {d: twin_summary_bytes(s2, d) for d in s2.doc_ids}
+    finally:
+        repo.close()
+    counts = [{k: st[k] for k in ("docs", "fast", "memo", "fallback")}
+              for st in (st1, st2)]
+    return first, second, memo, counts
+
+
+def twins_pipeline(root, device):
+    """(d): test_pipeline.py's test_pipeline_serial_equivalence_fuzz as
+    card Repos: HM_PIPELINE=0 and =1 on copies of one corpus."""
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    src = os.path.join(root, "pipe-src")
+    urls = twin_corpus(src, TWINS["pipeline_docs"], 7, device)
+    ids = [validate_doc_url(u) for u in urls]
+    results = {}
+    for mode in ("0", "1"):
+        copy = os.path.join(root, f"pipe{mode}")
+        shutil.copytree(src, copy)
+        with env_vars(HM_PIPELINE=mode, HM_DEVICE_MIN_CELLS="1"):
+            results[mode] = twin_load_twice(copy, ids, TWINS["pipeline_slab"],
+                                            device)
+    (f0, s0, m0, c0), (f1, s1, m1, c1) = results["0"], results["1"]
+    if c0 != c1 or c0[0]["fallback"] != 1 or c0[1]["memo"] != c0[1]["fast"]:
+        raise AssertionError(f"phase 3p (d): counts {c0} vs {c1}")
+    if len(f0) != TWINS["pipeline_docs"] or f0 != f1 or s0 != s1 or m0 != m1:
+        raise AssertionError("phase 3p (d): pipelined != serial summaries")
+    return {"docs": len(ids), "counts": c1[0]}
+
+
+def protocol_rings(ringmod, mesh):
+    """Install the flagged launch over virtual ranks ("protocol") as the
+    ring of every group of 2 or more ranks the mesh's folds use."""
+    groups = [mesh.dp_group(j) for j in range(mesh.shape["sp"])]
+    groups += [mesh.sp_group(i) for i in range(mesh.shape["dp"])]
+    for g in groups:
+        if len(g) > 1:
+            mesh._rings[tuple(g)] = ringmod.Ring(
+                [mesh.devices[r] for r in g], "protocol")
+
+
+def twins_mesh(dev):
+    """(e): test_parallel.py's test_mesh_reductions_fuzz_bit_identical_
+    across_shapes on virtual ranks of one card, the folds' rings in the
+    flagged launch's protocol mode."""
+    import numpy as np
+
+    from hypermerge_tpu_torch.parallel import mesh as meshmod
+    from hypermerge_tpu_torch.parallel import ring as ringmod
+    from hypermerge_tpu_torch.parallel import sharded
+
+    rng = np.random.default_rng(7)
+    for dp, sp in TWINS["mesh_shapes"]:
+        n = dp * sp
+        mesh = meshmod.make_mesh(n, sp=sp, devices=[dev] * n)
+        if dev.type == "cuda":
+            protocol_rings(ringmod, mesh)
+        for D, A in TWINS["clock_shapes"]:
+            clocks = rng.integers(0, 1000, (D, A)).astype(np.int32)
+            union = sharded.sharded_clock_union(clocks, mesh).numpy()
+            query = clocks[rng.integers(0, D)]
+            dom = sharded.sharded_dominated(clocks, query, mesh).numpy()
+            if not (np.array_equal(union, clocks.max(axis=0)) and
+                    np.array_equal(dom, np.all(clocks <= query, axis=-1))):
+                raise AssertionError(f"phase 3p (e): {dp}x{sp} {D}x{A} "
+                                     "!= numpy")
+    return {"shapes": [list(s) for s in TWINS["mesh_shapes"]]}
+
+
+def twin_stored_changes(repo, doc_id):
+    out = []
+    for actor_id, end in repo.back.docs[doc_id].clock.items():
+        out.extend(repo.back._get_or_create_actor(actor_id)
+                   .changes_in_window(0, end))
+    return out
+
+
+def twin_script(stored, pair_ids, seed, n_rounds=8):
+    """test_live_demote.py's _gen_script: deterministic two-peer batches
+    extending `stored`, the peers keyed by real feed keypairs; returns
+    (the batches, the peers)."""
+    import random
+
+    r = random.Random(seed)
+    peers = [TwinSite(a) for a in pair_ids]
+    for p in peers:
+        p.receive(stored)
+    script = []
+    for rnd in range(n_rounds):
+        idx = r.randrange(2)
+        site = peers[idx]
+        batch = []
+        for _ in range(r.randint(1, 3)):
+            before = len(site.opset.history)
+            twin_mutation(site, r)
+            batch.extend(site.opset.history[before:])
+        if batch:
+            script.append((idx, batch))
+        if rnd % 3 == 2:
+            twin_sync(*peers)
+    return script, peers
+
+
+def twin_demote_seed(base, device):
+    """test_live_demote.py's _seed: a doc of five edits and two peer
+    keypairs, written under HM_LIVE=0."""
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils import keys as keymod
+    from hypermerge_tpu_torch.utils.ids import validate_doc_url
+
+    with env_vars(HM_LIVE="0"):
+        repo = Repo(path=base, device=device)
+        try:
+            url = repo.create({"edits": [], "k": 0})
+            for i in range(5):
+                repo.change(url, lambda d, i=i: d["edits"].append(i))
+        finally:
+            repo.close()
+    pairs = [keymod.create() for _ in range(2)]
+    return {"url": url, "doc_id": validate_doc_url(url),
+            "pairs": [[p.public_key, p.secret_key] for p in pairs]}
+
+
+def twin_demote_run(base, meta, live, order_flip, device, seed=23):
+    """test_live_demote.py's _run_demote_workload under HM_LIVE=`live` on
+    a copy of `base`: feed-backed peer deliveries, a local edit after
+    each, every idle doc demoted between deliveries; returns the outcome
+    (snapshot, clock, history length, state, local patch echoes) as JSON
+    with the local actor id scrubbed."""
+    from hypermerge_tpu_torch.crdt.opset import OpSet
+    from hypermerge_tpu_torch.repo import Repo
+    from hypermerge_tpu_torch.utils import keys as keymod
+
+    work = tempfile.mkdtemp(prefix="hm-demote-")
+    shutil.rmtree(work)
+    shutil.copytree(base, work)
+    try:
+        with env_vars(HM_LIVE=live):
+            repo = Repo(path=work, device=device)
+            try:
+                url, doc_id = meta["url"], meta["doc_id"]
+                local_patches = []
+                orig_push = repo.back.to_frontend.push
+
+                def record(msg):
+                    if msg.get("type") == "Patch" and msg["patch"].get(
+                            "actor"):
+                        local_patches.append(msg["patch"])
+                    orig_push(msg)
+
+                repo.back.to_frontend.push = record
+                h = repo.open(url)
+                if h.value(timeout=20) is None:
+                    raise AssertionError("phase 3p (f): the doc never opened")
+                back = repo.back
+                doc = back.docs[doc_id]
+                stored = twin_stored_changes(repo, doc_id)
+                script, peers = twin_script(
+                    stored, [pk for pk, _ in meta["pairs"]], seed)
+                if order_flip:
+                    script = ([b for b in script if b[0] == 1]
+                              + [b for b in script if b[0] == 0])
+                # then one paste of TWIN_PASTE ops by peer 0 (3i (a)'s
+                # paste): the case's deliveries are 1-3 one-op changes,
+                # and a tick of 8 ops or fewer always applies
+                # incrementally, so this is the delivery whose tick
+                # takes the kernel
+                twin_sync(*peers)
+                paste, _ = peers[0].change(lambda d: [
+                    d.__setitem__(f"p{i}", i) for i in range(TWIN_PASTE)])
+                script.append((0, [paste]))
+                actors = [back._init_actor(keymod.KeyPair(pk, sk))
+                          for pk, sk in meta["pairs"]]
+                for a in actors:
+                    back.cursors.add_actor(back.id, doc_id, a.id)
+                oracle = OpSet()
+                oracle.apply_changes(stored)
+                peer_actors = set()
+                for k, (idx, batch) in enumerate(script):
+                    oracle.apply_changes(list(batch))
+                    peer_actors.update(c.actor for c in batch)
+                    for ch in batch:
+                        actors[idx].write_change(ch)
+                    back.cursors.update(back.id, doc_id,
+                                        {actors[idx].id: batch[-1].seq})
+                    back._sync_changes(actors[idx])
+                    wait_for("3p (f) delivery", lambda: all(
+                        doc.clock.get(a, 0) == oracle.clock.get(a, 0)
+                        for a in peer_actors), 30, phase="3p")
+                    repo.change(url, lambda d, k=k: d.__setitem__(f"k{k}", k))
+                    if back.live is not None:
+                        back.live.flush_now()
+                        back.live.demote_idle(0)
+                if back.live is not None:
+                    back.live.flush_now()
+                    back.live.demote_idle(0)
+                repo.change(url, lambda d: d.__setitem__("fin", 1))
+                stats = {}
+                if back.live is not None:
+                    back.live.flush_now()
+                    stats = dict(back.live.stats)
+                    if not (stats["demoted"] > 0 and stats["readopted"] > 0):
+                        raise AssertionError(f"phase 3p (f): {stats}")
+                outcome = {
+                    "snap": doc.snapshot_patch().to_json(),
+                    "clock": dict(doc.clock),
+                    "hist": doc.history_len,
+                    "state": plain_value(h.value()),
+                    "local_patches": local_patches,
+                }
+                actor_id = doc.actor_id
+            finally:
+                repo.close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def scrub(v):
+        if isinstance(v, str):
+            return v.replace(actor_id, "<LOCAL-ACTOR>")
+        if isinstance(v, dict):
+            return {scrub(k): scrub(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [scrub(x) for x in v]
+        return v
+
+    return json.dumps(scrub(outcome), sort_keys=True, default=str), stats
+
+
+def twins_demote(root, device):
+    """(f): test_live_demote.py's test_demote_readopt_twin_bit_identical
+    on a card Repo under HM_LIVE_MAX_BYTES, the live tick on the kernel
+    (3i's kernel env), both delivery orders, against HM_LIVE=0."""
+    base = os.path.join(root, "demote-seed")
+    os.makedirs(base)
+    meta = twin_demote_seed(base, device)
+    out = {}
+    with env_vars(**TWIN_LIVE_ENV):
+        for flip in (False, True):
+            host, _ = twin_demote_run(base, meta, "0", flip, device)
+            live, stats = twin_demote_run(base, meta, "1", flip, device)
+            if live != host:
+                raise AssertionError(f"phase 3p (f) flip={flip}: HM_LIVE=1 "
+                                     "!= HM_LIVE=0")
+            out["rev" if flip else "fwd"] = {
+                k: stats.get(k) for k in ("demoted", "readopted",
+                                          "device_dispatches")}
+    return out
+
+
+TWIN_PARTS = {
+    "a": ("materialize", "materialize_wire"),
+    "b": ("summary_wire",),
+    "c": CLOCKS,
+    "d": BULK,
+    "e": MESH,
+    "f": ("materialize_live",),
+}
+
+
+def twins_path(ck, device=None) -> tuple:
+    """Phase 3p: (a)-(f). Returns (the launches summed over the parts,
+    the numbers). Each part sets the launch counts to 0 just before and
+    reads them just after; a part whose kernels did not launch fails.
+    `device="cpu"` is the CPU rehearsal: the plain versions run and no
+    launch is counted."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    t_phase = time.perf_counter()
+    parts = {
+        "a": lambda: twins_materialize(ck, dev),
+        "b": lambda: twins_wire(ck, dev),
+        "c": lambda: twins_clocks(dev),
+        "e": lambda: twins_mesh(dev),
+    }
+    numbers, total = {}, dict.fromkeys(ck.launches, 0)
+    with tempfile.TemporaryDirectory(prefix="hm-twins-") as root:
+        parts["d"] = lambda: twins_pipeline(root, device)
+        parts["f"] = lambda: twins_demote(root, device)
+        for name in sorted(parts):
+            for k in ck.launches:
+                ck.launches[k] = 0
+            t0 = time.perf_counter()
+            got = parts[name]()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.launches.items() if v}
+            missing = [k for k in TWIN_PARTS[name] if not launches.get(k)]
+            if dev.type == "cuda" and missing:
+                raise AssertionError(f"phase 3p ({name}): no launch of "
+                                     f"{missing}: {launches}")
+            for k, v in launches.items():
+                total[k] += v
+            numbers[name] = dict(got, launches=launches,
+                                 wall_s=time.perf_counter() - t0)
+    numbers["wall_s"] = time.perf_counter() - t_phase
+    if dev.type == "cuda" and numbers["wall_s"] > TWINS["budget_s"]:
+        raise AssertionError(f"phase 3p took {numbers['wall_s']:.1f} s, over "
+                             f"its {TWINS['budget_s']} s")
+    log("twins " + json.dumps(numbers))
+    return {k: v for k, v in total.items() if v}, numbers
+
+
+def twins_main() -> int:
+    """`--twins`: phase 3p alone on the card (the kernels built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from hypermerge_tpu_torch.kernels import _build
+    from hypermerge_tpu_torch.ops import crdt_kernels as ck
+
+    log(card_line())
+    _build.build()
+    twins_path(ck)
+    return 0
+
+
 def doc_entry_call(ck, args, A, K):
     """A call of doc_kernel.cu's entry alone (route picked from (D, N), no
     wrapper, no allocation) on copies of the live tick's arguments and
@@ -7455,6 +8160,8 @@ def main() -> int:
         return lockdep_main()
     if sys.argv[1:2] == ["--tools"]:
         return tools_main()
+    if sys.argv[1:2] == ["--twins"]:
+        return twins_main()
     try:
         import torch
     except ImportError:
@@ -7649,6 +8356,9 @@ def main() -> int:
         for c in lockdep_corpora:
             shutil.rmtree(c)
         elapsed("phase 3o")
+        # the main path's reference cases, the kernels on the card
+        twins_counts, _twins_numbers = twins_path(ck)
+        elapsed("phase 3p")
 
         # -- 4. times ------------------------------------------------------
         timing = time_kernels(ck, slab, long_doc)
@@ -7747,6 +8457,9 @@ def main() -> int:
     # and the command-line tools' (3o (a): `meta --stats` in this process)
     for k, v in tools_counts.items():
         counts[k] += v
+    # and the reference cases' (3p (a)-(f))
+    for k, v in twins_counts.items():
+        counts[k] += v
     clock_shape = [131072, CONFIG5["n_actors"]]
     shapes = {"ring_gather": list(gather_shape),
               "clock_union_min": [2, CONFIG5["n_docs"] // 2],
@@ -7784,6 +8497,8 @@ def main() -> int:
                if name in lockdep_counts else {}),
             **({"tools_slice_launches": tools_counts[name]}
                if name in tools_counts else {}),
+            **({"twins_slice_launches": twins_counts[name]}
+               if name in twins_counts else {}),
         })
     log(f"config5_hot_query_ms={hot_ms!r}")
     log("mesh_walls " + json.dumps(mesh_walls))

@@ -21,6 +21,7 @@ another platform by itself.
 
     python -m hypermerge_tpu_torch.graft_entry 4            # four cards
     python -m hypermerge_tpu_torch.graft_entry 4 virtual    # one card
+    python -m hypermerge_tpu_torch.graft_entry 4 --device cpu  # CPU ranks
 """
 
 from __future__ import annotations
@@ -195,8 +196,19 @@ def measured_multichip(n_devices: int, device: DeviceLike = None,
 dryrun_multichip = measured_multichip
 
 
-if __name__ == "__main__":
-    n = int(sys.argv[1]) if sys.argv[1:] else torch.cuda.device_count()
-    fn, args = entry()
+def main(argv) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m hypermerge_tpu_torch.graft_entry")
+    p.add_argument("n", nargs="?", type=int, default=None)
+    p.add_argument("ranks", nargs="?", default="cards")
+    p.add_argument("--device", default=None)
+    a = p.parse_args(argv)
+    n = a.n if a.n is not None else torch.cuda.device_count()
+    fn, args = entry(a.device)
     print("entry ok:", tuple(fn(*args).rank.shape), flush=True)
-    measured_multichip(n, ranks=sys.argv[2] if sys.argv[2:] else "cards")
+    measured_multichip(n, device=a.device, ranks=a.ranks)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
