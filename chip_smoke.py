@@ -29,7 +29,12 @@ prints a result):
      planes (HM_DEVICE_PACK=0: the native hm_pack_prefix) byte-equal to
      the kernel's; the four clock kernels at the mirror's capacity of
      BASELINE config 5 (131072 x 64): the pairwise ops (also at A = 3
-     and A = 1024, full and broadcast rows), the scatter-max with 1,000
+     and A = 1024, full and broadcast rows; and every op on each of
+     clock_pair's routes: the device route with the row on either side,
+     the by-value query on either side with the result on the card and
+     through the pinned buffer, at G = 1 .. 32 lanes a row on the int4
+     and the scalar route, A = 1 .. 1024 with R = 1 and odd R, and a base
+     one int off 16-byte alignment), the scatter-max with 1,000
      and 65,536 triples piled on one cell (and its parameter route, host
      triples in the launch, at 1,024 and at 2 x its per-launch cap + 1,
      with triples outside the matrix), the column max (also at
@@ -372,7 +377,12 @@ prints a result):
      torch.cat for the ring gather, whose kernel alone is read with cold
      inputs and outputs and must not be under its bound, with the
      flagged launch over the same ranks, timed at the summary gather's
-     shape of phase 3e and at n = 4, 4096 x 1540); pack_prefix at the
+     shape of phase 3e and at n = 4, 4096 x 1540); clock_pair at the
+     config-5 matrix through the main path's entry, gte_host (the query
+     by value, the verdicts through the pinned buffer), and through its
+     device route (pair_cuda), the host work of each, the kernel alone
+     warm and cold (`cold_kernel_ms` over copies of the matrix), the
+     two-call torch.all(m <= q) and mirror.dominated's wall; pack_prefix at the
      slab (its bound from the planes it reads and the planes, flags,
      slot and ranges it writes; the wrapper, its host work, the kernel
      alone warm and with the L2 flushed before each call), at the ragged
@@ -420,7 +430,9 @@ process of its own that builds its tree's kernels and prints one JSON
 line (`slab_numbers`, through entries every tree of the port has: the
 slab program, the wire, the sidecar slab's wall, pack and pack_prefix
 with its profile and copies, phase 3d's and phase 3g's opens on shared
-corpora, the live tick), then the card's name and power limit.
+corpora, clock_pair at config 5 (wrapper, host, alone warm and cold,
+bound, plain, two-call) and the mirror's dominated wall, the live tick),
+then the card's name and power limit.
 
     python3 chip_smoke.py --lockdep
 
@@ -539,7 +551,10 @@ EXTRA_READINGS = ("host_ms", "kernel_ms", "cold_kernel_ms", "device_route_ms",
                   "device_route_kernel_ms", "flush_ms", "flush_library_ms",
                   "copy_back_ms", "library_dispatch_ms", "kernels_per_call",
                   "one_block_ms", "lean_ms", "two_launch_ms", "peak_mb",
-                  "long_doc_ms", "long_doc_library_ms")
+                  "long_doc_ms", "long_doc_library_ms",
+                  "device_route_host_ms", "dominated_wall_ms",
+                  "dominated_query_row_ms", "dominated_scan_ms",
+                  "dominated_listing_ms")
 # every kernel of doc_kernel.cu: the one-block route's, then the many-block
 # route's (one dispatch launches either the first or all the others)
 DOC_KERNELS = ("materialize_kernel", "mb_init_kernel", "mb_supersede_kernel",
@@ -1414,6 +1429,78 @@ def hold_column_reduce(kernel, plain, mode):
     return err
 
 
+def pair_lanes(A: int) -> tuple:
+    """(G, vector route) of clock_pair.cu at A actors on aligned operands:
+    G the power of two at or above ceil(A / 4), at most 32."""
+    g = 1
+    while g < -(-A // 4) and g < 32:
+        g *= 2
+    return g, A % 4 == 0
+
+
+def hold_pair_routes(ckk, m):
+    """Phase 2's route cases of clock_pair.cu, every op on each: the
+    device route (the row on either side, and two full matrices), the
+    by-value query on either side with the result on the card and through
+    the pinned buffer (pair_query_cuda), at G = 1 .. 32 on the int4 and
+    the scalar route, A above 128 and 256, R = 1 and odd R, config 5's
+    [131072, 64] (m), and a base one int off 16-byte alignment. Returns
+    the max abs err."""
+    import numpy as np
+    import torch
+
+    shapes = ((1, 64), (37, 1), (37, 3), (501, 4), (1000, 8), (1000, 16),
+              (999, 32),
+              (5000, 70), (777, 128), (300, 260), (64, 1024))
+    cases = [(f"[{R}, {A}]", clock_matrix(R * 7 + A, R, A)) for R, A in shapes]
+    cases.insert(0, (f"[{m.shape[0]}, 64]", m))
+    flat = torch.empty(37 * 64 + 1, dtype=torch.int32, device="cuda")
+    flat[1:] = clock_matrix(8, 37, 64).flatten()
+    off = flat[1:].view(37, 64)
+    if off.data_ptr() % 16 != 4:
+        raise AssertionError("the offset view is not 4 bytes off alignment")
+    cases.append(("[37, 64] base + 4 bytes", off))
+    err, lanes, n = 0, set(), 0
+    for label, x in cases:
+        R, A = x.shape
+        row = x[R // 2].clone()
+        row[::3] = 990
+        y = x.clone()
+        y[1::3] = torch.clamp(x[1::3] - 1, min=0)
+        y[2::3] += 1
+        rowh = row.cpu().numpy()
+        if label.endswith("bytes"):
+            row = torch.empty(A + 1, dtype=torch.int32, device="cuda")[1:]
+            row.copy_(torch.from_numpy(rowh))
+        else:
+            lanes.add(pair_lanes(A))
+        for op, plain in ckk._PLAIN_PAIR.items():
+            holds = [("full", ckk.pair_cuda(op, x, y), plain(x, y)),
+                     ("row a", ckk.pair_cuda(op, row, x), plain(row, x)),
+                     ("row b", ckk.pair_cuda(op, x, row), plain(x, row))]
+            for side in (0, 1):
+                want = plain(row, x) if side == 0 else plain(x, row)
+                if label.endswith("bytes"):
+                    continue  # the by-value route reads no device row
+                holds.append((f"by value {side}",
+                              ckk.pair_query_cuda(op, rowh, x, side), want))
+                got = ckk.pair_query_cuda(op, rowh, x, side, to_host=True)
+                holds.append((f"pinned {side}", torch.from_numpy(got), want.cpu()))
+            for route, got, want in holds:
+                err = max(err, hold(f"clock_pair op {op} {label} {route}",
+                                    got, want))
+                n += 1
+    want_lanes = {(g, v) for g in (1, 2, 4, 8, 16, 32) for v in (True,)} | {
+        (1, False), (32, False)}
+    if not want_lanes <= lanes:
+        raise AssertionError(f"clock_pair phase 2 ran lanes {sorted(lanes)}")
+    log(f"phase 2 clock_pair routes ({n} holds: "
+        f"{', '.join(label for label, _ in cases)}; every op on the device "
+        f"route, the row on either side, by value and through the pinned "
+        f"buffer; G and int4 route {sorted(lanes)}): kernel == plain (exact)")
+    return err
+
+
 def compare_clock_kernels(ckk):
     """Phase 2 for the clock kernels: each against its plain version on
     the same card tensors; returns the max abs err per kernel."""
@@ -1434,6 +1521,7 @@ def compare_clock_kernels(ckk):
                 e = hold(f"clock_pair op {op} A={A}", ckk.pair_cuda(op, x, y),
                          plain(x, y))
                 errs["clock_pair"] = max(errs["clock_pair"], e)
+    errs["clock_pair"] = max(errs["clock_pair"], hold_pair_routes(ckk, m))
     small = clock_matrix(5, 5, 3)
     for x in (m, small, -1 - m.abs(), -1 - small.abs()):
         e = hold(f"clock_union {tuple(x.shape)}", ckk.union_reduce_cuda(x),
@@ -1631,13 +1719,7 @@ def time_clock_kernels(ckk, PM, mirror, actors):
     D, A = m.shape
     q = torch.full((A,), 990, dtype=torch.int32, device="cuda")
     res = {}
-    # the dominated query: gte of the broadcast query row against m
-    out = ckk.pair_cuda(ckk._GTE, q, m)
-    res["clock_pair"] = dict(
-        ms=median_ms(lambda: ckk.pair_cuda(ckk._GTE, q, m)),
-        plain_ms=median_ms(lambda: ckk.gte_plain(q, m)),
-        library_ms=None, bytes=nbytes(m, q, out), ops=2 * D * A,
-    )
+    res["clock_pair"] = time_pair(ckk, m, q, mirror, actors)
     u = ckk.union_reduce_cuda(m)
     res["clock_union"] = dict(
         ms=median_ms(lambda: ckk.union_reduce_cuda(m)),
@@ -1707,9 +1789,9 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         bytes=nbytes(m, q, s, i), ops=3 * D * A + D * int(math.log2(D)),
     )
     # device time of the kernels alone, without the wrapper's host work
+    qh = q.cpu().numpy()
     alone = {
-        "clock_pair": (lambda: ckk.pair_cuda(ckk._GTE, q, m),
-                       ("clock_pair_kernel",)),
+        "clock_pair": (lambda: ckk.gte_host(qh, m), ("clock_pair_kernel",)),
         "clock_union": (lambda: ckk.union_reduce_cuda(m),
                         ("fill_kernel", "column_reduce_kernel")),
         "clock_scatter": (lambda: ckk.scatter_max_params_cuda_(target, *host),
@@ -1747,6 +1829,48 @@ def time_clock_kernels(ckk, PM, mirror, actors):
         f"wall_ms={walls['hot_query_ms']!r}; union() with nothing pending "
         f"{walls['union_alone_ms']!r} ms")
     return res, walls["hot_query_ms"]
+
+
+def time_pair(ckk, m, q, mirror, actors):
+    """clock_pair.cu's phase-4 numbers at the config-5 matrix m: `ms` and
+    `host_ms` of the main path's entry, gte_host (the query by value, the
+    verdicts through the pinned buffer, ending in the stream's sync);
+    the device route (pair_cuda, the row read from the card, the result
+    left there); the kernel alone cold (cold_kernel_ms over copies of m);
+    the plain version, the two-call PyTorch form torch.all(m <= q) and
+    mirror.dominated's wall, with its parts taken in turn with it: the
+    query row built from the dict, gte_host, and the doc ids listed on
+    the host (the mirror's own expressions)."""
+    import torch
+
+    D, A = m.shape
+    qh = q.cpu().numpy()
+    out = ckk.pair_cuda(ckk._GTE, q, m)
+    mats = [m.clone() for _ in range(max(2, math.ceil(4 * L2_BYTES / nbytes(m))))]
+    query = {a: 990 for a in actors}
+    ok = ckk.gte_host(qh, m)
+    walls = host_medians_ms({
+        "dominated_wall_ms": lambda: mirror.dominated(query),
+        "dominated_query_row_ms": lambda: mirror._query_row(query),
+        "dominated_scan_ms": lambda: ckk.gte_host(qh, m),
+        "dominated_listing_ms": lambda: [
+            d for d, r in mirror.doc_index.items() if ok[r]],
+    })
+    r = dict(
+        ms=median_ms(lambda: ckk.gte_host(qh, m)),
+        host_ms=host_call_ms(lambda: ckk.gte_host(qh, m)),
+        device_route_ms=median_ms(lambda: ckk.pair_cuda(ckk._GTE, q, m)),
+        device_route_host_ms=host_call_ms(lambda: ckk.pair_cuda(ckk._GTE, q, m)),
+        cold_kernel_ms=cold_kernel_ms(
+            lambda i: (lambda: ckk.gte_row(qh, mats[i % len(mats)])),
+            nbytes(m, q, out)),
+        plain_ms=median_ms(lambda: ckk.gte_plain(q, m)),
+        library_ms=None,
+        library_dispatch_ms=median_ms(lambda: torch.all(m <= q, dim=-1)),
+        **walls, bytes=nbytes(m, q, out), ops=2 * D * A,
+    )
+    del mats
+    return r
 
 
 def time_param_structs(ckk, target):
@@ -2382,7 +2506,7 @@ def time_order_dispatch(sk, devs, qobj, B, N):
                           mask.sum(dim=1, dtype=torch.int32)]).cpu()
 
     n_out = B * N + B
-    out, host = sk._result_buffers.get(dev, n_out)
+    out, host = ck.result_buffers.get(dev, n_out)
     r = dict(
         host_ms=host_call_ms(lambda: sk.seq_order_cuda(devs, qobj)),
         copy_back_ms=median_ms(
@@ -2434,7 +2558,7 @@ def time_counts_dispatch(sk, devs, qobj, B, N):
         mapped = ((st[:, 5] != 0) & at_obj).sum(dim=1, dtype=torch.int32)
         return torch.cat([elems, mapped]).cpu()
 
-    out, host = sk._result_buffers.get(dev, 2 * B)
+    out, host = ck.result_buffers.get(dev, 2 * B)
     fn = ck.kernel_fn("serve_counts")
     stream = ck.launch_stream(dev)
 
@@ -2481,7 +2605,7 @@ def time_lookup_dispatch(sk, devs, qobj, qkey, B, N):
         row = torch.argmax(mask.to(torch.uint8), dim=1).to(torch.int32)
         return torch.cat([row, mask.any(dim=1).to(torch.int32)]).cpu()
 
-    out, host = sk._result_buffers.get(dev, 2 * B)
+    out, host = ck.result_buffers.get(dev, 2 * B)
     fn = ck.kernel_fn("serve_lookup")
     stream = ck.launch_stream(dev)
 
@@ -7971,6 +8095,58 @@ def open_numbers(corpus: str, root: str, key: str = "open_ms") -> dict:
         shutil.rmtree(path)
 
 
+def pair_numbers() -> dict:
+    """clock_pair at config 5's [131072, 64] through entries every tree
+    of the port has, on a mirror seeded as config5_mirrors seeds it:
+    pair_cuda(GTE, q, m)'s CUDA events (`pair_ms`), host time
+    (`pair_host_ms`), the kernel alone warm (`pair_kernel_ms`, the
+    profiler) and cold (`pair_cold_kernel_ms`, cold_kernel_ms), its bytes
+    bound, the plain version, torch.all(m <= q) (two calls), and
+    DeviceClockMirror.dominated's wall (`dominated_wall_ms`); and, where
+    the tree has it, the host-query entry gte_host (`pair_gte_host_ms`,
+    `pair_gte_host_host_ms`)."""
+    import numpy as np
+    import torch
+
+    from hypermerge_tpu_torch.ops import clock_kernels as ckk
+    from hypermerge_tpu_torch.ops import clock_mirror as PM
+
+    n, A = CONFIG5["n_docs"], CONFIG5["n_actors"]
+    clocks = np.random.default_rng(0).integers(1, 1000, size=(n, A),
+                                                 dtype=np.int32)
+    actors = [f"a{j}" for j in range(A)]
+    mirror = PM.DeviceClockMirror(capacity_docs=n, capacity_actors=A)
+    mirror.seed_bulk([f"d{i}" for i in range(n)], actors, clocks)
+    m = mirror._mat()
+    q = torch.full((A,), 990, dtype=torch.int32, device="cuda")
+    out = ckk.pair_cuda(ckk._GTE, q, m)
+    footprint = nbytes(m, q, out)
+    mats = [m.clone() for _ in range(max(2, math.ceil(4 * L2_BYTES / nbytes(m))))]
+    query = {a: 990 for a in actors}
+
+    def call():
+        return ckk.pair_cuda(ckk._GTE, q, m)
+
+    res = dict(
+        pair_ms=median_ms(call, 15, 3), pair_host_ms=host_call_ms(call),
+        pair_kernel_ms=kernel_device_ms(call, "clock_pair_kernel"),
+        pair_cold_kernel_ms=cold_kernel_ms(
+            lambda i: (lambda: ckk.pair_cuda(ckk._GTE, q, mats[i % len(mats)])),
+            footprint),
+        pair_bound_ms=footprint / MEM_BYTES_PER_S * 1e3,
+        pair_plain_ms=median_ms(lambda: ckk.gte_plain(q, m), 15, 3),
+        pair_two_call_ms=median_ms(lambda: torch.all(m <= q, dim=-1), 15, 3),
+        dominated_wall_ms=host_medians_ms(
+            {"d": lambda: mirror.dominated(query)})["d"],
+    )
+    if hasattr(ckk, "gte_host"):
+        qh = q.cpu().numpy()
+        res["pair_gte_host_ms"] = median_ms(lambda: ckk.gte_host(qh, m), 15, 3)
+        res["pair_gte_host_host_ms"] = host_call_ms(lambda: ckk.gte_host(qh, m))
+    del mats
+    return res
+
+
 def slab_numbers(tree: str, corpus: str | None = None,
                  bench_corpus: str | None = None) -> int:
     """One JSON line of the port in `tree`, through entries every tree of
@@ -7984,7 +8160,8 @@ def slab_numbers(tree: str, corpus: str | None = None,
     for the live tick's buckets (live_tick_cases)
     materialize_live_device's events (`_ms`), host time until it returns
     (`_host_ms`) and host_split_ms (`_pre_ms`, `_c_ms`, `_post_ms`,
-    `_c_events_ms`)."""
+    `_c_events_ms`); clock_pair's numbers and mirror.dominated's wall at
+    config 5 (pair_numbers)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -8028,6 +8205,7 @@ def slab_numbers(tree: str, corpus: str | None = None,
             res.update(open_numbers(corpus, root))
         if bench_corpus is not None:
             res.update(open_numbers(bench_corpus, root, "open_bench_ms"))
+    res.update(pair_numbers())
     for label, lvs in live_tick_cases(columnar, synth).items():
         targs, tA, tK = live_args(ck, live, lvs, "cuda")
 
@@ -8215,7 +8393,9 @@ def main() -> int:
         f"{ck.launch_cap('clock_scatter')} triples a launch, serve_order "
         f"{ck.launch_cap('serve_order', 0)} entries a launch, "
         f"{ck.launch_cap('serve_order', 1)} keys in shared memory, "
-        f"serve_counts {ck.launch_cap('serve_counts', 0)} entries a launch; "
+        f"serve_counts {ck.launch_cap('serve_counts', 0)} entries a launch, "
+        f"clock_pair's query row {ck.launch_cap('clock_pair', 0)} ints by "
+        f"value ({ck.launch_cap('clock_pair', 1)} in its small struct); "
         f"pack_prefix at most {ck.launch_cap('pack_prefix', 0)} threads a "
         f"block, {ck.launch_cap('pack_prefix', 1)} cells a thread, grid from "
         f"{ck.launch_cap('pack_prefix', 2)} SMs and "

@@ -9,7 +9,11 @@ here. Four CUDA kernels carry the programs:
 
 - `kernels/csrc/clock_pair.cu`: gte, cmp, union, intersection,
   satisfied, cursor_window over two [..., A] operands, either of which may
-  be one [A] row broadcast to all rows (a dominated query);
+  be one [A] row broadcast to all rows (a dominated query); `gte_host`
+  takes that row from host memory into the launch's parameters and
+  returns the verdicts through the calling thread's pinned buffer (the
+  mirror's and the store's dominated scans), `gte_row` leaves them on the
+  card;
 - `kernels/csrc/clock_union.cu`: `union_reduce`, the column max, and in
   its min mode `min_reduce`, the column min (the mesh's pmin, folded over
   partials that parallel/ring.py gathered); a matrix of at most 64 rows
@@ -42,7 +46,7 @@ import torch
 from ..device import DeviceLike, resolve
 from .columnar import round_up_pow2
 from .crdt_kernels import (_check, _launched, kernel_fn, launch_cap,
-                           launch_scope, launch_stream)
+                           launch_scope, launch_stream, result_buffers)
 
 INT32_INF = 2**31 - 1
 
@@ -168,35 +172,107 @@ def _operand(t: torch.Tensor, lead: Tuple[int, ...], A: int):
     return t.expand(*lead, A).contiguous(), A
 
 
+def _pair_out(op: int, lead: Tuple[int, ...], A: int, dev) -> torch.Tensor:
+    if op == _GTE:
+        return torch.empty(lead, dtype=torch.bool, device=dev)
+    if op == _CMP:
+        return torch.empty(lead, dtype=torch.int32, device=dev)
+    return torch.empty(*lead, A, dtype=torch.int32, device=dev)
+
+
+def _row_and_matrix(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """One contiguous int32 [A] row against a contiguous int32 [R, A]
+    matrix on one GPU, either side: the dominated scan's shape."""
+    return (a.ndim + b.ndim == 3 and a.dtype == torch.int32
+            and b.dtype == torch.int32 and a.device == b.device
+            and a.device.type == "cuda" and a.shape[-1] == b.shape[-1]
+            and a.is_contiguous() and b.is_contiguous())
+
+
+def _launch_pair(op, a_ptr, b_ptr, a_stride, b_stride, R, A, query,
+                 query_side, out, host_out, dev) -> None:
+    fn = kernel_fn("clock_pair")
+    with launch_scope(dev):
+        rc = fn(a_ptr, b_ptr, a_stride, b_stride, R, A, op, query,
+                query_side, out.data_ptr(), host_out, launch_stream(dev))
+    _launched("clock_pair", rc)
+
+
 def pair_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """clock_pair.cu: one pairwise op over [..., A] int32 operands on one
-    GPU (leading dims broadcast; a broadcast [A] row is read in place)."""
+    GPU (leading dims broadcast; a broadcast [A] row is read in place).
+    One [A] row against a contiguous [R, A] matrix, the main path's
+    shape, goes straight to the launch."""
+    if _row_and_matrix(a, b):
+        A = a.shape[-1]
+        R = a.shape[0] if a.ndim == 2 else b.shape[0]
+        out = _pair_out(op, (R,), A, a.device)
+        if out.numel():
+            _launch_pair(op, a.data_ptr(), b.data_ptr(),
+                         A if a.ndim == 2 else 0, A if b.ndim == 2 else 0,
+                         R, A, None, 0, out, None, a.device)
+        return out
     if a.ndim < 1 or b.ndim < 1 or b.shape[-1] != a.shape[-1]:
         raise ValueError(f"clock operands {tuple(a.shape)} and {tuple(b.shape)}")
     if a.device != b.device:
         raise ValueError(f"clock operands span devices: {a.device} != {b.device}")
     A = a.shape[-1]
     lead = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
-    R = math.prod(lead)
     a, a_stride = _operand(a, lead, A)
     b, b_stride = _operand(b, lead, A)
     _check(a, "a", torch.int32, tuple(a.shape))
     _check(b, "b", torch.int32, tuple(b.shape))
-    dev = a.device
-    if op == _GTE:
-        out = torch.empty(lead, dtype=torch.bool, device=dev)
-    elif op == _CMP:
-        out = torch.empty(lead, dtype=torch.int32, device=dev)
-    else:
-        out = torch.empty(*lead, A, dtype=torch.int32, device=dev)
-    if out.numel() == 0:
-        return out
-    fn = kernel_fn("clock_pair")
-    with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), a_stride, b_stride, R, A, op,
-                out.data_ptr(), launch_stream(dev))
-    _launched("clock_pair", rc)
+    out = _pair_out(op, lead, A, a.device)
+    if out.numel():
+        _launch_pair(op, a.data_ptr(), b.data_ptr(), a_stride, b_stride,
+                     math.prod(lead), A, None, 0, out, None, a.device)
     return out
+
+
+def pair_query_cuda(op: int, query: np.ndarray, m: torch.Tensor,
+                    query_side: int = 0, to_host: bool = False):
+    """clock_pair.cu with its broadcast row in host memory: op over the
+    int32 [A] `query` (operand a when query_side is 0, else b) and every
+    row of the contiguous int32 [R, A] matrix m on a GPU. The query
+    travels in the launch's parameters when A is at most
+    launch_cap("clock_pair") ints (4,096 under CUDA 12.1 and later), else
+    it is uploaded and read from the device. to_host: the result comes
+    back as a numpy array (a copy), which the C entry copied into this
+    thread's pinned buffer (crdt_kernels.result_buffers) before it waited
+    for the stream; else a tensor on m's card."""
+    if m.ndim != 2:
+        raise ValueError(f"clock_pair over a {tuple(m.shape)} matrix")
+    R, A = m.shape
+    _check(m, "m", torch.int32, (R, A))
+    if query_side not in (0, 1):
+        raise ValueError(f"query_side {query_side}: expected 0 (a) or 1 (b)")
+    if (not isinstance(query, np.ndarray) or query.dtype != np.int32
+            or query.shape != (A,) or not query.flags.c_contiguous):
+        raise ValueError(f"query: expected a C-contiguous int32 numpy [{A}]")
+    dev = m.device
+    lead = (R,) if op in (_GTE, _CMP) else (R, A)
+    n = math.prod(lead)
+    if to_host:  # int32 buffers: a gte verdict takes a byte
+        buf, host = result_buffers.get(dev, -(-n // 4) if op == _GTE else n)
+    else:
+        buf = _pair_out(op, (R,), A, dev)
+    if R:
+        q = None
+        if A <= launch_cap("clock_pair"):
+            qptr, qdev = query.ctypes.data, None
+        else:  # wider than the launch's parameters hold: read from the card
+            q = torch.from_numpy(query).to(dev)
+            qptr, qdev = None, q.data_ptr()
+        a_ptr, b_ptr = (qdev, m.data_ptr()) if query_side == 0 else (
+            m.data_ptr(), qdev)
+        a_stride, b_stride = (0, A) if query_side == 0 else (A, 0)
+        _launch_pair(op, a_ptr, b_ptr, a_stride, b_stride, R, A, qptr,
+                     query_side, buf, host.data_ptr() if to_host else None,
+                     dev)
+    if to_host:
+        res = host.numpy().view(np.bool_) if op == _GTE else host.numpy()
+        return res[:n].reshape(lead).copy()
+    return buf
 
 
 def _column_reduce_cuda(clocks: torch.Tensor, op: int, name: str) -> torch.Tensor:
@@ -376,6 +452,25 @@ def satisfied(clock: torch.Tensor, minimum: torch.Tensor) -> torch.Tensor:
     return _pair(_GTE, clock, minimum)
 
 
+def gte_host(query: np.ndarray, m: torch.Tensor) -> np.ndarray:
+    """The dominated scan: all(query >= m[r]) for every row r of the
+    [R, A] matrix m, as a numpy bool [R]. query: int32 numpy [A]. On a
+    GPU the query travels in the launch's parameters and the verdicts
+    come back through this thread's pinned buffer (`pair_query_cuda`);
+    on the CPU the plain version runs on a tensor of the same array."""
+    if _on_cuda(m):
+        return pair_query_cuda(_GTE, query, m, 0, to_host=True)
+    return gte_plain(torch.from_numpy(np.asarray(query, np.int32)), m).numpy()
+
+
+def gte_row(query: np.ndarray, m: torch.Tensor) -> torch.Tensor:
+    """gte_host's verdicts left where m lies: a bool [R] tensor on m's
+    device (the query still by value on a GPU)."""
+    if _on_cuda(m):
+        return pair_query_cuda(_GTE, query, m, 0)
+    return gte_plain(torch.from_numpy(np.asarray(query, np.int32)), m)
+
+
 def cursor_window(doc_seqs: torch.Tensor, cursor_seqs: torch.Tensor) -> torch.Tensor:
     """Change-window computation of RepoBackend.syncChanges (reference
     src/RepoBackend.ts:513-522): per (doc, actor), how many new changes the
@@ -437,10 +532,14 @@ def top_k_dominated(
     return top_k_dominated_plain(clocks, query, k)
 
 
+def host_clocks(rows) -> np.ndarray:
+    """Host rows (crdt.clock.pack output) -> an int32 numpy array, clamped
+    to INT32_INF."""
+    return np.minimum(np.asarray(rows, dtype=np.int64), INT32_INF).astype(np.int32)
+
+
 def pack_clocks(rows, device: DeviceLike = None) -> torch.Tensor:
     """Host rows (crdt.clock.pack output) -> an int32 tensor on `device`
     (cuda unless asked otherwise), clamped to INT32_INF on the host and
     uploaded once."""
-    dev = resolve(device)
-    arr = np.minimum(np.asarray(rows, dtype=np.int64), INT32_INF)
-    return torch.from_numpy(arr.astype(np.int32)).to(dev)
+    return torch.from_numpy(host_clocks(rows)).to(resolve(device))

@@ -16,7 +16,8 @@ top-k covered docs — read nothing from the host beyond the query vector:
   (clock_union.cu) back to back on one stream, with no host sync between
   them, and reads back [actors];
 - dominated() is one pairwise gte (clock_pair.cu) of the query row,
-  broadcast in place, against the matrix; top_k_dominated() is
+  passed in the launch's parameters, against the matrix, its verdicts
+  read back through the thread's pinned buffer; top_k_dominated() is
   clock_topk.cu;
 - capacity grows by pow2 doubling on either axis (device-side pad);
 - seqs clamp to INT32_INF like the rest of the clock kernels.
@@ -227,8 +228,7 @@ class DeviceClockMirror:
         """Doc ids whose clock the query dominates (is >= everywhere)."""
         with self._lock:
             self._flush_locked()
-            q = self._query_vec(query)
-            ok = K.gte(q, self._mat()).cpu().numpy()
+            ok = K.gte_host(self._query_row(query), self._mat())
             return [
                 d for d, r in self.doc_index.items() if ok[r]
             ]
@@ -251,13 +251,16 @@ class DeviceClockMirror:
                     out.append(d)
             return out
 
-    def _query_vec(self, query: Dict[str, int]) -> torch.Tensor:
+    def _query_row(self, query: Dict[str, int]) -> np.ndarray:
         q = np.zeros(self._cap_a, np.int32)
         for actor, seq in query.items():
             col = self.actor_index.get(actor)
             if col is not None:
                 q[col] = min(int(seq), INT32_INF)
-        return self._upload(q)
+        return q
+
+    def _query_vec(self, query: Dict[str, int]) -> torch.Tensor:
+        return self._upload(self._query_row(query))
 
     # -- introspection ---------------------------------------------------
 

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -359,7 +360,7 @@ _SIGNATURES = {
         "hm_pack_prefix", [_P] * 12 + [_I] + [_P] * 8 + [_I] * 9 + [_P] * 16
     ),
     # wrappers in ops/clock_kernels.py
-    "clock_pair": ("hm_clock_pair", [_P] * 2 + [_I] * 5 + [_P] * 2),
+    "clock_pair": ("hm_clock_pair", [_P] * 2 + [_I] * 5 + [_P, _I] + [_P] * 3),
     "clock_union": ("hm_clock_union", [_P] + [_I] * 3 + [_P] * 2),
     "clock_scatter": (
         "hm_clock_scatter", [_P] + [_I] * 2 + [_P] * 3 + [_I, _P]
@@ -390,6 +391,7 @@ _SIGNATURES = {
 _STEMS = {"clock_scatter_params": "clock_scatter", "doc_route": "doc_kernel"}
 # per-launch caps each source reports (its C entry hm_<stem>_cap)
 _CAP_SYMBOLS = {
+    "clock_pair": ("hm_clock_pair_cap", [_I]),
     "summary_wire": ("hm_summary_wire_cap", [_I]),
     "pack_prefix": ("hm_pack_prefix_cap", [_I]),
     "clock_scatter": ("hm_clock_scatter_params_cap", [_I]),
@@ -410,6 +412,33 @@ _DOC_SCRATCH_LANES = 8
 _WIRE_INT_DTYPES = (torch.int8, torch.int16, torch.int32)
 # the routes hm_doc_route resolved, by (device index, D, N, route asked)
 _doc_routes: Dict[tuple, int] = {}
+
+
+class _ResultBuffers(threading.local):
+    """Each calling thread's int32 result buffers, by device: the device
+    output and the pinned host copy the C entry writes it into, shared by
+    serve_lookup, serve_order, serve_counts and clock_pair's host route.
+    Reused while they are large enough, replaced by ones twice the size
+    otherwise. Every dispatch syncs before it returns, so no copy is in
+    flight when the next dispatch of the thread, of any kind, reuses
+    them."""
+
+    def __init__(self) -> None:
+        self.by_dev = {}
+
+    def get(self, dev: torch.device, n: int):
+        bufs = self.by_dev.get(dev)
+        if bufs is None or bufs[0].numel() < n:
+            size = round_up_pow2(n)
+            bufs = self.by_dev[dev] = (
+                torch.empty(size, dtype=torch.int32, device=dev),
+                torch.empty(size, dtype=torch.int32,
+                            pin_memory=dev.type == "cuda"),
+            )
+        return bufs
+
+
+result_buffers = _ResultBuffers()
 
 
 def kernel_fn(name: str):

@@ -248,9 +248,9 @@ def sharded_clock_union(clocks, mesh: Mesh) -> ShardedTensor:
 
 def sharded_dominated(clocks, query, mesh: Mesh) -> ShardedTensor:
     """[D, A], [A] -> [D] bool: which docs' clocks the query dominates.
-    Each rank answers `<=` over its actor columns (clock_pair.cu), and
-    the sp group's verdicts fold by min; the answer is dp-split (piece i
-    on rank (i, 0))."""
+    Each rank answers `<=` over its actor columns (clock_pair.cu, its
+    query slice in the launch's parameters), and the sp group's verdicts
+    fold by min; the answer is dp-split (piece i on rank (i, 0))."""
     arr, D, A = _pad_axes(np.asarray(clocks, np.int32), mesh)
     q = np.zeros(arr.shape[1], np.int32)
     q[:A] = np.asarray(query)
@@ -260,8 +260,8 @@ def sharded_dominated(clocks, query, mesh: Mesh) -> ShardedTensor:
         parts = []
         for j in range(mesh.shape["sp"]):
             c = _block(arr, mesh, i, j)
-            qj = torch.from_numpy(q[j * a : (j + 1) * a].copy()).to(c.device)
-            parts.append(ckk.gte(qj, c).to(torch.int32)[None])
+            qj = np.ascontiguousarray(q[j * a : (j + 1) * a])
+            parts.append(ckk.gte_row(qj, c).to(torch.int32)[None])
         pieces.append(_fold(parts, mesh, mesh.sp_group(i), "min") > 0)
     return ShardedTensor(pieces, length=D)
 

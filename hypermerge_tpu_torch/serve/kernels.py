@@ -24,7 +24,6 @@ resident doc — a single host->device transfer per install):
 
 from __future__ import annotations
 
-import threading
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -148,32 +147,6 @@ def lane_pointers(devs) -> np.ndarray:
     return np.asarray([t.data_ptr() for t in devs], np.int64)
 
 
-class _ResultBuffers(threading.local):
-    """Each calling thread's result buffers, by device: the device output
-    and the pinned host copy the C entry writes it into, shared by
-    serve_lookup, serve_order and serve_counts. Reused while they are
-    large enough, replaced by ones twice the size otherwise. Every
-    dispatch syncs before it returns, so no copy is in flight when the
-    next dispatch of the thread, of any kind, reuses them."""
-
-    def __init__(self) -> None:
-        self.by_dev = {}
-
-    def get(self, dev: torch.device, n: int):
-        bufs = self.by_dev.get(dev)
-        if bufs is None or bufs[0].numel() < n:
-            size = round_up_pow2(n)
-            bufs = self.by_dev[dev] = (
-                torch.empty(size, dtype=torch.int32, device=dev),
-                torch.empty(size, dtype=torch.int32,
-                            pin_memory=dev.type == "cuda"),
-            )
-        return bufs
-
-
-_result_buffers = _ResultBuffers()
-
-
 def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
     """serve_lookup.cu over the batch: the lane pointers, qobj and qkey
     pass by value in the launch parameters; the entry copies [2 * B]
@@ -185,7 +158,7 @@ def map_lookup_cuda(devs, qobj: np.ndarray, qkey: np.ndarray):
     qkey = np.ascontiguousarray(qkey, dtype=np.int32)
     per_launch = (B if B <= LOOKUP_ENTRIES_MIN
                   else ck.launch_cap("serve_lookup", 0))
-    out, host = _result_buffers.get(dev, 2 * B)
+    out, host = ck.result_buffers.get(dev, 2 * B)
     fn = ck.kernel_fn("serve_lookup")
     with ck.launch_scope(dev):  # the batcher thread launches here
         rc = fn(ptrs.ctypes.data, qobj.ctypes.data, qkey.ctypes.data, B, N,
@@ -206,7 +179,7 @@ def seq_order_cuda(devs, qobj: np.ndarray):
     per_launch = (B if B <= LANE_ENTRIES_MIN
                   else ck.launch_cap("serve_order", 0))
     n_out = B * N + B
-    out, host = _result_buffers.get(dev, n_out)
+    out, host = ck.result_buffers.get(dev, n_out)
     # the keys of a bucket above ORDER_SHARED_KEYS live in global scratch,
     # one launch's entries at a time, then their head sizes
     scratch, scratch_len = None, 0
@@ -234,7 +207,7 @@ def counts_cuda(devs, qobj: np.ndarray):
     qobj = np.ascontiguousarray(qobj, dtype=np.int32)
     per_launch = (B if B <= LANE_ENTRIES_MIN
                   else ck.launch_cap("serve_counts", 0))
-    out, host = _result_buffers.get(dev, 2 * B)
+    out, host = ck.result_buffers.get(dev, 2 * B)
     fn = ck.kernel_fn("serve_counts")
     with ck.launch_scope(dev):
         rc = fn(ptrs.ctypes.data, qobj.ctypes.data, B, N, 0, out.data_ptr(),

@@ -196,8 +196,9 @@ class ClockStore:
         doc_ids: Optional[List[str]] = None,
     ) -> List[str]:
         """All docs whose clock is dominated by `query` (one pairwise
-        gte, the query row broadcast in place; device-resident when a
-        mirror is attached)."""
+        gte, the query row in the launch's parameters and the verdicts
+        read back through a pinned buffer; device-resident when a mirror
+        is attached)."""
         m = self._mirror_for(repo_id)
         if m is not None and doc_ids is None:
             return m.dominated(query)
@@ -207,11 +208,9 @@ class ClockStore:
         rows, actors = self._packed(repo_id, ids)
         if rows is None:
             return list(ids)
-        q = K.pack_clocks(
-            clockmod.pack([{a: query.get(a, 0) for a in actors}], actors),
-            device=self.device,
-        )[0]
-        ok = K.gte(q, rows).tolist()
+        q = K.host_clocks(
+            clockmod.pack([{a: query.get(a, 0) for a in actors}], actors))[0]
+        ok = K.gte_host(q, rows).tolist()
         return [d for d, good in zip(ids, ok) if good]
 
 

@@ -88,6 +88,13 @@ template <class F>
 inline int cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
+// the blocks of `block` threads one SM holds at once: its 2,048 threads
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F,
+                                                         int block, size_t) {
+  *blocks = 2048 / block;
+  return 0;
+}
 
 struct shim_dim3 {
   unsigned x = 0, y = 0, z = 0;

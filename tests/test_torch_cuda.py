@@ -406,6 +406,82 @@ def test_clock_scatter_params_equal_plain(cuda, n):
     assert torch.equal(ckk.scatter_max_cuda_(m.clone(), *trip), want)
 
 
+@pytest.mark.parametrize("op", list(ckk._PLAIN_PAIR))
+def test_clock_pair_routes_at_config5(cuda, op):
+    """clock_pair.cu at config 5's resident [131072, 64] on every route:
+    the wrapper's row-and-matrix path (the row on either side, from the
+    device), the by-value query on either side with the result on the
+    card and through the pinned buffer, each == the plain version and
+    each one launch."""
+    plain = ckk._PLAIN_PAIR[op]
+    m = _clocks(25, 131072, 64)
+    q = m[17].clone()
+    q[::5] = 990
+    qh = q.cpu().numpy()
+    for side in (0, 1):
+        want = plain(q, m) if side == 0 else plain(m, q)
+        before = ck.launches["clock_pair"]
+        got = ckk.pair_cuda(op, q, m) if side == 0 else ckk.pair_cuda(op, m, q)
+        assert torch.equal(got, want), side
+        assert torch.equal(ckk.pair_query_cuda(op, qh, m, side), want), side
+        host = ckk.pair_query_cuda(op, qh, m, side, to_host=True)
+        assert isinstance(host, np.ndarray)
+        assert np.array_equal(host, want.cpu().numpy()), side
+        assert ck.launches["clock_pair"] == before + 3
+    assert np.array_equal(ckk.gte_host(qh, m), ckk.gte_plain(q, m).cpu().numpy())
+    assert torch.equal(ckk.gte_row(qh, m), ckk.gte_plain(q, m))
+
+
+def test_clock_pair_pinned_route_from_two_threads(cuda):
+    """Two threads calling gte_host at once, each on its own query and
+    matrix, each holding its own answer: the pinned buffers are the
+    thread's own."""
+    import threading
+
+    mats = [_clocks(30 + t, 20000 + 999 * t, 64) for t in range(2)]
+    queries = [np.full(64, 500 + 300 * t, np.int32) for t in range(2)]
+    wants = [ckk.gte_plain(torch.from_numpy(q).cuda(), m).cpu().numpy()
+             for q, m in zip(queries, mats)]
+    bad = []
+
+    def run(t):
+        for _ in range(200):
+            got = ckk.gte_host(queries[t], mats[t])
+            if not np.array_equal(got, wants[t]):
+                bad.append(t)
+                return
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+
+
+def test_clock_pair_entry_errors_raise(cuda, monkeypatch):
+    """An error code from the entry raises in the wrapper, counts no
+    launch, and takes no other route: the entry's own refusal (a query
+    wider than its parameters hold, passed by value), and a CUDA error
+    code as the entry would return one."""
+    m = _clocks(40, 16, 8192)
+    q = np.zeros(8192, np.int32)
+    out = torch.empty(16, dtype=torch.bool, device="cuda")
+    before = ck.launches["clock_pair"]
+    with pytest.raises(RuntimeError, match="clock_pair"):
+        ckk._launch_pair(ckk._GTE, None, m.data_ptr(), 0, 8192, 16, 8192,
+                         q.ctypes.data, 0, out, None, m.device)
+    assert ckk.gte_host(q, m).shape == (16,)  # above the cap: uploaded
+    real = ck.kernel_fn("clock_pair")
+    monkeypatch.setitem(ck._fns, "clock_pair", lambda *a: 700)
+    for call in (lambda: ckk.gte_host(q[:64], m[:, :64].contiguous()),
+                 lambda: ckk.pair_cuda(ckk._GTE, m[0], m)):
+        with pytest.raises(RuntimeError, match="error 700"):
+            call()
+    monkeypatch.setitem(ck._fns, "clock_pair", real)
+    assert ck.launches["clock_pair"] == before + 1
+
+
 def test_clock_scatter_wrappers_reject_what_they_do_not_take(cuda):
     m = _clocks(6, 16, 8)
     rows = np.zeros(4, np.int32)

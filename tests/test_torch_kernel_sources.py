@@ -16,7 +16,12 @@ mod 16, every source dtype, int32 row and key planes, N not a multiple
 of 16; also on a shim of one SM, whose tiles are 2,048 cells), and the four
 clock kernels with the plain versions in ops/clock_kernels.py (seeded
 clocks with INT32_INF entries, broadcast rows, negative inputs, duplicate
-scatter cells; the column reduce on both of its routes, with D = 64 and
+scatter cells; clock_pair's every op on each of its routes at A in {1, 3,
+4, 5, 8, 16, 32, 64, 70, 132, 260} (G = 1 .. 32 lanes a row, int4 and
+scalar units, units past the held registers) and R = 37 and 1: the row
+from the device on either side, two full operands, the query by value on
+either side, the host copy of the result, every base one int off
+alignment; the column reduce on both of its routes, with D = 64 and
 65 on the two sides of their boundary, an A that is not a multiple of 4,
 a base 4 bytes past an aligned address and the int32 ends; top-k at
 small tiles on both of its routes: mass ties,
@@ -48,7 +53,8 @@ the last round did not write, a word packer dropping the last partial
 word, the climb's first buffer over the keys) must fail, each in a
 subprocess. Mutants of the clock kernels (top-k ties broken by the
 higher index, a tile keeping k - 1 candidates, a key packing that loses
-the sign order, a scatter by plain store, a union or a min started at 0
+the sign order, a pair verdict from one lane's columns, a broadcast row
+held from the wrong column, a scatter by plain store, a union or a min started at 0
 on each route, a columns route that drops the A % 4 tail), of the serve
 kernels (a lookup that answers -1 when nothing matches, a lookup that
 keeps the highest match, a split lookup launch that drops its last
@@ -1001,6 +1007,23 @@ def _clock_matrix(seed, R, A, lo=0, hi=6):
     return torch.from_numpy(m)
 
 
+def _pair_result(op, lead, A):
+    """clock_pair's output, filled with garbage."""
+    if op == ckk._GTE:
+        return torch.full(lead, 7, dtype=torch.uint8)
+    if op == ckk._CMP:
+        return torch.full(lead, 99, dtype=torch.int32)
+    return torch.full((*lead, A), 0x5A5A, dtype=torch.int32)
+
+
+def _pair_verdicts(op, out):
+    """The result as pair_cuda returns it; a bool lane must be 0 or 1."""
+    if op == ckk._GTE:
+        assert set(out.unique().tolist()) <= {0, 1}
+        return out == 1
+    return out
+
+
 def _run_host_pair(fn, op, a, b):
     """clock_pair.cu on the host, as pair_cuda calls it; outputs start as
     garbage, and a bool lane must come back 0 or 1."""
@@ -1008,19 +1031,33 @@ def _run_host_pair(fn, op, a, b):
     lead = tuple(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
     a, sa = ckk._operand(a, lead, A)
     b, sb = ckk._operand(b, lead, A)
-    if op == ckk._GTE:
-        out = torch.full(lead, 7, dtype=torch.uint8)
-    elif op == ckk._CMP:
-        out = torch.full(lead, 99, dtype=torch.int32)
-    else:
-        out = torch.full((*lead, A), 0x5A5A, dtype=torch.int32)
+    out = _pair_result(op, lead, A)
     rc = fn(a.data_ptr(), b.data_ptr(), sa, sb, math.prod(lead), A, op,
-            out.data_ptr(), None)
+            None, 0, out.data_ptr(), None, None)
     assert rc == 0
-    if op == ckk._GTE:
-        assert set(out.unique().tolist()) <= {0, 1}
-        return out == 1
-    return out
+    return _pair_verdicts(op, out)
+
+
+def _run_host_pair_query(fn, op, query, m, side, host_out=False):
+    """clock_pair.cu's by-value route on the host, as pair_query_cuda
+    calls it: the [A] query row from host memory on `side` (0: a, 1: b)
+    with no device pointer, against the [R, A] matrix m; with host_out,
+    the result is read from the host copy the entry makes (the device
+    output must hold the same)."""
+    R, A = m.shape
+    q = np.ascontiguousarray(query.numpy(), dtype=np.int32)
+    lead = (R,) if op in (ckk._GTE, ckk._CMP) else (R, A)
+    out = _pair_result(op, (R,), A)
+    host = _pair_result(op, (R,), A) if host_out else None
+    ptrs = (None, m.data_ptr()) if side == 0 else (m.data_ptr(), None)
+    strides = (0, A) if side == 0 else (A, 0)
+    rc = fn(*ptrs, *strides, R, A, op, q.ctypes.data, side, out.data_ptr(),
+            None if host is None else host.data_ptr(), None)
+    assert rc == 0
+    if host is not None:
+        assert torch.equal(host, out)
+        out = host
+    return _pair_verdicts(op, out.view(lead))
 
 
 PAIR_OPS = {
@@ -1046,6 +1083,86 @@ def test_clock_pair_source_equals_plain(host_kernels, name):
             got = _run_host_pair(host_kernels["clock_pair"], op, x, y)
             want = plain(x, y)
             assert got.dtype == want.dtype and torch.equal(got, want), (R, A)
+
+
+# the widths of the redesigned layout: G = 1 (A <= 4), 2, 4, 8, 16 and 32
+# lanes a row, the scalar route (A % 4 != 0), rows past 128 ints (a lane
+# takes several units) and past 256 (units beyond the held registers)
+PAIR_WIDTHS = (1, 3, 4, 5, 8, 16, 32, 64, 70, 132, 260)
+# R = 37: not a multiple of the rows a warp takes at any G (kRows x 32 / G)
+PAIR_ROUTES = ("device", "by_value", "host_out", "offset")
+
+
+def _pair_operands(A, R=37, seed=0):
+    """(a, b) [R, A] int32 with EQ, GT, LT and CONCUR rows and INT32_INF
+    entries, and the broadcast rows the cases take from them."""
+    a = _clock_matrix(R * A + seed, R, A)
+    b = _clock_matrix(R * A + seed + 1, R, A)
+    b[::4] = a[::4]  # EQ rows
+    b[1::4] = torch.clamp(a[1::4] - 1, min=0)  # GT rows (or EQ)
+    b[2::4] = a[2::4] + 1  # LT rows
+    return a, b
+
+
+def _pair_mutant_operands(A, R=37):
+    """(q, m): a query row rising by column, and rows that it dominates
+    (even rows) or that exceed it in their last column alone (odd rows),
+    so that a verdict from one lane's columns, or a query read at another
+    column, differs from the plain version."""
+    q = 10 + torch.arange(A, dtype=torch.int32)
+    m = q - (torch.arange(R, dtype=torch.int32)[:, None] % 3)
+    m[1::2, A - 1] = q[A - 1] + 1
+    return q, m.contiguous()
+
+
+@pytest.mark.parametrize("route", PAIR_ROUTES)
+@pytest.mark.parametrize("A", PAIR_WIDTHS)
+def test_clock_pair_routes_equal_plain(host_kernels, A, route):
+    """Every op on one route of the redesigned kernel == its plain
+    version: "device" reads the broadcast row (either side) and full
+    operands from device memory, "by_value" takes the row from the
+    launch's parameters on either side, "host_out" also copies the
+    result into a host buffer, "offset" puts every operand's base 4 bytes
+    off 16-byte alignment (the scalar route at any A); R = 37 and R = 1."""
+    fn = host_kernels["clock_pair"]
+    a, b = _pair_operands(A)
+    for op, plain in ckk._PLAIN_PAIR.items():
+        if route == "device":
+            cases = [(a, b), (a[5], b), (a, b[5]), (a[:1], b[:1]), (a[3], b[:1])]
+            for x, y in cases:
+                got = _run_host_pair(fn, op, x, y)
+                assert torch.equal(got, plain(x, y)), (op, x.shape, y.shape)
+        elif route == "offset":
+            x, y = _offset_view(a), _offset_view(b)
+            row = _offset_view(b[6:7])[0]
+            for xx, yy in ((x, y), (row, x), (x, row)):
+                got = _run_host_pair(fn, op, xx, yy)
+                assert torch.equal(got, plain(xx, yy)), (op, xx.shape)
+        else:
+            host_out = route == "host_out"
+            for m in (b, b[:1]):
+                for side in (0, 1):
+                    q = a[5]
+                    got = _run_host_pair_query(fn, op, q, m, side, host_out)
+                    want = plain(q, m) if side == 0 else plain(m, q)
+                    assert torch.equal(got, want), (op, side, m.shape)
+
+
+def test_clock_pair_source_reports_its_limits(host_kernels):
+    """The query row's structs follow the toolkit's parameter limit
+    (CUDA 12.4 on the shim: 4,096 ints, the small one 256); a query
+    wider than the largest, or on a side with a row stride, is refused."""
+    fn, cap = host_kernels["clock_pair"], host_kernels["clock_pair_cap"]
+    assert (cap(0), cap(1)) == (4096, 256)
+    m = torch.zeros(3, 4097, dtype=torch.int32)
+    q = np.zeros(4097, np.int32)
+    out = torch.zeros(3, dtype=torch.uint8)
+    assert fn(None, m.data_ptr(), 0, 4097, 3, 4097, ckk._GTE, q.ctypes.data,
+              0, out.data_ptr(), None, None) == -1
+    assert fn(m.data_ptr(), m.data_ptr(), 4097, 4097, 3, 4097, ckk._GTE,
+              q.ctypes.data, 0, out.data_ptr(), None, None) == -1
+    assert fn(m.data_ptr(), m.data_ptr(), 4097, 4097, 3, 4097, 5, None, 0,
+              out.data_ptr(), None, None) == -1
 
 
 def _run_host_union(fn, m, op=ckk._MAX):
@@ -1409,6 +1526,16 @@ MUTANTS = {
         ("for (int i0 = 0; i0 < n; i0 += chunk) {",
          "for (int i0 = 0; i0 + chunk < n; i0 += chunk) {"),
     ]),
+    # the row's verdict from its first lane's columns alone
+    "pair_no_fold_across_lanes": ("clock_pair", [
+        ("const bool all_ge = ((wge >> (s * G)) & gmask) == 0;",
+         "const bool all_ge = ((wge >> (s * G)) & 1u) == 0;"),
+    ]),
+    # every lane holds the broadcast row's first unit of its pass
+    "pair_broadcast_wrong_column": ("clock_pair", [
+        ("bcast_unit<kVec, kParam>(hrow, q, j + k * G, held[k]);",
+         "bcast_unit<kVec, kParam>(hrow, q, k * G, held[k]);"),
+    ]),
     "union_starts_at_zero": ("clock_union", [
         ("constexpr int kNoValue = INT32_MIN;", "constexpr int kNoValue = 0;"),
     ]),
@@ -1471,6 +1598,14 @@ def test_clock_mutants_fail(tmp_path, name):
                 assert torch.equal(got[0], want[0])
             assert not (torch.equal(got[0], want[0])
                         and torch.equal(got[1], want[1])), case
+    elif stem == "clock_pair":  # gte on both routes, from device and by value
+        for A in (64, 70):
+            q, a = _pair_mutant_operands(A)
+            assert not torch.equal(_run_host_pair(fn, ckk._GTE, q, a),
+                                   ckk.gte_plain(q, a)), A
+            assert not torch.equal(
+                _run_host_pair_query(fn, ckk._GTE, q, a, 0),
+                ckk.gte_plain(q, a)), A
     elif name == "scatter_split_drops_last_chunk":  # n = per_launch + 1
         m, trip = _params_inputs(17, seed=2)
         got = _run_host_params(fns["clock_scatter_params"], m, *trip,
